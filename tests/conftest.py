@@ -14,6 +14,8 @@ def pytest_configure(config):
     config.addinivalue_line(
         "markers",
         "perf: performance smoke tests (compare optimized vs baseline paths)")
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA device (skips without one)")
 
 
 @pytest.fixture(scope="session")
