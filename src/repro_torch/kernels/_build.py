@@ -29,6 +29,7 @@ ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 CFLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 _P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+_F = ctypes.c_float
 # Every entry point returns cudaGetLastError() as an int.  Pointers and the
 # stream are c_void_p: without argtypes ctypes would pass a Python int as a
 # 32-bit C int and cut the pointer.
@@ -39,6 +40,10 @@ SIGNATURES = {
     "repro_matmul": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     # x, out, rows, n, dtype, device, stream
     "repro_sort_rows": (_P, _P, _I, _I, _I, _I, _P),
+    # q, k, v, out, batch, q_heads, kv_heads, seq_q, seq_k, head_dim, dtype,
+    # causal, has_window, window, sm_scale, device, stream
+    "repro_flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                              _I, _I, _I, _F, _I, _P),
 }
 
 _lock = threading.Lock()

@@ -22,6 +22,7 @@ from typing import Callable
 import torch
 
 from . import copy_stream as _copy_stream
+from . import flash_attention as _flash
 from . import matmul as _matmul
 from . import sort_bitonic as _sort
 
@@ -73,6 +74,22 @@ def sort_rows(x, *, block_rows=8, force=None):
     return _sort.sort_rows(x) if kernel else _sort.plain(x)
 
 
+def flash_attention(q, k, v, *, causal=True, window=None, bq=256, bk=256,
+                    sm_scale=None, force=None):
+    """Attention of q (B, Hq, S, D) over k, v (B, Hkv, Sk, D).  ``bq`` and
+    ``bk`` are the TPU kernel's tiles: they are checked (``S % bq``,
+    ``Sk % bk``) as the Pallas path checks them, but the CUDA kernel picks
+    its own tiles (64 q rows by 64 keys) and takes any S and Sk."""
+    kernel = _use_kernel(q, force)
+    if force != "ref":
+        _flash.check_shapes(q, k, v)
+        s, sk = q.shape[2], k.shape[2]
+        if s % bq or sk % bk:
+            raise ValueError(f"seq {s}/{sk} not tiled by bq={bq}/bk={bk}")
+    fn = _flash.launch if kernel else _flash.plain
+    return fn(q, k, v, causal=causal, window=window, sm_scale=sm_scale)
+
+
 # ---------------------------------------------------------------------------
 # implementation registry
 # ---------------------------------------------------------------------------
@@ -80,6 +97,7 @@ _OPS: dict[str, Callable] = {
     "matmul": matmul,
     "copy": copy,
     "sort_rows": sort_rows,
+    "flash_attention": flash_attention,
 }
 
 

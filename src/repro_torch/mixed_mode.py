@@ -7,11 +7,10 @@ data-reuse and memory-bound classes, in equal thirds) runs on
 ``ChunkedWork`` chunks call one kernel through ``kernels.ops``; the PTT
 learns per-(leader, width) wall times and molding acts on them.
 
-On the card every worker thread launches on a thread-local CUDA stream and
-synchronises that stream at the end of each chunk, so a leader's wall time,
-which is what the PTT learns, covers the device work and not only the launch.
-The ctypes launch and ``Stream.synchronize()`` both release the interpreter
-lock, so the threads overlap.  On one card the BIG and LITTLE workers of
+On the card every worker thread launches on a CUDA stream of its own and
+synchronises it at the end of each chunk (``workers.on_own_stream``), so a
+leader's wall time, which is what the PTT learns, covers the device work and
+not only the launch.  On one card the BIG and LITTLE workers of
 ``hikey960()`` are labels on eight threads that share it: no core is slower.
 
 Run:  PYTHONPATH=src python -m repro_torch.mixed_mode [--device cpu]
@@ -19,9 +18,6 @@ Run:  PYTHONPATH=src python -m repro_torch.mixed_mode [--device cpu]
 from __future__ import annotations
 
 import argparse
-import collections
-import dataclasses
-import threading
 
 import numpy as np
 import torch
@@ -29,6 +25,7 @@ import torch
 from .core import (ChunkedWork, ThreadedRuntime, hikey960, make_policy,
                    random_dag)
 from .kernels import ops
+from .workers import ChunkLog, on_own_stream, resolve_device
 
 # class -> chunk operand shape.  The example's shapes are launch-bound on an
 # H100; at these each class keeps its bound there (PERF.md, "Cells").
@@ -48,17 +45,6 @@ CHUNK_OPS = {
 }
 
 
-def resolve_device(device) -> torch.device:
-    """``device`` as a ``torch.device``; a CUDA device must exist."""
-    dev = torch.device(device)
-    if dev.type not in ("cuda", "cpu"):
-        raise ValueError(f"device must be cuda or cpu, got {dev}")
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device: pass device='cpu' to run the "
-                           "plain versions on the CPU")
-    return dev
-
-
 def make_arrays(shapes=PAPER_SHAPES, seed: int = 0) -> dict[str, np.ndarray]:
     """One float32 standard-normal operand per class, from a numpy seed."""
     rng = np.random.default_rng(seed)
@@ -76,57 +62,6 @@ def operands_from_numpy(arrays: dict[str, np.ndarray],
             for cls, a in arrays.items()}
 
 
-@dataclasses.dataclass(frozen=True)
-class PTTRecord:
-    """One PTT update: the leader's wall time for one TAO, and how many of
-    the TAO's chunks the leader itself ran (0 when the other members of its
-    place claimed them all first)."""
-
-    cls: str
-    leader: int
-    width: int
-    elapsed_s: float
-    leader_chunks: int
-
-
-class ChunkLog:
-    """What the chunks of one run did, for checking a run: how often each
-    (TAO, chunk) ran (``runs``), per worker thread how many chunks of each TAO
-    that thread ran, and every PTT update (``records``).  Opt-in: a run takes
-    its cost only when a caller passes one to ``run``."""
-
-    def __init__(self) -> None:
-        self.runs: collections.Counter = collections.Counter()
-        self.records: list[PTTRecord] = []
-        self._lock = threading.Lock()
-        self._local = threading.local()
-
-    def note(self, tao, i: int) -> None:
-        with self._lock:
-            self.runs[(tao.id, i)] += 1
-        mine = getattr(self._local, "ran", None)
-        if mine is None:
-            mine = self._local.ran = collections.Counter()
-        mine[tao] += 1
-
-    def ran_here(self, tao) -> int:
-        """Chunks of ``tao`` that the calling thread ran."""
-        mine = getattr(self._local, "ran", None)
-        return mine[tao] if mine else 0
-
-    def watch(self, core) -> None:
-        """Note every PTT update that ``core`` (a ``SchedulerCore``) takes."""
-        record_time = core.record_time
-
-        def record(tao, leader, width, elapsed):
-            # runs on the leader's own thread, so ran_here counts its chunks
-            self.records.append(PTTRecord(tao.type, leader, width, elapsed,
-                                          self.ran_here(tao)))
-            record_time(tao, leader, width, elapsed)
-
-        core.record_time = record
-
-
 def bind_real_work(dag, operands: dict[str, torch.Tensor], *, device,
                    n_chunks: int = N_CHUNKS,
                    log: ChunkLog | None = None) -> None:
@@ -135,34 +70,11 @@ def bind_real_work(dag, operands: dict[str, torch.Tensor], *, device,
     A chunk returns the op's output.  On the card it launches on the calling
     thread's own stream and returns once that stream has drained."""
     dev = resolve_device(device)
-    local = threading.local()
-
-    def call(cls):
-        op, x = CHUNK_OPS[cls], operands[cls]
-        if dev.type != "cuda":
-            return lambda i: op(x)
-
-        def on_own_stream(i):
-            s = getattr(local, "stream", None)
-            if s is None:
-                s = local.stream = torch.cuda.Stream(dev)
-            with torch.cuda.stream(s):
-                out = op(x)
-            s.synchronize()
-            return out
-        return on_own_stream
-
-    def logged(run_chunk, tao):
-        def fn(i):
-            out = run_chunk(i)
-            log.note(tao, i)
-            return out
-        return fn
-
-    calls = {cls: call(cls) for cls in operands}
+    calls = on_own_stream({cls: lambda i, op=CHUNK_OPS[cls], x=x: op(x)
+                           for cls, x in operands.items()}, dev)
     for node in dag.nodes:
         fn = calls[node.type]
-        node.work = ChunkedWork(fn if log is None else logged(fn, node),
+        node.work = ChunkedWork(fn if log is None else log.wrap(fn, node),
                                 n_chunks=n_chunks)
 
 

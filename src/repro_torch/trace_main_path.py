@@ -1,14 +1,23 @@
-"""Where the main path's time goes on the card.
+"""Where the ported paths' time goes on the card.
 
-First prints, for each class, the wall time of one chunk run alone on one
-thread, which set beside the kernel's device time gives the host's cost per
-chunk.  Then, for each policy, it runs the paper's full-size mixed-mode DAG
-``REPEATS`` times without a ``ChunkLog`` and ``REPEATS`` times with one,
-interleaved, and prints one JSON line with every run's elapsed time: the
-run-to-run spread of TAOs/s, and the log's cost read against it.  Last it
-runs each policy once under ``torch.profiler`` and prints one JSON line with
-the card's busy time (the union of all kernel intervals inside the run), its
-idle share, and device time and launches by kernel name.
+Mixed-mode DAG (slice 1).  First prints, for each class, the wall time of
+one chunk run alone on one thread, which set beside the kernel's device time
+gives the host's cost per chunk.  Then, for each policy, it runs the paper's
+full-size mixed-mode DAG ``REPEATS`` times without a ``ChunkLog`` and
+``REPEATS`` times with one, interleaved, and prints one JSON line with every
+run's elapsed time: the run-to-run spread of TAOs/s, and the log's cost read
+against it.
+
+Serving (slice 2).  The wall time of one prefill and one decode chunk alone,
+then ``REPEATS`` runs of each serving path of ``chip_smoke.py`` (the entry
+point's trace, gate and controller; the full backlog with neither) through a
+warm zoo of two kernel tenants at llama3.2-1b widths, with tokens/s and p99
+sojourn per tenant of every run.
+
+Last it runs each mixed-mode policy and each serving path once under
+``torch.profiler`` and prints one JSON line each with the card's busy time
+(the union of all kernel intervals inside the run's span), its idle share,
+and device time and launches by kernel name.
 
 Run on a card:  PYTHONPATH=src python -m repro_torch.trace_main_path
 """
@@ -26,6 +35,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from . import mixed_mode
 from .core import random_dag
+from .launch import serve, zoo
 
 N_TASKS = 3000  # the main path's size (mixed_mode.run's default)
 REPEATS = 5     # runs of each policy without and with a ChunkLog
@@ -78,17 +88,52 @@ def spread(policy: str) -> dict:
                                          / statistics.median(plain))}
 
 
-def traced_run(policy: str) -> dict:
+def serve_chunk_costs(tenants: dict, reps: int = 50) -> None:
+    """Median wall time of one prefill and one decode chunk alone."""
+    tenant = tenants["steady"]
+    for typ in ("prefill", "decode"):
+        fn = tenant._chunks[None, typ]
+        for _ in range(5):
+            fn(0)
+        walls = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn(0)
+            walls.append((time.perf_counter() - t0) * 1e3)
+        print(json.dumps({"chunk": typ, "wall_ms": statistics.median(walls)}),
+              flush=True)
+
+
+def serve_spread(path: str, tenants: dict) -> dict:
+    """``REPEATS`` runs of one serving path: tokens/s and p99 sojourns."""
+    trace, controls = serve.PATHS[path]
+    runs = []
+    for _ in range(REPEATS):
+        st = serve.run_zoo(trace(), tenants, **controls())
+        runs.append({"makespan_s": st.makespan,
+                     "tokens_per_s": st.tokens_per_s,
+                     "p99_sojourn_s_by_tenant": st.p99_by_tenant(),
+                     "rejected": st.result.n_rejected,
+                     "preemptions": st.result.n_preemptions})
+    rate = [r["tokens_per_s"] for r in runs]
+    return {"path": path, "runs": runs,
+            "tokens_per_s_median": statistics.median(rate),
+            "tokens_per_s_min": min(rate), "tokens_per_s_max": max(rate)}
+
+
+def traced(label: str, span: str, run) -> dict:
+    """``run()`` once under ``torch.profiler``: the card's busy time and idle
+    share inside the profiler span named ``span``."""
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "trace.json")
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            traced = mixed_mode.run(policy, N_TASKS)
+            run()
         prof.export_chrome_trace(path)
         with open(path) as f:
             events = json.load(f)["traceEvents"]
     window = [e for e in events if e.get("cat") == "user_annotation"
-              and e.get("name") == mixed_mode.RUN_SPAN]
+              and e.get("name") == span]
     kernels = [e for e in events if e.get("cat") == "kernel"]
     by_name = collections.defaultdict(lambda: [0, 0.0])
     intervals = []
@@ -104,8 +149,7 @@ def traced_run(policy: str) -> dict:
     busy_ms = _union_us(intervals) / 1e3
     window_ms = window[0]["dur"] / 1e3 if window else None
     return {
-        "policy": policy, "n_tasks": N_TASKS,
-        "traced_elapsed_s": traced["elapsed_s"],
+        "run": label,
         "trace_window_ms": window_ms,
         "kernel_events": len(intervals),
         "device_busy_ms": busy_ms if window else None,
@@ -120,8 +164,19 @@ def main() -> None:
     chunk_costs()
     for policy in mixed_mode.POLICIES:
         print(json.dumps(spread(policy)), flush=True)
+    tenants = zoo.default_zoo(serve.KERNEL_TENANTS)
+    zoo.warm_zoo(tenants)
+    serve_chunk_costs(tenants)
+    for path in serve.PATHS:
+        print(json.dumps(serve_spread(path, tenants)), flush=True)
     for policy in mixed_mode.POLICIES:
-        print(json.dumps(traced_run(policy)), flush=True)
+        print(json.dumps(traced(
+            f"mixed_mode:{policy}", mixed_mode.RUN_SPAN,
+            lambda: mixed_mode.run(policy, N_TASKS))), flush=True)
+    for path, (trace, controls) in serve.PATHS.items():
+        requests, kw = trace(), controls()
+        print(json.dumps(traced(path, serve.SERVE_SPAN, lambda: serve.run_zoo(
+            requests, tenants, **kw))), flush=True)
 
 
 if __name__ == "__main__":

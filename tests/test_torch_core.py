@@ -44,6 +44,7 @@ def test_importing_the_port_loads_no_jax_and_no_repro():
         "import json, sys\n"
         "import repro_torch, repro_torch.core, repro_torch.kernels.ops\n"
         "import repro_torch.mixed_mode\n"
+        "import repro_torch.launch.zoo, repro_torch.launch.serve\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro')]\n"
         "print(json.dumps(bad))\n")

@@ -6,15 +6,21 @@ buffers, int32, one-element rows.  Every test here needs a card and is marked
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 Tolerances: matmul rtol=tol, atol=10*tol as in tests/test_kernels.py (tol
-5e-5 fp32, 2e-2 bf16); copy and sort bit-exact.
+5e-5 fp32, 2e-2 bf16); copy and sort bit-exact; flash attention
+rtol=atol=2e-4 fp32 (summation order), and rtol=1e-2, atol=2e-3 bf16: both
+sides compute in fp32 and round the output to bf16 once, so they differ by at
+most one bf16 ulp (2^-7 of the value), as chip_smoke.py holds it.
 """
 import numpy as np
 import pytest
 import torch
 
 from repro_torch import mixed_mode
-from repro_torch.kernels import (copy_stream, launch_counts, matmul, ops,
-                                 sort_bitonic)
+from repro_torch.core.serve_orchestrator import bursty_serving_trace
+from repro_torch.launch import serve, zoo
+from repro_torch.workers import ChunkLog
+from repro_torch.kernels import (copy_stream, flash_attention,
+                                 launch_counts, matmul, ops, sort_bitonic)
 
 pytestmark = pytest.mark.cuda
 
@@ -94,12 +100,67 @@ def test_sort_kernel_rejects_rows_beyond_shared_memory(card):
         sort_bitonic.sort_rows(_t((1, 65536), torch.float32, 9, card))
 
 
+@pytest.mark.parametrize("dtype,rtol,atol", [(torch.float32, 2e-4, 2e-4),
+                                            (torch.bfloat16, 1e-2, 2e-3)])
+@pytest.mark.parametrize("d", flash_attention.HEAD_DIMS)
+@pytest.mark.parametrize("b,hq,hkv,s,sk,causal,window", [
+    (1, 2, 1, 100, 70, True, None),     # S, Sk not multiples of 64
+    (2, 4, 2, 70, 130, False, None),
+    (1, 2, 2, 129, 129, True, 1),       # a window of 1: the diagonal only
+    (1, 3, 1, 200, 90, False, 33),      # rows past Sk see no key
+    (1, 2, 1, 512, 256, True, 64),      # the fault-2 case (ROADMAP Queue 3)
+    (1, 1, 1, 65, 65, True, -2),        # nothing visible: all zero
+])
+def test_flash_kernel_at_tile_edges(card, b, hq, hkv, s, sk, causal, window,
+                                    d, dtype, rtol, atol):
+    q = _t((b, hq, s, d), dtype, 11, card)
+    k = _t((b, hkv, sk, d), dtype, 12, card)
+    v = _t((b, hkv, sk, d), dtype, 13, card)
+    got = flash_attention.flash_attention(q, k, v, causal=causal,
+                                          window=window)
+    want = flash_attention.plain(q, k, v, causal=causal, window=window)
+    assert got.dtype == dtype and got.shape == q.shape
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                               atol=atol)
+
+
+def test_flash_kernel_rejects_what_it_does_not_take(card):
+    q = _t((1, 2, 64, 64), torch.float32, 14, card)
+    with pytest.raises(ValueError, match="head_dim"):
+        flash_attention.flash_attention(*(3 * [_t((1, 2, 64, 48),
+                                                  torch.float32, 15, card)]))
+    with pytest.raises(ValueError, match="all float32"):
+        flash_attention.flash_attention(q, q.bfloat16(), q.bfloat16())
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_attention.flash_attention(q.transpose(2, 3), q, q)
+    with pytest.raises(ValueError, match="multiple of kv heads"):
+        flash_attention.flash_attention(
+            q, *(2 * [_t((1, 3, 64, 64), torch.float32, 16, card)]))
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        flash_attention.flash_attention(q, q.cpu(), q)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 5e-5),
+                                       (torch.bfloat16, 2e-2)])
+def test_decode_gemv_at_bm_1(card, dtype, tol):
+    """The zoo's decode GEMV: one row through ops.matmul at bm=1."""
+    x = _t((1, 2048), dtype, 17, card)
+    w = _t((2048, 2048), dtype, 18, card)
+    before = launch_counts()["matmul"]
+    got = ops.matmul(x, w, bm=1)
+    assert launch_counts()["matmul"] == before + 1
+    torch.testing.assert_close(got.float(), matmul.plain(x, w).float(),
+                               rtol=tol, atol=10 * tol)
+
+
 def test_ops_launch_the_kernels_for_cuda_tensors(card):
     before = launch_counts()
     x = _t((256, 128), torch.float32, 10, card)
     ops.matmul(x, x.T.contiguous())
     ops.copy(x)
     ops.sort_rows(x)
+    qkv = x.view(1, 2, 128, 128)
+    ops.flash_attention(qkv, qkv, qkv, bq=128, bk=128)
     torch.cuda.synchronize()
     after = launch_counts()
     assert all(after[k] == before[k] + 1 for k in after)
@@ -114,4 +175,34 @@ def test_mixed_mode_on_the_card_launches_every_chunk(card):
     after = launch_counts()
     assert out["completed"] == 30
     assert set(log.runs.values()) == {1}
-    assert all(after[k] - before[k] == 10 * 4 for k in after)
+    assert {k: after[k] - before[k] for k in after} == {
+        "matmul": 10 * 4, "copy": 10 * 4, "sort_rows": 10 * 4,
+        "flash_attention": 0}
+
+
+def test_serving_on_the_card_launches_every_chunk(card):
+    """Two kernel tenants at the JAX tenant's shapes serve a short trace:
+    every chunk runs once and launches its kernels exactly."""
+    tenants = zoo.default_zoo(serve.KERNEL_TENANTS, shapes=zoo.ZOO_SHAPES)
+    zoo.warm_zoo(tenants)
+    assert set(launch_counts().values()) == {0}
+    trace = bursty_serving_trace(
+        n_steady=4, steady_rate=50.0, n_burst=6, burst_at=0.02,
+        burst_rate=400.0, steady_prompts=(256, 512), steady_gens=(64,),
+        burst_prompts=(1024, 2048), burst_gens=(64, 128), seed=0)
+    log = ChunkLog()
+    stats = serve.run_zoo(trace, tenants, log=log, timeout_s=120.0)
+    assert all(st.done for st in stats.result.per_dag.values())
+    prefill = sum(tenants[r.tenant].prefill_chunks(r) for r in trace)
+    decode = sum(-(-r.gen_len // 64) for r in trace)
+    assert len(log.runs) == prefill + decode
+    assert set(log.runs.values()) == {1}
+    assert launch_counts() == {"matmul": prefill + decode, "copy": decode,
+                               "sort_rows": 0, "flash_attention": prefill}
+
+
+def test_multi_impl_on_the_card_raises(card):
+    """The card's registry holds the plain versions ("ref"), which the
+    card's path may not schedule."""
+    with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
+        zoo.ZooTenant("t", multi_impl=True, shapes=zoo.ZOO_SHAPES)
