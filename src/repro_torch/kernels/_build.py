@@ -36,6 +36,8 @@ _F = ctypes.c_float
 SIGNATURES = {
     # src, dst, nbytes, device, stream
     "repro_copy": (_P, _P, _I64, _I, _P),
+    # x, y, out, n, dtype, a, device, stream
+    "repro_triad": (_P, _P, _P, _I64, _I, _F, _I, _P),
     # x, y, out, m, n, k, in_dtype, out_dtype, device, stream
     "repro_matmul": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     # x, out, rows, n, dtype, device, stream
@@ -44,6 +46,8 @@ SIGNATURES = {
     # causal, has_window, window, sm_scale, device, stream
     "repro_flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                               _I, _I, _I, _F, _I, _P),
+    # x, w, out, rows, d, x_dtype, w_dtype, eps, device, stream
+    "repro_rmsnorm": (_P, _P, _P, _I, _I, _I, _I, _F, _I, _P),
 }
 
 _lock = threading.Lock()

@@ -24,6 +24,7 @@ import torch
 from . import copy_stream as _copy_stream
 from . import flash_attention as _flash
 from . import matmul as _matmul
+from . import rmsnorm as _rmsnorm
 from . import sort_bitonic as _sort
 
 FORCES = (None, "ref", "cuda")
@@ -62,6 +63,19 @@ def copy(x, *, block_rows=256, force=None):
     return _copy_stream.copy(x) if kernel else _copy_stream.plain(x)
 
 
+def triad(a, x, y, *, block_rows=256, force=None):
+    kernel = _use_kernel(x, force)
+    if force != "ref":
+        if x.shape != y.shape:
+            raise ValueError(f"shape mismatch {tuple(x.shape)} vs "
+                             f"{tuple(y.shape)}")
+        if x.shape[0] % block_rows:
+            raise ValueError(f"rows {x.shape[0]} not divisible by "
+                             f"block_rows {block_rows}")
+    fn = _copy_stream.triad if kernel else _copy_stream.plain_triad
+    return fn(a, x, y)
+
+
 def sort_rows(x, *, block_rows=8, force=None):
     kernel = _use_kernel(x, force)
     if force != "ref":
@@ -72,6 +86,19 @@ def sort_rows(x, *, block_rows=8, force=None):
             raise ValueError(f"rows {rows} not divisible by block_rows "
                              f"{block_rows}")
     return _sort.sort_rows(x) if kernel else _sort.plain(x)
+
+
+def rmsnorm(x, w, *, eps=1e-6, block_rows=256, force=None):
+    kernel = _use_kernel(x, force)
+    if force != "ref":
+        rows, d = x.shape
+        if w.shape != (d,):
+            raise ValueError(f"weight shape {tuple(w.shape)} != ({d},)")
+        if rows % block_rows:
+            raise ValueError(f"rows {rows} not divisible by block_rows "
+                             f"{block_rows}")
+    fn = _rmsnorm.rmsnorm if kernel else _rmsnorm.plain
+    return fn(x, w, eps=eps)
 
 
 def flash_attention(q, k, v, *, causal=True, window=None, bq=256, bk=256,
@@ -96,7 +123,9 @@ def flash_attention(q, k, v, *, causal=True, window=None, bq=256, bk=256,
 _OPS: dict[str, Callable] = {
     "matmul": matmul,
     "copy": copy,
+    "triad": triad,
     "sort_rows": sort_rows,
+    "rmsnorm": rmsnorm,
     "flash_attention": flash_attention,
 }
 

@@ -8,16 +8,21 @@ full-size mixed-mode DAG ``REPEATS`` times without a ``ChunkLog`` and
 run's elapsed time: the run-to-run spread of TAOs/s, and the log's cost read
 against it.
 
-Serving (slice 2).  The wall time of one prefill and one decode chunk alone,
-then ``REPEATS`` runs of each serving path of ``chip_smoke.py`` (the entry
-point's trace, gate and controller; the full backlog with neither) through a
-warm zoo of two kernel tenants at llama3.2-1b widths, with tokens/s and p99
-sojourn per tenant of every run.
+Model serving (slice 3).  ``REPEATS`` runs of ``serve --arch llama3.2-1b
+--orchestrate`` at full size: prefill and decode times, orchestrated
+tokens/s and p99 sojourn of every run.
 
-Last it runs each mixed-mode policy and each serving path once under
-``torch.profiler`` and prints one JSON line each with the card's busy time
-(the union of all kernel intervals inside the run's span), its idle share,
-and device time and launches by kernel name.
+Zoo serving (slices 2 and 3).  The wall time of one prefill and one decode
+chunk of each tenant alone, then ``REPEATS`` runs of each serving path of
+``chip_smoke.py`` (the entry point's trace, gate and controller; the full
+backlog with neither) through a warm zoo of the JAX pairing (a llama3.2-1b
+transformer tenant and a kernel tenant at llama3.2-1b widths), with tokens/s
+and p99 sojourn per tenant of every run.
+
+Last it runs each mixed-mode policy, ``serve --arch`` and each zoo path once
+under ``torch.profiler`` and prints one JSON line each with the card's busy
+time (the union of all kernel intervals inside the run's span), its idle
+share, and device time and launches by kernel name.
 
 Run on a card:  PYTHONPATH=src python -m repro_torch.trace_main_path
 """
@@ -39,6 +44,7 @@ from .launch import serve, zoo
 
 N_TASKS = 3000  # the main path's size (mixed_mode.run's default)
 REPEATS = 5     # runs of each policy without and with a ChunkLog
+ARCH = "llama3.2-1b"
 
 
 def _union_us(intervals) -> float:
@@ -88,20 +94,40 @@ def spread(policy: str) -> dict:
                                          / statistics.median(plain))}
 
 
-def serve_chunk_costs(tenants: dict, reps: int = 50) -> None:
-    """Median wall time of one prefill and one decode chunk alone."""
-    tenant = tenants["steady"]
-    for typ in ("prefill", "decode"):
-        fn = tenant._chunks[None, typ]
-        for _ in range(5):
-            fn(0)
-        walls = []
-        for _ in range(reps):
-            t0 = time.perf_counter()
-            fn(0)
-            walls.append((time.perf_counter() - t0) * 1e3)
-        print(json.dumps({"chunk": typ, "wall_ms": statistics.median(walls)}),
-              flush=True)
+def serve_chunk_costs(tenants: dict, reps: int = 20) -> None:
+    """Median wall time of one prefill and one decode chunk of each tenant
+    alone."""
+    for name, tenant in tenants.items():
+        for typ in ("prefill", "decode"):
+            fn = tenant._chunks[None, typ]
+            for _ in range(3):
+                fn(0)
+            walls = []
+            for _ in range(reps):
+                t0 = time.perf_counter()
+                fn(0)
+                walls.append((time.perf_counter() - t0) * 1e3)
+            print(json.dumps({"tenant": name, "flavor": tenant.flavor,
+                              "chunk": typ,
+                              "wall_ms": statistics.median(walls)}),
+                  flush=True)
+
+
+def arch_spread() -> dict:
+    """``REPEATS`` runs of ``serve --arch llama3.2-1b --orchestrate``."""
+    runs = []
+    for _ in range(REPEATS):
+        out = serve.run_arch(ARCH, orchestrate=True)
+        st = out["stats"]
+        runs.append({"prefill_s": out["prefill_s"],
+                     "decode_s": out["decode_s"],
+                     "orchestrated_tokens_per_s": st.tokens_per_s,
+                     "orchestrated_p99_sojourn_s": st.p99_latency})
+    rate = [r["orchestrated_tokens_per_s"] for r in runs]
+    return {"path": "serve:model", "runs": runs,
+            "decode_s_median": statistics.median(r["decode_s"] for r in runs),
+            "tokens_per_s_median": statistics.median(rate),
+            "tokens_per_s_min": min(rate), "tokens_per_s_max": max(rate)}
 
 
 def serve_spread(path: str, tenants: dict) -> dict:
@@ -164,7 +190,8 @@ def main() -> None:
     chunk_costs()
     for policy in mixed_mode.POLICIES:
         print(json.dumps(spread(policy)), flush=True)
-    tenants = zoo.default_zoo(serve.KERNEL_TENANTS)
+    print(json.dumps(arch_spread()), flush=True)
+    tenants = zoo.default_zoo()
     zoo.warm_zoo(tenants)
     serve_chunk_costs(tenants)
     for path in serve.PATHS:
@@ -173,6 +200,9 @@ def main() -> None:
         print(json.dumps(traced(
             f"mixed_mode:{policy}", mixed_mode.RUN_SPAN,
             lambda: mixed_mode.run(policy, N_TASKS))), flush=True)
+    print(json.dumps(traced("serve:model", serve.ARCH_SPAN,
+                            lambda: serve.run_arch(ARCH, orchestrate=True))),
+          flush=True)
     for path, (trace, controls) in serve.PATHS.items():
         requests, kw = trace(), controls()
         print(json.dumps(traced(path, serve.SERVE_SPAN, lambda: serve.run_zoo(

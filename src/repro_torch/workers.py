@@ -56,15 +56,16 @@ def on_own_stream(payloads: dict, device) -> dict:
 
 @dataclasses.dataclass(frozen=True)
 class PTTRecord:
-    """One PTT update: the leader's wall time for one segment of a TAO, and
-    how many of that segment's chunks the leader itself ran (0 when the other
-    members of its place claimed them all first)."""
+    """One PTT update: the leader's wall time for one segment of a TAO, how
+    many of that segment's chunks the leader itself ran (0 when the other
+    members of its place claimed them all first), and the TAO's DAG."""
 
     cls: str
     leader: int
     width: int
     elapsed_s: float
     leader_chunks: int
+    dag_id: int
 
 
 def _segment(tao) -> int:
@@ -113,7 +114,7 @@ class ChunkLog:
         def record(tao, leader, width, elapsed):
             # runs on the leader's own thread, so ran_here counts its chunks
             self.records.append(PTTRecord(tao.type, leader, width, elapsed,
-                                          self.ran_here(tao)))
+                                          self.ran_here(tao), tao.dag_id))
             record_time(tao, leader, width, elapsed)
 
         core.record_time = record

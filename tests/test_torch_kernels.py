@@ -166,8 +166,9 @@ def test_impl_registry():
     names = [im.name for im in ops.available_impls()]
     assert names == ["ref"] + (["cuda"] if torch.cuda.is_available() else [])
     assert [im.name for im in ops.all_impls()] == ["ref", "cuda"]
-    assert ops.op_names() == ("matmul", "copy", "sort_rows",
-                              "flash_attention")
+    assert ops.op_names() == ("matmul", "copy", "triad", "sort_rows",
+                              "rmsnorm", "flash_attention")
+    assert ops.op_names() == tuple(jops._OPS)
     x = _pair((256, 128), _F32, 11)[0]
     assert torch.equal(ops.get_impl("ref").op("copy")(x), x)
     with pytest.raises(KeyError):
@@ -181,7 +182,7 @@ def test_library_name_carries_a_hash_of_the_sources():
     assert path.name.startswith("librepro_torch_kernels_")
     assert path == _build.library_path()            # stable
     assert {p.name for p in _build._sources()} >= {
-        "copy_stream.cu", "flash_attention.cu", "matmul.cu",
+        "copy_stream.cu", "flash_attention.cu", "matmul.cu", "rmsnorm.cu",
         "sort_bitonic.cu"}
 
 

@@ -207,10 +207,12 @@ def test_serve_shapes_are_llama_widths():
 
 
 def test_model_flavors_and_the_default_device_raise():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        zoo.ZooTenant("t", flavor="transformer", device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        zoo.default_zoo(device="cpu", shapes=zoo.ZOO_SHAPES)
+    for flavor in ("ssm", "hybrid"):
+        with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
+            zoo.ZooTenant("t", flavor=flavor, device="cpu")
+        with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
+            zoo.default_zoo({"steady": flavor}, device="cpu",
+                            shapes=zoo.ZOO_SHAPES)
     with pytest.raises(ValueError, match="unknown flavor"):
         zoo.ZooTenant("t", flavor="moe", device="cpu")
     if torch.cuda.is_available():
@@ -222,8 +224,11 @@ def test_model_flavors_and_the_default_device_raise():
 
 
 # ------------------------------------------------ threaded serving runs --
+KERNEL_TENANTS = {"steady": "kernel", "burst": "kernel"}
+
+
 def _cpu_zoo(**kw) -> dict:
-    return zoo.default_zoo(serve.KERNEL_TENANTS, device="cpu",
+    return zoo.default_zoo(KERNEL_TENANTS, device="cpu",
                            shapes=zoo.ZOO_SHAPES, **kw)
 
 
@@ -323,6 +328,97 @@ def test_chunk_log_counts_a_leaders_chunks_per_segment():
 def test_serve_main_runs_the_entry_trace_on_the_cpu(capsys):
     serve.main(["--zoo", "--device", "cpu"])
     out = capsys.readouterr().out
-    assert "warming zoo: {'steady': 'kernel', 'burst': 'kernel'}" in out
+    assert "warming zoo: {'steady': 'transformer', 'burst': 'kernel'}" in out
     assert "zoo: 48 TAOs" in out          # 24 requests, 1 decode burst each
     assert "PTT[prefill]" in out and "PTT[decode]" in out
+
+
+# ------------------------------------------- the transformer tenant (JAX) --
+def _jax_transformer(seed: int = 0):
+    """The JAX transformer tenant's model, weights and tokens
+    (zoo.py:120-128), the weights as numpy."""
+    from repro.configs import get_smoke_config as jax_smoke_config
+    from repro.models import get_model as jax_get_model
+
+    model = jax_get_model(jax_smoke_config("llama3.2-1b"))
+    params = model.init(jax.random.PRNGKey(seed))
+    toks = jax.random.randint(jax.random.PRNGKey(seed + 1), (1, 16), 0,
+                              model.cfg.vocab_size)
+    return model, params, toks
+
+
+def _port_transformer(params, toks, **kw):
+    from repro_torch.models.convert import params_from_numpy
+    return zoo.ZooTenant(
+        "steady", flavor="transformer", device="cpu", shapes=zoo.ZOO_SHAPES,
+        params=params_from_numpy({k: np.asarray(v) for k, v in
+                                  params.items()}, "cpu"),
+        tokens=torch.from_numpy(np.array(toks)).long(), **kw)
+
+
+@pytest.mark.parametrize("decode_steps", [1, 2])
+def test_transformer_tenant_matches_the_jax_model(decode_steps):
+    """The tenant's prefill slab and decode burst against the JAX model's
+    prefill and decode step on the same weights and tokens (zoo.py:129-143),
+    at test_models.py's rtol=atol=3e-2."""
+    model, params, toks = _jax_transformer()
+    tenant = _port_transformer(params, toks, decode_steps=decode_steps)
+    assert tenant.config == zoo.model_config("transformer", zoo.ZOO_SHAPES)
+    logits, cache0 = model.prefill(params, {"tokens": toks})
+    dec, _ = model.decode_step(params, toks[:, -1:], cache0)
+    np.testing.assert_allclose(_np(tenant.prefill_slab()), _np(logits),
+                               rtol=3e-2, atol=3e-2)
+    np.testing.assert_allclose(_np(tenant.cache0["k"]), _np(cache0["k"]),
+                               rtol=2 ** -7, atol=2 ** -8)
+    np.testing.assert_allclose(_np(tenant.decode_burst()), _np(dec),
+                               rtol=3e-2, atol=3e-2)
+    assert int(tenant.cache0["pos"]) == int(cache0["pos"]) == 16
+
+
+def test_decode_bursts_on_many_threads_share_one_cache():
+    """The burst steps from one fixed cache on every worker thread at once
+    (zoo.py:131-143): decode_step leaves the cache as it was."""
+    import concurrent.futures
+
+    model, params, toks = _jax_transformer(seed=2)
+    tenant = _port_transformer(params, toks)
+    k0 = tenant.cache0["k"].clone()
+    first = tenant.decode_burst()
+    with concurrent.futures.ThreadPoolExecutor(8) as pool:
+        outs = [f.result(timeout=60) for f in
+                [pool.submit(tenant.decode_burst) for _ in range(16)]]
+    assert all(torch.equal(o, first) for o in outs)
+    assert torch.equal(tenant.cache0["k"], k0)
+    assert int(tenant.cache0["pos"]) == 16
+
+
+def test_default_zoo_is_the_jax_pairing():
+    mine = zoo.default_zoo(device="cpu", shapes=zoo.ZOO_SHAPES)
+    theirs = jzoo.default_zoo()
+    assert {n: t.flavor for n, t in mine.items()} == {
+        n: t.flavor for n, t in theirs.items()} == {
+        "steady": "transformer", "burst": "kernel"}
+    for name, tenant in mine.items():
+        assert tenant.kv_bytes_per_token() == \
+            theirs[name].kv_bytes_per_token() == 1024.0
+        for prompt in (1, 1024, 1025, 8192):
+            r = ServeRequest(0, prompt, 64)
+            assert tenant.prefill_chunks(r) == \
+                theirs[name].prefill_chunks(r)
+    assert mine["steady"].tokens.shape == (1, 16)
+    assert mine["steady"].config.name == "llama3.2-1b-smoke"
+
+
+def test_the_jax_pairing_serves_every_request():
+    tenants = zoo.default_zoo(device="cpu", shapes=zoo.ZOO_SHAPES)
+    zoo.warm_zoo(tenants)
+    trace = _small_trace(seed=3)
+    log = ChunkLog()
+    stats = serve.run_zoo(trace, tenants, log=log, timeout_s=120.0)
+    res = stats.result
+    assert res.n_rejected == 0 and all(st.done for st in
+                                       res.per_dag.values())
+    want = sum(tenants[r.tenant].prefill_chunks(r) + -(-r.gen_len // 64)
+               for r in trace)
+    assert len(log.runs) == want and set(log.runs.values()) == {1}
+    assert set(stats.tokens_per_s_by_tenant) == {"steady", "burst"}
