@@ -20,11 +20,15 @@ Run from the repository root on a machine with one NVIDIA H100:
 
     python3 chip_smoke.py
 
-Every phase prints one JSON line.  Any failed check raises, and the script
-exits with a code other than 0; it does the same without a CUDA device.  The
-line before the last lists every kernel with its launches in each path's
-run (``launches`` is the smallest over the paths that run it), its error and
-its times at each path's shapes; the last line names the card.
+Kernel times are CUDA events around each call, median of 30; a bytes-bound
+call whose operands fit in L2 is timed with L2 flushed before each call (the
+GEMV also warm, as the decode burst calls it), and a time under 0.95 of its
+bound raises.  Every phase prints one JSON line.  Any failed check raises,
+and the script exits with a code other than 0; it does the same without a
+CUDA device.  The line before the last lists every kernel with its launches
+in each path's run (``launches`` is the smallest over the paths that run
+it), its error and its times at each path's shapes; the last line names the
+card.
 """
 from __future__ import annotations
 
@@ -32,7 +36,6 @@ import collections
 import dataclasses
 import json
 import math
-import statistics
 import subprocess
 import sys
 import time
@@ -46,6 +49,8 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 from repro_torch import kernels, mixed_mode  # noqa: E402
 from repro_torch.core import random_dag  # noqa: E402
 from repro_torch.core.serve_orchestrator import DECODE_UNIT  # noqa: E402
+from repro_torch.kernel_bench import (L2_BYTES, attention_pairs,  # noqa
+                                      bound, device_ms, sdpa)
 from repro_torch.kernels import _build, copy_stream, ops, ref  # noqa: E402
 from repro_torch.launch import serve, zoo  # noqa: E402
 from repro_torch.models import (get_model, make_decode_step,  # noqa: E402
@@ -54,15 +59,8 @@ from repro_torch.models.convert import (numpy_params,  # noqa: E402
                                         params_from_numpy)
 from repro_torch.workers import ChunkLog  # noqa: E402
 
-# Published peaks of one H100 SXM (NVIDIA data sheet, dense): the bound of a
-# kernel is the larger of its bytes over HBM's rate and its operations over
-# the peak rate for their type.
-HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {torch.bfloat16: 989e12, torch.float32: 67e12}
-
 N_TASKS, DEGREE, SEED = 3000, 3.03, 1
 PTT_FLOOR = 0.8  # a PTT time must cover this share of its kernel's time
-REPS, WARMUP = 30, 5
 
 # kernel -> (source, the Pallas kernel it replaces, the DAG class it serves
 # on the mixed-mode path, or None)
@@ -174,6 +172,22 @@ def phase_kernels() -> dict:
                                  f"{diff.max().item()}")
         err["matmul"] = max(err["matmul"], diff.max().item())
         cases += 1
+    # bf16 on both sides of m = 16 (the streaming kernel at and below it,
+    # wgmma above) at the zoo's width, up to its projection; the GEMV gives
+    # the same bits on every call
+    w = tensor((2048, 2048), torch.bfloat16, 13)
+    for m in (1, 4, 16, 17, 1024):
+        x = tensor((m, 2048), torch.bfloat16, 12)
+        got = ops.matmul(x, w, bm=min(m, 128)).float()
+        want = ref.matmul(x, w).float()
+        diff = (got - want).abs()
+        if not bool((diff <= 0.2 + 2e-2 * want.abs()).all()):
+            raise AssertionError(f"matmul bf16 m={m}: max abs err "
+                                 f"{diff.max().item()}")
+        if m == 1 and not torch.equal(ops.matmul(x, w, bm=1).float(), got):
+            raise AssertionError("matmul GEMV differs between two calls")
+        err["matmul"] = max(err["matmul"], diff.max().item())
+        cases += 1
     flash_cases, main_err["flash_attention"], err["flash_attention"] = \
         check_flash()
     cases += flash_cases
@@ -251,10 +265,11 @@ def phase_kernels() -> dict:
     return main_err
 
 # dtype -> (rtol, atol) of flash_attention against its plain version.  fp32:
-# summation order.  bf16: both sides compute in fp32 and round the output to
-# bf16 once, so they differ by at most one bf16 ulp (2^-7 of the value):
-# rtol 1e-2 holds that, and atol 2e-3 is under a tenth of a typical output
-# at the serving shape (|out| ~ 0.05 where a row averages ~500 keys).
+# summation order.  bf16: both sides compute in fp32 (the kernel carries P
+# as a bf16 high and low part, to 2^-17) and round the output to bf16 once,
+# so they differ by at most one bf16 ulp (2^-7 of the value): rtol 1e-2
+# holds that, and atol 2e-3 is under a tenth of a typical output at the
+# serving shape (|out| ~ 0.05 where a row averages ~500 keys).
 FLASH_TOL = {torch.float32: (2e-4, 2e-4), torch.bfloat16: (1e-2, 2e-3)}
 
 
@@ -317,39 +332,6 @@ def check_flash() -> tuple[int, float, float]:
         if case == serving:
             main = diff.max().item()
     return len(cases), main, worst
-
-
-def device_ms(fn) -> float:
-    """Median device time of one call, from CUDA events around each call.
-    The calls queue behind a sleep kernel, so host launch gaps do not count."""
-    for _ in range(WARMUP):
-        fn()
-    torch.cuda.synchronize()
-    events = [(torch.cuda.Event(enable_timing=True),
-               torch.cuda.Event(enable_timing=True)) for _ in range(REPS)]
-    torch.cuda._sleep(50_000_000)
-    for start, end in events:
-        start.record()
-        fn()
-        end.record()
-    torch.cuda.synchronize()
-    return statistics.median(s.elapsed_time(e) for s, e in events)
-
-
-def attention_pairs(s: int, sk: int, causal: bool, window) -> int:
-    """(row, col) pairs a mask lets through: the work of these inputs."""
-    rows = np.arange(s)
-    hi = np.minimum(rows, sk - 1) if causal else np.full(s, sk - 1)
-    lo = np.maximum(rows - window + 1, 0) if window is not None else 0
-    return int(np.maximum(hi - lo + 1, 0).sum())
-
-
-def sdpa(q, k, v):
-    """``scaled_dot_product_attention`` over GQA heads, causal (top-left,
-    as the kernel's mask at S = Sk): the library yardstick, never called
-    by the port."""
-    f = torch.nn.functional.scaled_dot_product_attention
-    return lambda: f(q, k, v, is_causal=True, enable_gqa=True)
 
 
 def phase_times() -> dict:
@@ -430,13 +412,21 @@ def phase_times() -> dict:
     times: dict = {}
     for (name, key), (kern, plain, lib, nbytes, nops, dtype, shape) in \
             work.items():
-        by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        by_ops = nops / PEAK_OPS_PER_S[dtype] * 1e3
-        t = {"kernel_ms": device_ms(kern), "plain_ms": device_ms(plain),
-             "library_ms": device_ms(lib),
-             "bound_ms": max(by_bytes, by_ops),
-             "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
+        bound_ms, bound_by = bound(nbytes, nops, dtype)
+        # a bytes-bound call whose operands fit in L2 would re-read them
+        # from there: flush L2 before each call, so it reads HBM
+        cold = bound_by == "bytes" and nbytes <= L2_BYTES
+        t = {"kernel_ms": device_ms(kern, cold),
+             "plain_ms": device_ms(plain, cold),
+             "library_ms": device_ms(lib, cold), "l2": "flushed" if cold
+             else "warm", "bound_ms": bound_ms, "bound_by": bound_by}
+        if (name, key) == ("matmul", "serve:gemv"):
+            # the decode burst re-reads its weight at every step: warm
+            t["warm_kernel_ms"] = device_ms(kern)
         t["share_of_bound"] = t["bound_ms"] / t["kernel_ms"]
+        if t["share_of_bound"] > 1.05:
+            raise AssertionError(f"{name} at {key}: {t['kernel_ms']} ms, "
+                                 f"under its bound {t['bound_ms']} ms")
         times.setdefault(name, {})[key] = t
         extra = {"flash_attention": {"library": "scaled_dot_product_attention",
                                      "library_max_abs_err": lib_err},
@@ -565,8 +555,11 @@ def serve_floors(times, tenants) -> dict:
         n = chunk_launches(tenant)
         pre = sum(k * ms(name, keys.get(name, "serve:projection"))
                   for name, k in n["prefill"].items())
-        dec = sum(k * ms(name, {"copy": "serve:slab", "matmul": "serve:gemv",
-                                "rmsnorm": "serve:decode"}[name])
+        # the burst's GEMV re-reads its weight from L2: its warm time
+        dec = sum(k * (times["matmul"]["serve:gemv"]["warm_kernel_ms"]
+                       if name == "matmul" else
+                       ms(name, {"copy": "serve:slab",
+                                 "rmsnorm": "serve:decode"}[name]))
                   for name, k in n["decode"].items())
         floors[tenant.flavor] = {
             "prefill": PTT_FLOOR * pre / 1e3,
@@ -878,7 +871,7 @@ def main() -> None:
             "library_ms": main_t["library_ms"],
             "times_by_shape": {key: {k: t[k] for k in (
                 "kernel_ms", "plain_ms", "bound_ms", "bound_by",
-                "library_ms")} for key, t in times[name].items()}})
+                "library_ms", "l2")} for key, t in times[name].items()}})
     emit({"kernels": entries})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -1,0 +1,276 @@
+"""Time the matmul and flash-attention kernels at the main paths' shapes, for
+this checkout of the port or for two side by side on one card.
+
+For each shape it prints one JSON line: the kernel's device time, its plain
+version's and one PyTorch call's (``torch.matmul``,
+``scaled_dot_product_attention``), the bound (the larger of the bytes over
+HBM's rate and the operations over the tensor cores' peak) and the kernel's
+share of it, and the host time per call of two tiny products, one on each
+bf16 path of the matmul (their difference is the wgmma path's tensor-map
+encoding).  Shapes: the mixed-mode DAG's 2048^3 product, the zoo's
+projection (1024 x 2048 @ 2048^2) and decode GEMV (1 x 2048 @ 2048^2, with L2
+flushed between calls and warm), the zoo's causal prefill attention (q 1 x 32
+x 1024 x 64 over 8 kv heads) and the decoder's (q 4 x 32 x 64 x 64).
+
+    PYTHONPATH=src python -m repro_torch.kernel_bench
+    # the parent commit's kernels against this checkout's, in turns
+    # (old, new, new, old) in one process tree on one card:
+    git archive PARENT | tar -x -C chip_check/parent
+    PYTHONPATH=src python -m repro_torch.kernel_bench --old chip_check/parent
+
+The kernels come from whichever ``repro_torch`` the import path finds, so
+one file times either tree: ``--old`` reruns this file once per turn with
+that tree's ``src`` (or this one's) first on ``PYTHONPATH``.  The summary
+goes to ``chiprun_out/kernel_bench.json``.  Needs a card.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import os
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+from typing import Callable, NamedTuple
+
+import numpy as np
+import torch
+
+# Published peaks of one H100 SXM (NVIDIA data sheet, dense): the bound of a
+# kernel is the larger of its bytes over HBM's rate and its operations over
+# the peak rate for their type.
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {torch.bfloat16: 989e12, torch.float32: 67e12}
+L2_BYTES = 50 * 2 ** 20
+REPS, WARMUP = 30, 5
+SRC = Path(__file__).resolve().parents[1]  # this checkout's src/
+
+_flush_buf: torch.Tensor | None = None
+
+
+def flush_buffer() -> torch.Tensor:
+    """64 MiB on the card, more than its L2: writing it evicts the operands
+    of the call before."""
+    global _flush_buf
+    if _flush_buf is None:
+        _flush_buf = torch.empty(64 * 2 ** 20, dtype=torch.uint8,
+                                 device="cuda")
+        for _ in range(3):  # its first writes cost more than later ones
+            _flush_buf.zero_()
+    return _flush_buf
+
+
+def device_ms(fn, cold: bool = False) -> float:
+    """Median device time of one call, from CUDA events around each call.
+    The calls queue behind a sleep kernel, so host launch gaps do not count.
+    ``cold``: L2 is flushed before each call, outside its events, so the
+    call reads its operands from HBM as a caller that has not just touched
+    them would."""
+    flush = flush_buffer() if cold else None
+    for _ in range(WARMUP):
+        if flush is not None:
+            flush.zero_()
+        fn()
+    torch.cuda.synchronize()
+    events = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True)) for _ in range(REPS)]
+    torch.cuda._sleep(50_000_000)
+    for start, end in events:
+        if flush is not None:
+            flush.zero_()
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    return statistics.median(s.elapsed_time(e) for s, e in events)
+
+
+def bound(nbytes: int, nops: int, dtype) -> tuple[float, str]:
+    """The least time in ms the card could take, and what sets it."""
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = nops / PEAK_OPS_PER_S[dtype] * 1e3
+    return max(by_bytes, by_ops), ("bytes" if by_bytes >= by_ops
+                                   else "operations")
+
+
+def attention_pairs(s: int, sk: int, causal: bool, window) -> int:
+    """(row, col) pairs a mask lets through: the work of these inputs."""
+    rows = np.arange(s)
+    hi = np.minimum(rows, sk - 1) if causal else np.full(s, sk - 1)
+    lo = np.maximum(rows - window + 1, 0) if window is not None else 0
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+def tensor(shape, dtype, seed: int) -> torch.Tensor:
+    a = np.random.default_rng(seed).standard_normal(shape, dtype=np.float32)
+    return torch.from_numpy(a).to(device="cuda", dtype=dtype)
+
+
+def sdpa(q, k, v):
+    """``scaled_dot_product_attention`` over GQA heads, causal (top-left, as
+    the kernel's mask at S = Sk): the library yardstick, never called by the
+    port."""
+    f = torch.nn.functional.scaled_dot_product_attention
+    return lambda: f(q, k, v, is_causal=True, enable_gqa=True)
+
+
+def host_us(fn, calls: int = 400, batches: int = 5) -> float:
+    """Wall time per call of back-to-back calls, the least over ``batches``
+    batches of ``calls``: the host's cost where it exceeds the kernel's,
+    with as little of other processes' interference as a batch saw."""
+    fn()
+    torch.cuda.synchronize()
+    best = float("inf")
+    for _ in range(batches):
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        best = min(best, (time.perf_counter() - t0) / calls * 1e6)
+    return best
+
+
+class Case(NamedTuple):
+    kernel: str         # the kernel's name in ``kernels.launch_counts()``
+    run: Callable       # one call of the kernel
+    plain: Callable     # one call of its plain version
+    library: Callable   # one PyTorch call of the same function
+    nbytes: int         # bytes it must move: inputs read, output written
+    nops: int           # operations these inputs need
+    dtype: torch.dtype  # the operations' type
+    shape: list
+    cold: bool          # time with L2 flushed before each call
+
+
+def cases() -> dict[str, Case]:
+    """Shape key -> the case timed there."""
+    from repro_torch import mixed_mode
+    from repro_torch.kernels import flash_attention, matmul
+    from repro_torch.launch import zoo
+
+    def mm(x, y, cold=False):
+        return Case("matmul", lambda: matmul.matmul(x, y),
+                    lambda: matmul.plain(x, y), lambda: torch.matmul(x, y),
+                    (x.numel() + y.numel() + x.shape[0] * y.shape[1])
+                    * x.element_size(),
+                    2 * x.shape[0] * y.shape[1] * x.shape[1], x.dtype,
+                    [list(x.shape), list(y.shape)], cold)
+
+    def attn(b, hq, hkv, s, d, dtype, seed):
+        q = tensor((b, hq, s, d), dtype, seed)
+        kv = tensor((b, hkv, s, d), dtype, seed + 1)
+        return Case("flash_attention",
+                    lambda: flash_attention.flash_attention(q, kv, kv),
+                    lambda: flash_attention.plain(q, kv, kv), sdpa(q, kv, kv),
+                    2 * (q.numel() + kv.numel()) * q.element_size(),
+                    4 * d * b * hq * attention_pairs(s, s, True, None), dtype,
+                    [list(q.shape), list(kv.shape)], False)
+
+    xm = tensor(mixed_mode.PAPER_SHAPES["matmul"],
+                mixed_mode.DTYPES["matmul"], 7)
+    sv = zoo.SERVE_SHAPES
+    w = tensor((sv.width, sv.width), sv.dtype, 12)
+    xp = tensor((sv.seq, sv.width), sv.dtype, 13)
+    x1 = tensor((1, sv.width), sv.dtype, 14)
+    return {
+        "mixed_mode": mm(xm, xm),
+        "serve:projection": mm(xp, w),
+        "serve:gemv": mm(x1, w, cold=True),
+        "serve:gemv_warm": mm(x1, w),
+        "serve": attn(sv.batch, sv.q_heads, sv.kv_heads, sv.seq,
+                      sv.head_dim, sv.dtype, 10),
+        "serve:model": attn(4, sv.q_heads, sv.kv_heads, 64, sv.head_dim,
+                            sv.dtype, 20),
+    }
+
+
+def measure(label: str) -> list[dict]:
+    """One turn: every case of this import path's kernels."""
+    from repro_torch.kernels import _build, matmul
+
+    _build.load()
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.splitlines()[0]
+    rows = []
+    for key, c in cases().items():
+        b_ms, b_by = bound(c.nbytes, c.nops, c.dtype)
+        t = {"label": label, "at": key, "kernel": c.kernel, "shape": c.shape,
+             "card": card, "l2": "flushed" if c.cold else "warm",
+             "kernel_ms": device_ms(c.run, c.cold),
+             "plain_ms": device_ms(c.plain, c.cold),
+             "library_ms": device_ms(c.library, c.cold),
+             "bound_ms": b_ms, "bound_by": b_by}
+        t["share_of_bound"] = b_ms / t["kernel_ms"]
+        rows.append(t)
+        print(json.dumps(t), flush=True)
+    # tiny products, so the host sets the pace: at m = 32 the call encodes
+    # two tensor maps (the wgmma path), at m = 1 none (the streaming path)
+    y = tensor((64, 64), torch.bfloat16, 31)
+    host = {"label": label, "at": "host", "card": card,
+            "host_us_per_call": {
+                f"matmul ({m}x64 @ 64x64)": host_us(
+                    lambda x=tensor((m, 64), torch.bfloat16, 30):
+                    matmul.matmul(x, y))
+                for m in (32, 1)}}
+    rows.append(host)
+    print(json.dumps(host), flush=True)
+    return rows
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--old", type=Path, default=None,
+                    help="a checkout of the parent commit: time its kernels "
+                         "and this checkout's in turns (old, new, new, old)")
+    ap.add_argument("--label", default="new")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        sys.exit("kernel_bench: no CUDA device")
+    if args.old is None:
+        measure(args.label)
+        return
+    rows = []
+    for label, src in (("old", args.old / "src"), ("new", SRC),
+                       ("new", SRC), ("old", args.old / "src")):
+        env = dict(os.environ, PYTHONPATH=str(src))
+        out = subprocess.run(
+            [sys.executable, __file__, "--label", label], env=env,
+            check=True, capture_output=True, text=True).stdout
+        rows += [json.loads(ln) for ln in out.splitlines()
+                 if ln.startswith("{")]
+    summary = {}
+    for r in rows:
+        if r["at"] == "host":
+            for k, us in r["host_us_per_call"].items():
+                summary.setdefault(f"host {k}", {}).setdefault(
+                    r["label"], []).append(us)
+            continue
+        s = summary.setdefault(r["at"], {"shape": r["shape"],
+                                         "l2": r["l2"]})
+        s.setdefault(f"{r['label']}_kernel_ms", []).append(r["kernel_ms"])
+        for k in ("plain_ms", "library_ms"):
+            s.setdefault(k, []).append(r[k])
+        s["bound_ms"], s["bound_by"] = r["bound_ms"], r["bound_by"]
+    for s in summary.values():
+        if "new_kernel_ms" in s:
+            s["share_of_bound_new"] = [s["bound_ms"] / t
+                                       for t in s["new_kernel_ms"]]
+    out = {"card": rows[0]["card"], "turns": "old, new, new, old",
+           "by_shape": summary}
+    Path("chiprun_out").mkdir(exist_ok=True)
+    Path("chiprun_out/kernel_bench.json").write_text(json.dumps(out,
+                                                                indent=1))
+    print(json.dumps(out))
+    worst = max((x for s in summary.values()
+                 for x in s.get("share_of_bound_new", [])), default=0.0)
+    if not math.isfinite(worst) or worst > 1.05:
+        sys.exit(f"kernel_bench: a share of the bound reads {worst} > 1.05")
+
+
+if __name__ == "__main__":
+    main()

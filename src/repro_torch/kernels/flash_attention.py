@@ -4,9 +4,10 @@ CUDA kernel for Hopper.
 Counterpart of the Pallas ``flash_attention``
 (src/repro/kernels/flash_attention.py:33-146).  ``flash_attention``
 launches ``csrc/flash_attention.cu`` (one block per (batch, head, 64-row q
-tile), looping over 64-key tiles with the softmax state in registers;
-q . k^T on the tensor cores for bf16, fmaf without TF32 for fp32; P . V in
-fp32).  ``plain`` is the dense PyTorch version, following ``ref.attention``
+tile), looping over 64-key tiles with the softmax state in registers; for
+bf16 both products on the tensor cores, P kept in registers as a bf16 high
+and low part, K/V tiles double-buffered by cp.async; for fp32 fmaf without
+TF32).  ``plain`` is the dense PyTorch version, following ``ref.attention``
 (src/repro/kernels/ref.py:33-62), the reference the tests and
 ``chip_smoke.py`` hold the kernel to.  Both output 0 for a row that sees no
 key.  The tiling checks of the TPU kernel (``S % bq``, ``Sk % bk``) live in

@@ -1,9 +1,11 @@
 """Matmul: the paper's *compute-bound* class, as a CUDA kernel for Hopper.
 
 Counterpart of the Pallas ``matmul`` (src/repro/kernels/matmul.py:25-77).
-``matmul`` launches ``csrc/matmul.cu`` (tensor cores through ``wmma`` for
-bf16, fp32 FMA without TF32 for fp32) and ``plain`` is the same function in
-PyTorch, the reference the tests and ``chip_smoke.py`` hold the kernel to.
+``matmul`` launches ``csrc/matmul.cu``: for bf16, ``wgmma`` fed by a TMA
+ring when m > 16 and a streaming kernel that reads y once when m <= 16 (the
+decode GEMV), one launch either way; for fp32, FMA without TF32.  ``plain``
+is the same function in PyTorch, the reference the tests and
+``chip_smoke.py`` hold the kernel to.
 The tiling checks of the TPU kernel live in ``ops.matmul``.
 """
 from __future__ import annotations
@@ -45,9 +47,9 @@ def matmul(x: torch.Tensor, y: torch.Tensor, out_dtype=None) -> torch.Tensor:
                          f"({m},{k})x({k},{n})")
     if x.dtype == torch.bfloat16 and (
             k % 8 or n % 8 or x.data_ptr() % 16 or y.data_ptr() % 16):
-        raise ValueError("bf16 matmul kernel loads 16-byte vectors: k and n "
-                         "must be multiples of 8 and the operands 16-byte "
-                         "aligned")
+        raise ValueError("bf16 matmul kernel loads 16-byte vectors and TMA "
+                         "boxes: k and n must be multiples of 8 and the "
+                         "operands 16-byte aligned")
     out = torch.empty((m, n), dtype=out_dtype, device=x.device)
     if out.numel() == 0:
         return out

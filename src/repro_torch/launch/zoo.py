@@ -229,9 +229,10 @@ class ZooTenant:
 
         def make_decode(copy_op) -> Callable[[], tuple]:
             # a variant swaps only the copy kernel (the class-defining op),
-            # as in the JAX tenant.  The GEMV is one row: bm=1 takes it
-            # through the matmul kernel, whose loads and stores are guarded
-            # at the tile's edges (the Pallas matmul cannot tile m = 1).
+            # as in the JAX tenant.  The GEMV is one row: bm=1 passes the
+            # tiling check (the Pallas matmul cannot tile m = 1), and the
+            # matmul kernel takes m <= 16 to its streaming path, which reads
+            # w once in one launch.
             def decode_burst() -> tuple:
                 for _ in range(self.decode_steps):
                     moved = copy_op(self.cache_slab)

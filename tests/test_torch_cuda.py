@@ -8,8 +8,9 @@ buffers, int32, one-element rows.  Every test here needs a card and is marked
 Tolerances: matmul rtol=tol, atol=10*tol as in tests/test_kernels.py (tol
 5e-5 fp32, 2e-2 bf16); copy and sort bit-exact; flash attention
 rtol=atol=2e-4 fp32 (summation order), and rtol=1e-2, atol=2e-3 bf16: both
-sides compute in fp32 and round the output to bf16 once, so they differ by at
-most one bf16 ulp (2^-7 of the value), as chip_smoke.py holds it.
+sides compute in fp32 (the kernel carries P as a bf16 high and low part, to
+2^-17) and round the output to bf16 once, so they differ by at most one bf16
+ulp (2^-7 of the value), as chip_smoke.py holds it.
 rmsnorm as tests/test_kernels.py holds the Pallas kernel (rtol=atol=2e-5
 fp32, 2e-2 bf16); triad bit-exact (both round the product and the sum one at
 a time).  The decoder on the card against the CPU at test_models.py's bf16
@@ -67,6 +68,29 @@ def test_matmul_kernel_at_tile_edges(card, m, k, n, dtype, tol, out_dtype):
                                atol=10 * tol)
 
 
+@pytest.mark.parametrize("k,n", [(2048, 2048), (72, 136), (264, 40)])
+@pytest.mark.parametrize("m", [1, 2, 8, 16, 17, 64, 127, 129])
+def test_matmul_bf16_across_the_small_m_boundary(card, m, k, n):
+    """m <= 16 takes the streaming kernel, m > 16 the wgmma one; n and k
+    cross the TMA boxes' edges (64 wide) and the 16-column strips."""
+    x = _t((m, k), torch.bfloat16, 21, card)
+    y = _t((k, n), torch.bfloat16, 22, card)
+    for out_dtype in (torch.bfloat16, torch.float32):
+        got = matmul.matmul(x, y, out_dtype=out_dtype)
+        torch.testing.assert_close(
+            got.float(), matmul.plain(x, y, out_dtype=out_dtype).float(),
+            rtol=2e-2, atol=0.2)
+
+
+@pytest.mark.parametrize("m,k,n", [(1024, 2048, 2048), (2048, 2048, 2048)])
+def test_matmul_bf16_at_full_size(card, m, k, n):
+    x = _t((m, k), torch.bfloat16, 23, card)
+    y = _t((k, n), torch.bfloat16, 24, card)
+    torch.testing.assert_close(matmul.matmul(x, y).float(),
+                               matmul.plain(x, y).float(), rtol=2e-2,
+                               atol=0.2)
+
+
 def test_matmul_kernel_rejects_what_it_does_not_take(card):
     x = _t((64, 60), torch.bfloat16, 3, card)
     with pytest.raises(ValueError, match="multiples of 8"):
@@ -121,6 +145,9 @@ def test_sort_kernel_rejects_rows_beyond_shared_memory(card):
     (1, 3, 1, 200, 90, False, 33),      # rows past Sk see no key
     (1, 2, 1, 512, 256, True, 64),      # the fault-2 case (ROADMAP Queue 3)
     (1, 1, 1, 65, 65, True, -2),        # nothing visible: all zero
+    (4, 32, 8, 64, 64, True, None),     # the decoder's prefill, batch 4
+    (2, 32, 8, 63, 63, True, None),     # its teacher-forcing prefill
+    (1, 32, 8, 1024, 1024, True, None),  # the zoo's prefill chunk
 ])
 def test_flash_kernel_at_tile_edges(card, b, hq, hkv, s, sk, causal, window,
                                     d, dtype, rtol, atol):
@@ -154,12 +181,16 @@ def test_flash_kernel_rejects_what_it_does_not_take(card):
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 5e-5),
                                        (torch.bfloat16, 2e-2)])
 def test_decode_gemv_at_bm_1(card, dtype, tol):
-    """The zoo's decode GEMV: one row through ops.matmul at bm=1."""
+    """The zoo's decode GEMV: one row through ops.matmul at bm=1, one
+    launch a call, the same bits on every call."""
     x = _t((1, 2048), dtype, 17, card)
     w = _t((2048, 2048), dtype, 18, card)
     before = launch_counts()["matmul"]
     got = ops.matmul(x, w, bm=1)
     assert launch_counts()["matmul"] == before + 1
+    again = ops.matmul(x, w, bm=1)
+    assert launch_counts()["matmul"] == before + 2
+    assert torch.equal(got, again)
     torch.testing.assert_close(got.float(), matmul.plain(x, w).float(),
                                rtol=tol, atol=10 * tol)
 

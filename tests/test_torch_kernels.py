@@ -211,3 +211,31 @@ def test_launch_counter_loses_no_update_under_contention():
     assert counter.count == 16 * 5000
     counter.reset()
     assert counter.count == 0
+
+
+# ------------------------------------------------- timing yardsticks ------
+@pytest.mark.parametrize("s,sk,causal,window", [
+    (1024, 1024, True, None), (64, 64, True, None), (100, 70, False, None),
+    (512, 256, True, 64), (200, 90, False, 33), (65, 65, True, -2)])
+def test_attention_pairs_counts_what_the_mask_lets_through(s, sk, causal,
+                                                           window):
+    """The work the flash bound counts is the mask of the plain version."""
+    from repro_torch.kernel_bench import attention_pairs
+    rows, cols = np.arange(s)[:, None], np.arange(sk)[None, :]
+    mask = np.ones((s, sk), bool)
+    if causal:
+        mask &= cols <= rows
+    if window is not None:
+        mask &= cols > rows - window
+    assert attention_pairs(s, sk, causal, window) == int(mask.sum())
+
+
+def test_bound_is_the_slower_of_bytes_and_operations():
+    from repro_torch.kernel_bench import bound
+    # the GEMV moves 8.4 MB for 8.4 MFLOP: bytes; 2048^3 the other way
+    ms, by = bound(2 * (2048 + 2048 * 2048 + 2048), 2 * 2048 * 2048,
+                   torch.bfloat16)
+    assert by == "bytes" and ms == pytest.approx(8396800 / 3.35e12 * 1e3)
+    ms, by = bound(3 * 2 * 2048 ** 2, 2 * 2048 ** 3, torch.bfloat16)
+    assert by == "operations" and ms == pytest.approx(2 * 2048 ** 3
+                                                      / 989e12 * 1e3)
