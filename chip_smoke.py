@@ -50,7 +50,7 @@ from repro_torch import kernels, mixed_mode  # noqa: E402
 from repro_torch.core import random_dag  # noqa: E402
 from repro_torch.core.serve_orchestrator import DECODE_UNIT  # noqa: E402
 from repro_torch.kernel_bench import (L2_BYTES, attention_pairs,  # noqa
-                                      bound, device_ms, sdpa)
+                                      bound, device_ms, sdpa, sort_ops)
 from repro_torch.kernels import _build, copy_stream, ops, ref  # noqa: E402
 from repro_torch.launch import serve, zoo  # noqa: E402
 from repro_torch.models import (get_model, make_decode_step,  # noqa: E402
@@ -139,7 +139,8 @@ def phase_kernels() -> dict:
     that file's tolerances (matmul rtol=tol, atol=10*tol; rmsnorm
     rtol=atol=2e-5 fp32, 2e-2 bf16); copy, sort and triad bit-exact (the
     triad rounds the product and the sum one at a time, as PyTorch does);
-    flash attention as ``check_flash`` says."""
+    flash attention as ``check_flash`` says.  Sort and copy also at their
+    edges (``check_sort_edges``, ``check_copy_edges``)."""
     before = kernels.launch_counts()
     err = {name: 0.0 for name in KERNELS}
     main_err = {}
@@ -220,6 +221,7 @@ def phase_kernels() -> dict:
             raise AssertionError(f"sort {dtype} {shape} differs from "
                                  f"torch.sort")
         cases += 1
+    cases += check_sort_edges() + check_copy_edges()
     main_err["sort_rows"] = 0.0
     # rmsnorm at test_kernels.py's sweep (w in x's dtype, eps 1e-6), then at
     # the model's shapes: bf16 x, fp32 w, eps 1e-5, all rows in one block
@@ -263,6 +265,72 @@ def phase_kernels() -> dict:
     emit({"phase": "kernels", "checked": list(KERNELS), "cases": cases,
           "max_abs_err": err, "max_abs_err_main_shape": main_err})
     return main_err
+
+
+def check_sort_edges() -> int:
+    """sort_rows against torch.sort at every row length it takes (1 ..
+    32768), fp32 and int32: random rows (3 and 129, not a multiple of the
+    rows a block sorts), random 0-1 rows, reversed rows and the type's
+    extremes (+-inf and +-3.4e38; INT_MIN and INT_MAX).  Returns the number
+    of cases."""
+    cases = 0
+    for log2n in range(16):
+        n = 1 << log2n
+        rng = np.random.default_rng(200 + log2n)
+        for dtype in (torch.float32, torch.int32):
+            if dtype == torch.int32:
+                info = torch.iinfo(torch.int32)
+                pool = [info.min, info.max, 0, -1, 1]
+                rand = rng.integers(info.min, info.max, (129, n),
+                                    dtype=np.int64, endpoint=True)
+            else:
+                pool = [float("-inf"), float("inf"), -3.4e38, 3.4e38, 0.5]
+                rand = rng.standard_normal((129, n))
+            inputs = {"random": rand, "random x3": rand[:3],
+                      "0-1": rng.integers(0, 2, (129, n)),
+                      "reversed": np.arange(n)[::-1].reshape(1, n).copy(),
+                      "extremes": np.asarray(pool)[
+                          rng.integers(0, len(pool), (3, n))]}
+            for name, a in inputs.items():
+                x = torch.from_numpy(np.ascontiguousarray(a)).to(
+                    device="cuda", dtype=dtype)
+                if not torch.equal(ops.sort_rows(x, block_rows=1),
+                                   ref.sort_rows(x)):
+                    raise AssertionError(f"sort {dtype} n={n} {name} differs "
+                                         f"from torch.sort")
+                cases += 1
+    return cases
+
+
+def check_copy_edges() -> int:
+    """copy at byte counts around its edges (one vector; one batch, 32 KB a
+    block, +-16 bytes; every block's span at 1, 8 and 24 units of 256
+    vectors, +-1 vector), aligned and 3 bytes off, and one copy of 2^31 + 48
+    bytes: each a bit-exact new buffer.  Returns the number of cases."""
+    unit = torch.cuda.get_device_properties(0).multi_processor_count \
+        * 4 * 256 * 16  # one unit of 256 vectors on each block of the grid
+    sizes = [16, 32752, 32768, 32784, 32791] + [
+        a * unit + b for a in (1, 8, 24) for b in (-16, 0, 16, 5)]
+    cases = 0
+    g = torch.Generator(device="cuda").manual_seed(3)
+    for nbytes in sizes:
+        for offset in (0, 3):
+            base = torch.randint(0, 256, (nbytes + offset,), device="cuda",
+                                 dtype=torch.uint8, generator=g)
+            x = base[offset:]
+            got = copy_stream.copy(x)
+            if got.data_ptr() == x.data_ptr() or not torch.equal(got, x):
+                raise AssertionError(f"copy of {nbytes} bytes at offset "
+                                     f"{offset} not a bit-exact new buffer")
+            cases += 1
+    x = torch.randint(0, 256, (2 ** 31 + 48,), device="cuda",
+                      dtype=torch.uint8, generator=g)
+    if not torch.equal(copy_stream.copy(x), x):
+        raise AssertionError("copy of 2^31 + 48 bytes differs")
+    del x
+    torch.cuda.empty_cache()
+    return cases + 1
+
 
 # dtype -> (rtol, atol) of flash_attention against its plain version.  fp32:
 # summation order.  bf16: both sides compute in fp32 (the kernel carries P
@@ -342,9 +410,6 @@ def phase_times() -> dict:
     xm = tensor(shapes["matmul"], dtypes["matmul"], 7)
     xc = tensor(shapes["copy"], dtypes["copy"], 8)
     xs = tensor(shapes["sort"], dtypes["sort"], 9)
-    rows, width = xs.shape
-    stages = width.bit_length() - 1
-    sort_ops = 2 * rows * (width // 2) * stages * (stages + 1) // 2
     # the serving chunk's operands (zoo.SERVE_SHAPES)
     sv = zoo.SERVE_SHAPES
     q = tensor((sv.batch, sv.q_heads, sv.seq, sv.head_dim), sv.dtype, 10)
@@ -392,8 +457,8 @@ def phase_times() -> dict:
         ("sort_rows", "mixed_mode"): (
             lambda: ops.sort_rows(xs), lambda: ref.sort_rows(xs),
             lambda: torch.sort(xs, dim=-1),
-            2 * xs.numel() * xs.element_size(), sort_ops, xs.dtype,
-            list(xs.shape)),
+            2 * xs.numel() * xs.element_size(), sort_ops(*xs.shape),
+            xs.dtype, list(xs.shape)),
         ("flash_attention", "serve"): (
             lambda: ops.flash_attention(q, kv, kv),
             lambda: ref.attention(q, kv, kv), flash_library,

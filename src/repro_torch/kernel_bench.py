@@ -1,16 +1,23 @@
-"""Time the matmul and flash-attention kernels at the main paths' shapes, for
-this checkout of the port or for two side by side on one card.
+"""Time the port's redesigned kernels (matmul, flash attention, copy and
+sort) at the main paths' shapes, for this checkout of the port or for two
+side by side on one card.
 
 For each shape it prints one JSON line: the kernel's device time, its plain
 version's and one PyTorch call's (``torch.matmul``,
-``scaled_dot_product_attention``), the bound (the larger of the bytes over
-HBM's rate and the operations over the tensor cores' peak) and the kernel's
-share of it, and the host time per call of two tiny products, one on each
-bf16 path of the matmul (their difference is the wgmma path's tensor-map
-encoding).  Shapes: the mixed-mode DAG's 2048^3 product, the zoo's
-projection (1024 x 2048 @ 2048^2) and decode GEMV (1 x 2048 @ 2048^2, with L2
-flushed between calls and warm), the zoo's causal prefill attention (q 1 x 32
-x 1024 x 64 over 8 kv heads) and the decoder's (q 4 x 32 x 64 x 64).
+``scaled_dot_product_attention``, ``empty_like().copy_()``, ``torch.sort``),
+the bound (the larger of the bytes over HBM's rate and the operations over
+the peak rate for their type) and the kernel's share of it, and the host
+time per call of two tiny products, one on each bf16 path of the matmul
+(their difference is the wgmma path's tensor-map encoding).  Shapes: the
+mixed-mode DAG's 2048^3 product, the zoo's projection (1024 x 2048 @ 2048^2)
+and decode GEMV (1 x 2048 @ 2048^2, with L2 flushed between calls and warm),
+the zoo's causal prefill attention (q 1 x 32 x 1024 x 64 over 8 kv heads)
+and the decoder's (q 4 x 32 x 64 x 64), the mixed-mode DAG's copy (16384 x
+1024 fp32) and sort (1024 x 4096 fp32, L2 flushed, as ``chip_smoke.py``
+times it), the zoo's KV-slab copy (4096 x 16384 bf16), and a copy of 16896 x
+1024 fp32, a size at which the first copy kernel's grid-stride loop had no
+ragged tail on 132 SMs.  Bytes and operations are those ``chip_smoke.py``
+holds each kernel to.
 
     PYTHONPATH=src python -m repro_torch.kernel_bench
     # the parent commit's kernels against this checkout's, in turns
@@ -104,6 +111,14 @@ def attention_pairs(s: int, sk: int, causal: bool, window) -> int:
     return int(np.maximum(hi - lo + 1, 0).sum())
 
 
+def sort_ops(rows: int, width: int) -> int:
+    """Operations of the bitonic network on (rows, width): log2(width) *
+    (log2(width) + 1) / 2 stages of width / 2 compare-exchanges a row, two
+    operations (compare, select) each."""
+    stages = width.bit_length() - 1
+    return 2 * rows * (width // 2) * stages * (stages + 1) // 2
+
+
 def tensor(shape, dtype, seed: int) -> torch.Tensor:
     a = np.random.default_rng(seed).standard_normal(shape, dtype=np.float32)
     return torch.from_numpy(a).to(device="cuda", dtype=dtype)
@@ -148,7 +163,8 @@ class Case(NamedTuple):
 def cases() -> dict[str, Case]:
     """Shape key -> the case timed there."""
     from repro_torch import mixed_mode
-    from repro_torch.kernels import flash_attention, matmul
+    from repro_torch.kernels import (copy_stream, flash_attention, matmul,
+                                     sort_bitonic)
     from repro_torch.launch import zoo
 
     def mm(x, y, cold=False):
@@ -169,8 +185,16 @@ def cases() -> dict[str, Case]:
                     4 * d * b * hq * attention_pairs(s, s, True, None), dtype,
                     [list(q.shape), list(kv.shape)], False)
 
-    xm = tensor(mixed_mode.PAPER_SHAPES["matmul"],
-                mixed_mode.DTYPES["matmul"], 7)
+    def copy(x):
+        return Case("copy", lambda: copy_stream.copy(x),
+                    lambda: copy_stream.plain(x),
+                    lambda: torch.empty_like(x).copy_(x),
+                    2 * x.numel() * x.element_size(), 0, x.dtype,
+                    list(x.shape), False)
+
+    shapes, dtypes = mixed_mode.PAPER_SHAPES, mixed_mode.DTYPES
+    xm = tensor(shapes["matmul"], dtypes["matmul"], 7)
+    xs = tensor(shapes["sort"], dtypes["sort"], 9)
     sv = zoo.SERVE_SHAPES
     w = tensor((sv.width, sv.width), sv.dtype, 12)
     xp = tensor((sv.seq, sv.width), sv.dtype, 13)
@@ -184,6 +208,15 @@ def cases() -> dict[str, Case]:
                       sv.head_dim, sv.dtype, 10),
         "serve:model": attn(4, sv.q_heads, sv.kv_heads, 64, sv.head_dim,
                             sv.dtype, 20),
+        "mixed_mode:copy": copy(tensor(shapes["copy"], dtypes["copy"], 8)),
+        "serve:slab": copy(tensor((sv.cache_rows, sv.cache_cols), sv.dtype,
+                                  15)),
+        "copy:tail_free": copy(tensor((16896, 1024), torch.float32, 16)),
+        "mixed_mode:sort": Case(
+            "sort_rows", lambda: sort_bitonic.sort_rows(xs),
+            lambda: sort_bitonic.plain(xs), lambda: torch.sort(xs, dim=-1),
+            2 * xs.numel() * xs.element_size(), sort_ops(*xs.shape),
+            xs.dtype, list(xs.shape), True),
     }
 
 

@@ -7,18 +7,24 @@
 //
 // Bound on the card: bytes.  The copy does no arithmetic; each byte is read
 // once and written once, so the least time is 2 * nbytes over HBM3's
-// 3.35 TB/s.  The main path's chunk (16384 x 1024 fp32, 64 MiB each way) is
-// larger than the 50 MB L2, so the cache cannot serve it.
+// 3.35 TB/s (0.0401 ms for the main path's 16384 x 1024 fp32 chunk, 0.0801
+// for the zoo's 4096 x 16384 bf16 KV slab).  Both are larger than the 50 MB
+// L2, so the cache cannot serve them.
 //
 // Design: the TPU kernel streams (block_rows, cols) tiles through VMEM.  On
 // the card the copy is flat over bytes, so one kernel serves every element
-// size (bf16, fp32, int32) and is bit-exact.  Each thread moves 16-byte
-// vectors (uint4), the widest load a thread can issue, with neighbouring
-// threads on neighbouring addresses, so every warp request covers whole
-// 128-byte lines.  Each thread keeps kUnroll independent loads in flight to
-// hide HBM latency.  When the two pointers are not both 16-byte aligned the
-// whole copy takes the byte loop; otherwise only the last nbytes % 16 bytes
-// do.
+// size (bf16, fp32, int32) and is bit-exact.  The grid is persistent, four
+// blocks of 256 threads on each SM.  The 16-byte vectors (uint4, the widest
+// load a thread can make) are cut into units of 256, one vector a thread,
+// and each block owns a contiguous run of units, the floor or the ceiling of
+// units / blocks, so every thread moves the same number of vectors to
+// within one.  A thread starts a batch of kBatch loads, neighbouring threads
+// on neighbouring addresses, before the batch's first store; the ragged end
+// of a block's run is predicated inside its last batch.  Loads and stores
+// carry the streaming hint (`ld.global.cs` / `st.global.cs`): neither side
+// is read again.  The last nbytes % 16 bytes are copied by the last block's
+// first threads in the same launch.  When the two pointers are not both
+// 16-byte aligned the whole copy takes the byte loop.
 //
 // Triad replaces: the Pallas `triad` kernel, src/repro/kernels/copy_stream.py
 // (`_triad_kernel` :27-28, launched by `triad` :51-74), which has no caller
@@ -26,8 +32,8 @@
 // dtype (src/repro/kernels/ref.py:19-20); fp32 or bf16.  Bound: bytes, two
 // reads and one write, 3 * nbytes over 3.35 TB/s (0.0601 ms at 16384 x 1024
 // fp32).  The TPU kernel prefetches `a` to SMEM ahead of the grid; here it is
-// a kernel argument, in a register of every thread.  The same 16-byte vector
-// pass as the copy, with the tail (and unaligned buffers) on an element
+// a kernel argument, in a register of every thread.  A grid-stride loop over
+// 16-byte vectors, with the tail (and unaligned buffers) on an element
 // loop.  The product and the sum are rounded one at a time, as PyTorch's
 // `a * x + y` rounds them (no fused multiply-add), so the kernel is
 // bit-exact against its plain version.
@@ -38,21 +44,38 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kUnroll = 4;
+constexpr int kBatch = 8;          // 16-byte loads a thread has in flight
+constexpr int kCopyBlocksPerSM = 4;
 
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, kCopyBlocksPerSM)
 copy_vec16(const uint4* __restrict__ src, uint4* __restrict__ dst,
-           int64_t n_vec) {
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  for (; i + (kUnroll - 1) * stride < n_vec; i += kUnroll * stride) {
-    uint4 v[kUnroll];
+           int64_t n_vec, int tail) {
+  const int64_t units = (n_vec + kThreads - 1) / kThreads;
+  const int64_t lo = units * blockIdx.x / gridDim.x * kThreads;
+  const int64_t end = units * (blockIdx.x + 1) / gridDim.x * kThreads;
+  const int64_t hi = end < n_vec ? end : n_vec;
+  for (int64_t i = lo + threadIdx.x; i < hi; i += kBatch * kThreads) {
+    uint4 v[kBatch];
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u) v[u] = src[i + u * stride];
+    for (int u = 0; u < kBatch; ++u)
+      if (i + u * kThreads < hi) v[u] = __ldcs(src + i + u * kThreads);
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u) dst[i + u * stride] = v[u];
+    for (int u = 0; u < kBatch; ++u)
+      if (i + u * kThreads < hi) __stcs(dst + i + u * kThreads, v[u]);
   }
-  for (; i < n_vec; i += stride) dst[i] = src[i];
+  if (blockIdx.x == gridDim.x - 1 && threadIdx.x < tail) {
+    const uint8_t* s8 = reinterpret_cast<const uint8_t*>(src + n_vec);
+    reinterpret_cast<uint8_t*>(dst + n_vec)[threadIdx.x] = s8[threadIdx.x];
+  }
+}
+
+int sm_count(int device) {
+  int sms = 0;
+  if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device) !=
+          cudaSuccess ||
+      sms <= 0)
+    sms = 132;
+  return sms;
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -64,12 +87,10 @@ copy_bytes(const uint8_t* __restrict__ src, uint8_t* __restrict__ dst,
     dst[i] = src[i];
 }
 
+// the grid of the triad and of the byte loop: a block for every 256 items
+// of work, at most 8 on each SM
 int grid_for(int64_t work, int device) {
-  int sms = 0;
-  if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device) !=
-          cudaSuccess ||
-      sms <= 0)
-    sms = 132;
+  const int sms = sm_count(device);
   const int64_t want = (work + kThreads - 1) / kThreads;
   const int64_t cap = (int64_t)sms * 8;  // 8 blocks of 256 threads per SM
   return (int)(want < cap ? (want > 0 ? want : 1) : cap);
@@ -161,23 +182,15 @@ extern "C" int repro_copy(const void* src, void* dst, int64_t nbytes,
   if (err != cudaSuccess) return (int)err;
   if (nbytes <= 0) return (int)cudaGetLastError();
   cudaStream_t s = (cudaStream_t)stream;
-  const uint8_t* s8 = (const uint8_t*)src;
-  uint8_t* d8 = (uint8_t*)dst;
-  int64_t done = 0;
-  if ((((uintptr_t)src | (uintptr_t)dst) & 15) == 0) {
-    const int64_t n_vec = nbytes / 16;
-    if (n_vec > 0) {
-      copy_vec16<<<grid_for(n_vec / kUnroll, device), kThreads, 0, s>>>(
-          (const uint4*)src, (uint4*)dst, n_vec);
-      err = cudaGetLastError();
-      if (err != cudaSuccess) return (int)err;
-    }
-    done = n_vec * 16;
-  }
-  if (done < nbytes) {
-    const int64_t rest = nbytes - done;
-    copy_bytes<<<grid_for(rest, device), kThreads, 0, s>>>(s8 + done,
-                                                           d8 + done, rest);
+  const int64_t n_vec = nbytes / 16;
+  if ((((uintptr_t)src | (uintptr_t)dst) & 15) == 0 && n_vec > 0) {
+    const int64_t units = (n_vec + kThreads - 1) / kThreads;
+    const int64_t cap = (int64_t)sm_count(device) * kCopyBlocksPerSM;
+    copy_vec16<<<(int)(units < cap ? units : cap), kThreads, 0, s>>>(
+        (const uint4*)src, (uint4*)dst, n_vec, (int)(nbytes % 16));
+  } else {
+    copy_bytes<<<grid_for(nbytes, device), kThreads, 0, s>>>(
+        (const uint8_t*)src, (uint8_t*)dst, nbytes);
   }
   return (int)cudaGetLastError();
 }

@@ -1,9 +1,10 @@
 """Row sort: the paper's *data-reuse* class, as a CUDA kernel for Hopper.
 
 Counterpart of the Pallas ``sort_rows`` (src/repro/kernels/sort_bitonic.py:
-27-72).  ``sort_rows`` launches ``csrc/sort_bitonic.cu``: one block per row,
-the row in shared memory across every stage of the TPU kernel's bitonic
-network.  ``plain`` is the same function in PyTorch.  The power-of-two and
+27-72).  ``sort_rows`` launches ``csrc/sort_bitonic.cu``: a bitonic network
+over each row held in registers as int32 keys, 16 elements a thread, with
+transposes through shared memory for the stages that span threads.
+``plain`` is the same function in PyTorch.  The power-of-two and
 ``block_rows`` checks of the TPU kernel live in ``ops.sort_rows``.
 """
 from __future__ import annotations

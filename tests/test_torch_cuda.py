@@ -6,7 +6,8 @@ buffers, int32, one-element rows.  Every test here needs a card and is marked
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 Tolerances: matmul rtol=tol, atol=10*tol as in tests/test_kernels.py (tol
-5e-5 fp32, 2e-2 bf16); copy and sort bit-exact; flash attention
+5e-5 fp32, 2e-2 bf16); copy and sort bit-exact (sort against torch.sort at
+every row length the kernel takes); flash attention
 rtol=atol=2e-4 fp32 (summation order), and rtol=1e-2, atol=2e-3 bf16: both
 sides compute in fp32 (the kernel carries P as a bf16 high and low part, to
 2^-17) and round the output to bf16 once, so they differ by at most one bf16
@@ -115,19 +116,101 @@ def test_copy_kernel_on_odd_and_unaligned_buffers(card, dtype, numel, offset):
     assert got.data_ptr() != x.data_ptr()
 
 
+# byte counts at the copy kernel's edges: a * (one unit of 256 vectors on
+# each of the grid's blocks) + b.  A batch is 8 vectors a thread, 32768
+# bytes a block; a = 8 gives each block one batch, a = 24 three.
+COPY_EDGES = [(0, 16), (0, 32752), (0, 32768), (0, 32784), (0, 32791),
+              (0, 4096), (0, 4112), (1, -16), (1, 0), (1, 16), (8, -16),
+              (8, 0), (8, 16), (24, -16), (24, 5), (24, 16)]
+
+
+@pytest.mark.parametrize("offset", [0, 3])
+@pytest.mark.parametrize("a,b", COPY_EDGES)
+def test_copy_kernel_at_span_and_batch_edges(card, a, b, offset):
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    nbytes = a * sms * 4 * 256 * 16 + b
+    g = torch.Generator(device=card).manual_seed(nbytes)
+    base = torch.randint(0, 256, (nbytes + offset,), dtype=torch.uint8,
+                         device=card, generator=g)
+    x = base[offset:]
+    got = copy_stream.copy(x)
+    assert got.data_ptr() != x.data_ptr() and torch.equal(got, x)
+
+
+def test_copy_kernel_past_2_to_the_31_bytes(card):
+    """64-bit offsets: the vectors past byte 2^31 and the 16-byte tail."""
+    nbytes = 2 ** 31 + 48
+    g = torch.Generator(device=card).manual_seed(0)
+    x = torch.randint(0, 256, (nbytes,), dtype=torch.uint8, device=card,
+                      generator=g)
+    got = copy_stream.copy(x)
+    assert got.data_ptr() != x.data_ptr() and torch.equal(got, x)
+    del got, x
+    torch.cuda.empty_cache()
+
+
+SORT_LOGS = range(16)  # every row length the kernel takes: 1 .. 32768
+# rows 129: not a multiple of the rows a block sorts at any n (128 / (n / E)
+# up to n = 1024, then 1)
+SORT_ROWS = (1, 3, 129)
+
+
+def _sort_inputs(n, dtype, device) -> dict:
+    """Name -> (rows, n) input: random values, and random 0-1 rows (a
+    network that sorts every 0-1 input sorts every input)."""
+    rng = np.random.default_rng(n)
+    out = {}
+    for rows in SORT_ROWS:
+        if dtype == torch.int32:
+            a = rng.integers(-2 ** 31, 2 ** 31, (rows, n), dtype=np.int64)
+        else:
+            a = rng.standard_normal((rows, n))
+        out[f"random x{rows}"] = a
+        out[f"0-1 x{rows}"] = rng.integers(0, 2, (rows, n))
+    out["few values x3"] = rng.integers(0, 100, (3, n))
+    return {k: torch.from_numpy(np.asarray(v)).to(device=device, dtype=dtype)
+            for k, v in out.items()}
+
+
+def _sort_patterns(n, dtype, device) -> dict:
+    """Name -> (rows, n) input: ordered, reversed and tied rows, and the
+    type's extremes."""
+    up = torch.arange(n, device=device).to(dtype).repeat(3, 1)
+    out = {"ordered": up, "reversed": up.flip(-1).contiguous(),
+           "tied": torch.ones_like(up), "mod 7": (up % 7).contiguous()}
+    if dtype == torch.int32:
+        info = torch.iinfo(torch.int32)
+        pool = [info.min, info.max, info.min + 1, info.max - 1, 0, -1, 1]
+    else:
+        pool = [float("-inf"), float("inf"), -3.4e38, 3.4e38, 1.5, -2.0, 0.0]
+    rng = np.random.default_rng(n + 1)
+    pick = torch.tensor(pool, dtype=dtype, device=device)[
+        torch.from_numpy(rng.integers(0, len(pool), (3, n))).to(device)]
+    out["extremes"] = pick
+    return out
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.int32])
-@pytest.mark.parametrize("rows,n", [(3, 1), (3, 2), (5, 32), (2, 64),
-                                    (4, 2048), (2, 32768)])
-def test_sort_kernel_matches_torch_sort(card, dtype, rows, n):
-    x = _t((rows, n), dtype, 8, card)
+@pytest.mark.parametrize("log2n", SORT_LOGS)
+def test_sort_kernel_matches_torch_sort(card, dtype, log2n):
+    for name, x in _sort_inputs(1 << log2n, dtype, card).items():
+        assert torch.equal(sort_bitonic.sort_rows(x),
+                           sort_bitonic.plain(x)), name
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int32])
+@pytest.mark.parametrize("log2n", SORT_LOGS)
+def test_sort_kernel_on_ordered_and_tied_rows(card, dtype, log2n):
+    for name, x in _sort_patterns(1 << log2n, dtype, card).items():
+        assert torch.equal(sort_bitonic.sort_rows(x),
+                           sort_bitonic.plain(x)), name
+
+
+def test_sort_kernel_on_an_unaligned_row(card):
+    """A view that starts 4 bytes into its buffer takes the scalar loads."""
+    base = _t((4 * 2048 + 1,), torch.float32, 8, card)
+    x = base[1:].view(4, 2048)
     assert torch.equal(sort_bitonic.sort_rows(x), sort_bitonic.plain(x))
-
-
-def test_sort_kernel_on_ordered_and_tied_rows(card):
-    up = torch.arange(4096, device=card, dtype=torch.float32).repeat(4, 1)
-    for x in (up, up.flip(-1).contiguous(), torch.ones_like(up),
-              (up % 7).contiguous()):
-        assert torch.equal(sort_bitonic.sort_rows(x), sort_bitonic.plain(x))
 
 
 def test_sort_kernel_rejects_rows_beyond_shared_memory(card):

@@ -239,3 +239,21 @@ def test_bound_is_the_slower_of_bytes_and_operations():
     ms, by = bound(3 * 2 * 2048 ** 2, 2 * 2048 ** 3, torch.bfloat16)
     assert by == "operations" and ms == pytest.approx(2 * 2048 ** 3
                                                       / 989e12 * 1e3)
+
+
+@pytest.mark.parametrize("rows,width", [(1, 1), (3, 2), (1, 16), (1024, 4096),
+                                        (2, 32768)])
+def test_sort_ops_counts_two_per_compare_exchange(rows, width):
+    """The bitonic network's work: k outer, j inner from k down to 0, width
+    / 2 compare-exchanges a stage, two operations (compare, select) each."""
+    from repro_torch.kernel_bench import sort_ops
+    exchanges = sum(width // 2 for k in range(width.bit_length() - 1)
+                    for _ in range(k + 1))
+    assert sort_ops(rows, width) == 2 * rows * exchanges
+
+
+def test_sort_at_the_mixed_mode_shape_is_bytes_bound():
+    from repro_torch.kernel_bench import bound, sort_ops
+    nbytes = 2 * 1024 * 4096 * 4
+    ms, by = bound(nbytes, sort_ops(1024, 4096), torch.float32)
+    assert by == "bytes" and ms == pytest.approx(nbytes / 3.35e12 * 1e3)
