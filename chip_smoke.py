@@ -16,6 +16,11 @@ that run it, and drives every ported path at full size:
   --zoo``, then a full backlog (the default ``bursty_serving_trace``, 100
   requests) with no gate and no controller.
 
+Besides, it holds the RMSNorm kernel against its plain version at every
+edge of its geometry (``check_rmsnorm_edges``), and the decoder's loss
+gradients on the card, through the kernels' autograd Functions, against the
+CPU's at full width and 2 layers (``phase_grads``).
+
 Run from the repository root on a machine with one NVIDIA H100:
 
     python3 chip_smoke.py
@@ -49,9 +54,11 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 from repro_torch import kernels, mixed_mode  # noqa: E402
 from repro_torch.core import random_dag  # noqa: E402
 from repro_torch.core.serve_orchestrator import DECODE_UNIT  # noqa: E402
-from repro_torch.kernel_bench import (L2_BYTES, attention_pairs,  # noqa
-                                      bound, device_ms, sdpa, sort_ops)
-from repro_torch.kernels import _build, copy_stream, ops, ref  # noqa: E402
+from repro_torch.kernel_bench import (L2_BYTES, NORM_ROWS,  # noqa: E402
+                                      attention_pairs, bound, device_ms,
+                                      sdpa, sort_ops)
+from repro_torch.kernels import (_build, copy_stream, ops, ref,  # noqa: E402
+                                 rmsnorm)
 from repro_torch.launch import serve, zoo  # noqa: E402
 from repro_torch.models import (get_model, make_decode_step,  # noqa: E402
                                 make_prefill_step)
@@ -97,12 +104,6 @@ MAIN_SHAPE = {"matmul": "mixed_mode", "copy": "mixed_mode",
 ARCH = "llama3.2-1b"  # the model of serve:model and of the zoo's transformer
 D_MODEL = 2048        # its width (configs/llama3_2_1b.py)
 MODEL_BATCH, MODEL_PROMPT = 4, 64  # serve --arch's defaults (serve:model)
-# rmsnorm rows at each shape key: serve:model's prefill (batch 4 x prompt
-# 64), the zoo's prefill chunk (1 x 1024 tokens) and a decode step of
-# serve:model (batch 4)
-NORM_ROWS = {"serve:model": MODEL_BATCH * MODEL_PROMPT,
-             "serve:zoo_prefill": zoo.SERVE_SHAPES.model_prompt,
-             "serve:decode": MODEL_BATCH}
 
 
 def emit(obj: dict) -> None:
@@ -221,7 +222,7 @@ def phase_kernels() -> dict:
             raise AssertionError(f"sort {dtype} {shape} differs from "
                                  f"torch.sort")
         cases += 1
-    cases += check_sort_edges() + check_copy_edges()
+    cases += check_sort_edges() + check_copy_edges() + check_rmsnorm_edges()
     main_err["sort_rows"] = 0.0
     # rmsnorm at test_kernels.py's sweep (w in x's dtype, eps 1e-6), then at
     # the model's shapes: bf16 x, fp32 w, eps 1e-5, all rows in one block
@@ -330,6 +331,38 @@ def check_copy_edges() -> int:
     del x
     torch.cuda.empty_cache()
     return cases + 1
+
+
+def check_rmsnorm_edges() -> int:
+    """rmsnorm against its plain version at every d around a step of its
+    warps a row (``rmsnorm.geometry_edges``, up to the widest), each at
+    every row count around a step of its launch (``rmsnorm.EDGE_ROWS``), in
+    the three (x, w) dtype pairs it takes, at test_kernels.py's tolerances
+    (rtol = atol = 2e-5 fp32, 2e-2 bf16).  Emits one line; returns the
+    number of cases."""
+    cases, worst = 0, {}
+    for xd, wd, tol in ((torch.float32, torch.float32, 2e-5),
+                        (torch.bfloat16, torch.bfloat16, 2e-2),
+                        (torch.bfloat16, torch.float32, 2e-2)):
+        for d in rmsnorm.geometry_edges(xd):
+            w = tensor((d,), wd, d)
+            for rows in rmsnorm.EDGE_ROWS:
+                x = tensor((rows, d), xd, rows)
+                got = rmsnorm.rmsnorm(x, w, eps=1e-5).float()
+                want = rmsnorm.plain(x, w, eps=1e-5).float()
+                diff = (got - want).abs()
+                if not bool((diff <= tol + tol * want.abs()).all()):
+                    raise AssertionError(
+                        f"rmsnorm ({rows},{d}) {xd} w {wd}: max abs err "
+                        f"{diff.max().item()}")
+                key = f"{xd} w {wd}".replace("torch.", "")
+                worst[key] = max(worst.get(key, 0.0), diff.max().item())
+                cases += 1
+    emit({"phase": "rmsnorm_edges", "cases": cases,
+          "widths": {str(dt).replace("torch.", ""): rmsnorm.geometry_edges(dt)
+                     for dt in (torch.float32, torch.bfloat16)},
+          "rows": rmsnorm.EDGE_ROWS, "max_abs_err": worst})
+    return cases
 
 
 # dtype -> (rtol, atol) of flash_attention against its plain version.  fp32:
@@ -851,6 +884,62 @@ def check_full_width_on_two_layers() -> dict:
                 logits["cpu"], 3e-2, atol), "teacher_forcing": tf}
 
 
+def phase_grads() -> None:
+    """The decoder's loss gradients, llama3.2-1b at its published widths cut
+    to 2 layers: one set of fp32 weights on the card, where the norms and
+    attentions launch the kernels through their autograd Functions, and on
+    the CPU (plain versions).  ``loss.backward()`` must give every
+    parameter a non-zero grad on the card, within a relative Frobenius
+    error of 3e-2 of the CPU's (bf16 activations summed in another order),
+    and the card's forward must launch 2L + 1 norms and L flash attentions,
+    its backward none."""
+    from repro_torch.configs import get_config
+
+    cfg = dataclasses.replace(get_config(ARCH), n_layers=2)
+    model = get_model(cfg)
+    arrays = numpy_params(model, seed=7)
+    rng = np.random.default_rng(9)
+    toks, tgts = (torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (2, MODEL_PROMPT))) for _ in "tt")
+    grads, losses = {}, {}
+    for dev in ("cuda", "cpu"):
+        params = {k: v.requires_grad_() for k, v in
+                  params_from_numpy(arrays, dev).items()}
+        batch = {"tokens": toks.to(dev), "targets": tgts.to(dev)}
+        kernels.reset_launch_counts()
+        loss, _ = model.loss(params, batch)
+        torch.cuda.synchronize()
+        forward = kernels.launch_counts()
+        loss.backward()
+        torch.cuda.synchronize()
+        if dev == "cuda":
+            launched = {"forward": forward, "backward": {
+                k: n - forward[k] for k, n in kernels.launch_counts().items()}}
+            want = {name: 0 for name in KERNELS}
+            want.update(rmsnorm=2 * cfg.n_layers + 1,
+                        flash_attention=cfg.n_layers)
+            if launched != {"forward": want,
+                            "backward": {name: 0 for name in KERNELS}}:
+                raise AssertionError(f"grads: launches {launched}")
+        losses[dev] = loss.item()
+        grads[dev] = {k: p.grad.float().cpu() for k, p in params.items()}
+        del params, loss
+    torch.cuda.empty_cache()
+    rel = {}
+    for name, want in grads["cpu"].items():
+        got = grads["cuda"][name]
+        if not bool(torch.isfinite(got).all()) or not bool(got.abs().max() > 0):
+            raise AssertionError(f"grads: {name} is zero or not finite on "
+                                 f"the card")
+        rel[name] = float((got - want).norm() / want.norm())
+        if rel[name] > 3e-2:
+            raise AssertionError(f"grads: {name} differs from the CPU's by "
+                                 f"{rel[name]} (relative Frobenius)")
+    emit({"phase": "grads", "arch": cfg.name, "layers": cfg.n_layers,
+          "tokens": list(toks.shape), "loss": losses, "launches": launched,
+          "rel_frobenius_err": rel})
+
+
 def phase_model() -> dict:
     """serve:model: ``python -m repro_torch.launch.serve --arch llama3.2-1b
     --orchestrate`` at full size, every counter reset just before and read
@@ -915,6 +1004,7 @@ def main() -> None:
     check_slice_outputs()
     launches = phase_slice(times)
     launches[MODEL_PATH] = phase_model()
+    phase_grads()
     launches.update(phase_serve(times))
     entries = []
     for name, (src, replaces, _) in KERNELS.items():

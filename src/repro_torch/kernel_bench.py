@@ -1,29 +1,38 @@
-"""Time the port's redesigned kernels (matmul, flash attention, copy and
-sort) at the main paths' shapes, for this checkout of the port or for two
-side by side on one card.
+"""Time the port's kernels at the main paths' shapes, for this checkout of
+the port or for two side by side on one card.
 
 For each shape it prints one JSON line: the kernel's device time, its plain
 version's and one PyTorch call's (``torch.matmul``,
-``scaled_dot_product_attention``, ``empty_like().copy_()``, ``torch.sort``),
-the bound (the larger of the bytes over HBM's rate and the operations over
-the peak rate for their type) and the kernel's share of it, and the host
-time per call of two tiny products, one on each bf16 path of the matmul
-(their difference is the wgmma path's tensor-map encoding).  Shapes: the
-mixed-mode DAG's 2048^3 product, the zoo's projection (1024 x 2048 @ 2048^2)
-and decode GEMV (1 x 2048 @ 2048^2, with L2 flushed between calls and warm),
-the zoo's causal prefill attention (q 1 x 32 x 1024 x 64 over 8 kv heads)
-and the decoder's (q 4 x 32 x 64 x 64), the mixed-mode DAG's copy (16384 x
-1024 fp32) and sort (1024 x 4096 fp32, L2 flushed, as ``chip_smoke.py``
-times it), the zoo's KV-slab copy (4096 x 16384 bf16), and a copy of 16896 x
-1024 fp32, a size at which the first copy kernel's grid-stride loop had no
-ragged tail on 132 SMs.  Bytes and operations are those ``chip_smoke.py``
-holds each kernel to.
+``scaled_dot_product_attention``, ``empty_like().copy_()``, ``torch.sort``,
+``rms_norm``, ``torch.add(y, x, alpha=a)``), the bound (the larger of the
+bytes over HBM's rate and the operations over the peak rate for their type)
+and the kernel's share of it.  Shapes: the mixed-mode DAG's 2048^3 product,
+the zoo's projection (1024 x 2048 @ 2048^2) and decode GEMV (1 x 2048 @
+2048^2, with L2 flushed between calls and warm), the zoo's causal prefill
+attention (q 1 x 32 x 1024 x 64 over 8 kv heads) and the decoder's (q 4 x 32
+x 64 x 64), the mixed-mode DAG's copy (16384 x 1024 fp32) and sort (1024 x
+4096 fp32, L2 flushed, as ``chip_smoke.py`` times it), the zoo's KV-slab
+copy (4096 x 16384 bf16), a copy of 16896 x 1024 fp32 (a size at which the
+first copy kernel's grid-stride loop had no ragged tail on 132 SMs), the
+decoder's RMSNorm (bf16 x, fp32 w, d = 2048, L2 flushed) at its three row
+counts (256: serve:model's prefill; 1024: the zoo's prefill chunk; 4: a
+decode step) and the triad at 16384 x 1024 fp32.  Bytes and operations are
+those ``chip_smoke.py`` holds each kernel to.  Two more lines: the floor,
+one empty kernel (``torch.cuda._sleep(0)``) timed the same way, with L2
+flushed and warm, the least any kernel's time can read; and the host time
+per call of two tiny products, one on each bf16 path of the matmul (their
+difference is the wgmma path's tensor-map encoding).  The floor line also
+times one round trip: the copy kernel on a decode step's 4 x 2048 bf16 rows
+(16 KB), L2 flushed, the least a kernel that reads its input from HBM and
+writes its output takes here.
 
     PYTHONPATH=src python -m repro_torch.kernel_bench
     # the parent commit's kernels against this checkout's, in turns
     # (old, new, new, old) in one process tree on one card:
     git archive PARENT | tar -x -C chip_check/parent
     PYTHONPATH=src python -m repro_torch.kernel_bench --old chip_check/parent
+    # only some kernels (names as in ``kernels.launch_counts()``):
+    PYTHONPATH=src python -m repro_torch.kernel_bench --kernels rmsnorm,triad
 
 The kernels come from whichever ``repro_torch`` the import path finds, so
 one file times either tree: ``--old`` reruns this file once per turn with
@@ -54,6 +63,12 @@ PEAK_OPS_PER_S = {torch.bfloat16: 989e12, torch.float32: 67e12}
 L2_BYTES = 50 * 2 ** 20
 REPS, WARMUP = 30, 5
 SRC = Path(__file__).resolve().parents[1]  # this checkout's src/
+# the decoder's RMSNorm: llama3.2-1b's width, and its rows at serve:model's
+# prefill (batch 4 x prompt 64), the zoo's prefill chunk (1024 tokens) and
+# a decode step (batch 4)
+NORM_WIDTH = 2048
+NORM_ROWS = {"serve:model": 256, "serve:zoo_prefill": 1024,
+             "serve:decode": 4}
 
 _flush_buf: torch.Tensor | None = None
 
@@ -164,7 +179,7 @@ def cases() -> dict[str, Case]:
     """Shape key -> the case timed there."""
     from repro_torch import mixed_mode
     from repro_torch.kernels import (copy_stream, flash_attention, matmul,
-                                     sort_bitonic)
+                                     rmsnorm, sort_bitonic)
     from repro_torch.launch import zoo
 
     def mm(x, y, cold=False):
@@ -192,6 +207,20 @@ def cases() -> dict[str, Case]:
                     2 * x.numel() * x.element_size(), 0, x.dtype,
                     list(x.shape), False)
 
+    def norm(rows, seed):
+        # the decoder's operands: bf16 activations, fp32 weight, eps 1e-5;
+        # four fp32 operations an element (square, sum, scale, weight)
+        x = tensor((rows, NORM_WIDTH), torch.bfloat16, seed)
+        w = tensor((NORM_WIDTH,), torch.float32, seed + 1)
+        return Case("rmsnorm", lambda: rmsnorm.rmsnorm(x, w, eps=1e-5),
+                    lambda: rmsnorm.plain(x, w, eps=1e-5),
+                    lambda: torch.nn.functional.rms_norm(x, (NORM_WIDTH,), w,
+                                                         1e-5),
+                    2 * x.numel() * x.element_size()
+                    + w.numel() * w.element_size(), 4 * x.numel(),
+                    torch.float32, [list(x.shape), list(w.shape)], True)
+
+    xt, yt = (tensor((16384, 1024), torch.float32, seed) for seed in (18, 19))
     shapes, dtypes = mixed_mode.PAPER_SHAPES, mixed_mode.DTYPES
     xm = tensor(shapes["matmul"], dtypes["matmul"], 7)
     xs = tensor(shapes["sort"], dtypes["sort"], 9)
@@ -217,12 +246,21 @@ def cases() -> dict[str, Case]:
             lambda: sort_bitonic.plain(xs), lambda: torch.sort(xs, dim=-1),
             2 * xs.numel() * xs.element_size(), sort_ops(*xs.shape),
             xs.dtype, list(xs.shape), True),
+        **{f"rmsnorm:{key}": norm(rows, 40 + i)
+           for i, (key, rows) in enumerate(NORM_ROWS.items())},
+        "triad:stream": Case(
+            "triad", lambda: copy_stream.triad(-2.5, xt, yt),
+            lambda: copy_stream.plain_triad(-2.5, xt, yt),
+            lambda: torch.add(yt, xt, alpha=-2.5),
+            3 * xt.numel() * xt.element_size(), 2 * xt.numel(), xt.dtype,
+            [list(xt.shape), list(yt.shape)], False),
     }
 
 
-def measure(label: str) -> list[dict]:
-    """One turn: every case of this import path's kernels."""
-    from repro_torch.kernels import _build, matmul
+def measure(label: str, only=None) -> list[dict]:
+    """One turn: every case of this import path's kernels (of the kernels
+    named in ``only``, if given)."""
+    from repro_torch.kernels import _build, copy_stream, matmul
 
     _build.load()
     card = subprocess.run(
@@ -231,6 +269,8 @@ def measure(label: str) -> list[dict]:
         check=True).stdout.splitlines()[0]
     rows = []
     for key, c in cases().items():
+        if only and c.kernel not in only:
+            continue
         b_ms, b_by = bound(c.nbytes, c.nops, c.dtype)
         t = {"label": label, "at": key, "kernel": c.kernel, "shape": c.shape,
              "card": card, "l2": "flushed" if c.cold else "warm",
@@ -241,6 +281,17 @@ def measure(label: str) -> list[dict]:
         t["share_of_bound"] = b_ms / t["kernel_ms"]
         rows.append(t)
         print(json.dumps(t), flush=True)
+    # the floor: an empty kernel behind the same events and flush; and one
+    # round trip, the copy of a decode step's 4 x 2048 bf16 rows (16 KB)
+    # read from HBM and written back
+    x4 = tensor((NORM_ROWS["serve:decode"], NORM_WIDTH), torch.bfloat16, 45)
+    empty = {"label": label, "at": "floor", "card": card,
+             "kernel": "empty (torch.cuda._sleep(0))",
+             "flushed_ms": device_ms(lambda: torch.cuda._sleep(0), True),
+             "warm_ms": device_ms(lambda: torch.cuda._sleep(0)),
+             "round_trip_ms": device_ms(lambda: copy_stream.copy(x4), True)}
+    rows.append(empty)
+    print(json.dumps(empty), flush=True)
     # tiny products, so the host sets the pace: at m = 32 the call encodes
     # two tensor maps (the wgmma path), at m = 1 none (the streaming path)
     y = tensor((64, 64), torch.bfloat16, 31)
@@ -261,23 +312,32 @@ def main(argv=None) -> None:
                     help="a checkout of the parent commit: time its kernels "
                          "and this checkout's in turns (old, new, new, old)")
     ap.add_argument("--label", default="new")
+    ap.add_argument("--kernels", default="",
+                    help="comma-separated kernel names: time only these")
     args = ap.parse_args(argv)
+    only = [k for k in args.kernels.split(",") if k]
     if not torch.cuda.is_available():
         sys.exit("kernel_bench: no CUDA device")
     if args.old is None:
-        measure(args.label)
+        measure(args.label, only)
         return
     rows = []
     for label, src in (("old", args.old / "src"), ("new", SRC),
                        ("new", SRC), ("old", args.old / "src")):
         env = dict(os.environ, PYTHONPATH=str(src))
         out = subprocess.run(
-            [sys.executable, __file__, "--label", label], env=env,
+            [sys.executable, __file__, "--label", label, "--kernels",
+             args.kernels], env=env,
             check=True, capture_output=True, text=True).stdout
         rows += [json.loads(ln) for ln in out.splitlines()
                  if ln.startswith("{")]
     summary = {}
     for r in rows:
+        if r["at"] == "floor":
+            for k in ("flushed_ms", "warm_ms", "round_trip_ms"):
+                summary.setdefault(f"floor {k}", {}).setdefault(
+                    r["label"], []).append(r[k])
+            continue
         if r["at"] == "host":
             for k, us in r["host_us_per_call"].items():
                 summary.setdefault(f"host {k}", {}).setdefault(

@@ -1,4 +1,5 @@
-"""Build, load and count the port's CUDA kernels.
+"""Build, load and count the port's CUDA kernels, and name the type their
+plain versions and backwards compute in.
 
 Every ``csrc/*.cu`` has a plain C interface.  ``load()`` compiles each source
 with ``nvcc`` for ``sm_90a`` (one ``nvcc -c`` per source, all started at
@@ -22,6 +23,8 @@ import tempfile
 import threading
 import time
 from pathlib import Path
+
+import torch
 
 CSRC = Path(__file__).parent / "csrc"
 BUILD_DIR = Path(__file__).parent / "build"
@@ -71,6 +74,14 @@ class LaunchCounter:
     def reset(self) -> None:
         with self._lock:
             self.count = 0
+
+
+def wide(t: torch.Tensor) -> torch.Tensor:
+    """``t`` in the type a plain version or a backward computes in: float32,
+    or float64 for a float64 input (the kernels take neither float64 nor
+    anything narrower than bf16; ``gradcheck`` runs the plain versions in
+    float64)."""
+    return t.to(torch.promote_types(t.dtype, torch.float32))
 
 
 def _sources() -> list[Path]:

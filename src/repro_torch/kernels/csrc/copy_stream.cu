@@ -32,20 +32,32 @@
 // dtype (src/repro/kernels/ref.py:19-20); fp32 or bf16.  Bound: bytes, two
 // reads and one write, 3 * nbytes over 3.35 TB/s (0.0601 ms at 16384 x 1024
 // fp32).  The TPU kernel prefetches `a` to SMEM ahead of the grid; here it is
-// a kernel argument, in a register of every thread.  A grid-stride loop over
-// 16-byte vectors, with the tail (and unaligned buffers) on an element
-// loop.  The product and the sum are rounded one at a time, as PyTorch's
-// `a * x + y` rounds them (no fused multiply-add), so the kernel is
-// bit-exact against its plain version.
+// a kernel argument, in a register of every thread.  The geometry is that of
+// PyTorch's vectorized elementwise kernels, not the copy's persistent one: a
+// one-shot grid with no loop, each block owning kTriadVecs * 256 16-byte
+// vectors, each thread kTriadVecs of x and as many of y (neighbouring
+// threads on neighbouring vectors), every load issued before the first
+// store.  The tail (and unaligned buffers) goes to an element loop.  The
+// product and the sum are rounded one at a time, as PyTorch's `a * x + y`
+// rounds them (no fused multiply-add), so the kernel is bit-exact against
+// its plain version.  Chosen by timing (kernel_bench.py at 16384 x 1024
+// fp32, H100 at 700 W): 2 vectors a thread ran within 0.3% of 4; the copy's
+// persistent geometry (4 blocks an SM, balanced spans) 5% slower, as the
+// first kernel's grid-stride loop was.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "common.cuh"
+
 namespace {
+
+using repro::sm_count;
 
 constexpr int kThreads = 256;
 constexpr int kBatch = 8;          // 16-byte loads a thread has in flight
 constexpr int kCopyBlocksPerSM = 4;
+constexpr int kTriadVecs = 4;      // 16-byte vectors of x (and of y) a thread
 
 __global__ void __launch_bounds__(kThreads, kCopyBlocksPerSM)
 copy_vec16(const uint4* __restrict__ src, uint4* __restrict__ dst,
@@ -69,15 +81,6 @@ copy_vec16(const uint4* __restrict__ src, uint4* __restrict__ dst,
   }
 }
 
-int sm_count(int device) {
-  int sms = 0;
-  if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device) !=
-          cudaSuccess ||
-      sms <= 0)
-    sms = 132;
-  return sms;
-}
-
 __global__ void __launch_bounds__(kThreads)
 copy_bytes(const uint8_t* __restrict__ src, uint8_t* __restrict__ dst,
            int64_t n) {
@@ -87,8 +90,8 @@ copy_bytes(const uint8_t* __restrict__ src, uint8_t* __restrict__ dst,
     dst[i] = src[i];
 }
 
-// the grid of the triad and of the byte loop: a block for every 256 items
-// of work, at most 8 on each SM
+// the grid of the triad's element loop and of the byte loop: a block for
+// every 256 items of work, at most 8 on each SM
 int grid_for(int64_t work, int device) {
   const int sms = sm_count(device);
   const int64_t want = (work + kThreads - 1) / kThreads;
@@ -114,18 +117,30 @@ __global__ void __launch_bounds__(kThreads)
 triad_vec16(float a, const uint4* __restrict__ x, const uint4* __restrict__ y,
             uint4* __restrict__ out, int64_t n_vec) {
   constexpr int N = 16 / sizeof(T);
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n_vec;
-       i += stride) {
-    const uint4 xv = x[i], yv = y[i];
-    uint4 ov;
-    const T* xs = reinterpret_cast<const T*>(&xv);
-    const T* ys = reinterpret_cast<const T*>(&yv);
-    T* os = reinterpret_cast<T*>(&ov);
+  const int64_t base =
+      (int64_t)blockIdx.x * kThreads * kTriadVecs + threadIdx.x;
+  uint4 xv[kTriadVecs], yv[kTriadVecs];
 #pragma unroll
-    for (int k = 0; k < N; ++k)
-      os[k] = triad_one(a, load_f(xs[k]), load_f(ys[k]), T());
-    out[i] = ov;
+  for (int u = 0; u < kTriadVecs; ++u) {
+    const int64_t i = base + u * kThreads;
+    if (i < n_vec) {
+      xv[u] = x[i];
+      yv[u] = y[i];
+    }
+  }
+#pragma unroll
+  for (int u = 0; u < kTriadVecs; ++u) {
+    const int64_t i = base + u * kThreads;
+    if (i < n_vec) {
+      uint4 ov;
+      const T* xs = reinterpret_cast<const T*>(&xv[u]);
+      const T* ys = reinterpret_cast<const T*>(&yv[u]);
+      T* os = reinterpret_cast<T*>(&ov);
+#pragma unroll
+      for (int k = 0; k < N; ++k)
+        os[k] = triad_one(a, load_f(xs[k]), load_f(ys[k]), T());
+      out[i] = ov;
+    }
   }
 }
 
@@ -147,7 +162,8 @@ cudaError_t triad(float a, const void* x, const void* y, void* out,
   if ((((uintptr_t)x | (uintptr_t)y | (uintptr_t)out) & 15) == 0) {
     const int64_t n_vec = n / N;
     if (n_vec > 0) {
-      triad_vec16<T><<<grid_for(n_vec, device), kThreads, 0, s>>>(
+      const int64_t per_block = (int64_t)kThreads * kTriadVecs;
+      triad_vec16<T><<<(n_vec + per_block - 1) / per_block, kThreads, 0, s>>>(
           a, (const uint4*)x, (const uint4*)y, (uint4*)out, n_vec);
       const cudaError_t err = cudaGetLastError();
       if (err != cudaSuccess) return err;

@@ -56,14 +56,12 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include <atomic>
-
 #include "common.cuh"
 
 namespace {
 
 using repro::allow_smem;
-using repro::kMaxDevices;
+using repro::sm_count;
 using repro::smem_u32;
 using bf16 = __nv_bfloat16;
 
@@ -513,19 +511,6 @@ bool bf16_map(CUtensorMap* map, const void* base, int rows, int cols,
                 CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
-int sm_count(int device) {
-  static std::atomic<int> cache[kMaxDevices];
-  const bool cached = device >= 0 && device < kMaxDevices;
-  int v = cached ? cache[device].load(std::memory_order_relaxed) : 0;
-  if (v == 0) {
-    if (cudaDeviceGetAttribute(&v, cudaDevAttrMultiProcessorCount, device) !=
-        cudaSuccess)
-      v = 132;
-    if (cached) cache[device].store(v, std::memory_order_relaxed);
-  }
-  return v;
 }
 
 template <int BN, typename OutT>

@@ -15,24 +15,46 @@
 // 1024 x 2048 bf16 prefill slab.  A decode step's 1-4 rows are launch-bound.
 //
 // Design: the TPU kernel streams (block_rows, d) tiles through VMEM with the
-// weight resident, so x crosses HBM once each way.  Here one block of up to
-// 256 threads owns one row.  Each thread loads its share of the row as
-// 16-byte vectors (8 bf16 or 4 fp32), keeps them in registers (at most
-// kMaxVec vectors, so d <= 16384 bf16 or 8192 fp32), accumulates its sum of
-// squares in fp32, and the block reduces it with warp shuffles and one
-// shared-memory step.  Then every thread scales its cached vectors by
-// rsqrtf(ms + eps) and by w, and writes them once: one read and one write of
-// the row.  w (8 KB at d = 2048 fp32) is read by every row and stays in L2.
+// weight resident, so x crosses HBM once each way.  Here a row is owned by
+// WPR warps, the fewest (1, 2, 4 or 8) that keep each lane at kMaxVec or
+// fewer 16-byte vectors (8 bf16 or 4 fp32): one warp at d <= 2048 bf16 or
+// 1024 fp32.  Up to kFewRows rows (a decode step), which would leave most
+// SMs idle, a row gets 8 warps where every lane still holds a vector, so
+// its loads start from more SMs at once.  WPR is a template parameter,
+// picked from d and the row count at launch.  Each lane issues every load
+// it needs before it waits on any: first w's vectors for its columns (read
+// through L2 with an evict-last policy: every row reads the same w), then
+// its row's x vectors with the streaming hint (`.cs`: x is read once).
+// Then it sums its squares in fp32, and the row reduces them by shuffles
+// alone where one warp owns it, or through shared memory and a named
+// barrier of the row's warps.  Then it scales its cached vectors, (x * r) *
+// w in fp32, and stores them once (`.cs` again).  A block holds R rows, R
+// from the row count so that the grid covers the SMs once (R = 8 and 128
+// blocks at 1024 rows, R = 2 at 256, R = 1 below 133): no block barrier
+// anywhere.
+//
+// Chosen by timing (kernel_bench.py against variant trees, H100 at 700 W):
+// w staged in shared memory by cp.async behind one block barrier ran
+// 0.0004-0.0006 ms slower at 4, 256 and 1024 rows; w read without the L2
+// policy 0.0001-0.0005 slower; a warp owning two rows and reading w once
+// for both 0.003-0.004 slower; one warp a row at 4 rows about 0.0002 slower
+// than 8.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "common.cuh"
+
 namespace {
+
+using repro::sm_count;
 
 using bf16 = __nv_bfloat16;
 
-constexpr int kMaxThreads = 256;
-constexpr int kMaxVec = 8;  // 16-byte vectors a thread caches
+constexpr int kMaxThreads = 256;  // a block: up to 8 warps
+constexpr int kMaxVec = 8;        // 16-byte vectors of x a lane caches
+constexpr int kMaxWarpsPerRow = 8;
+constexpr int kFewRows = 32;      // up to this many rows, 8 warps a row
 
 template <typename T>
 struct Vec {  // values of T in 16 bytes
@@ -75,75 +97,129 @@ __device__ inline float warp_sum(float v) {
   return v;
 }
 
-// TX is x's and out's type, TW w's.  d is a multiple of Vec<TX>::n and
+// an L2 policy that keeps the lines it loads past streaming traffic
+__device__ inline uint64_t evict_last_policy() {
+  uint64_t policy;
+  asm("createpolicy.fractional.L2::evict_last.b64 %0, 1.0;" : "=l"(policy));
+  return policy;
+}
+
+__device__ inline uint4 load_evict_last(const uint4* p, uint64_t policy) {
+  uint4 v;
+  asm("ld.global.nc.L2::cache_hint.v4.u32 {%0, %1, %2, %3}, [%4], %5;"
+      : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+      : "l"(p), "l"(policy));
+  return v;
+}
+
+// TX is x's and out's type, TW w's; a row is owned by WPR warps, and the
+// block holds blockDim.x / (32 WPR) rows.  d is a multiple of Vec<TX>::n and
 // Vec<TX>::n a multiple of Vec<TW>::n (the wrapper takes w in fp32 or TX).
-template <typename TX, typename TW>
+template <typename TX, typename TW, int WPR>
 __global__ void __launch_bounds__(kMaxThreads)
 rmsnorm_rows(const TX* __restrict__ x, const TW* __restrict__ w,
-             TX* __restrict__ out, int d, float eps) {
+             TX* __restrict__ out, int rows, int d, float eps) {
   constexpr int N = Vec<TX>::n;
-  constexpr int NW = Vec<TW>::n;
+  constexpr int WV = N / Vec<TW>::n;  // w vectors under one x vector
+  constexpr int T = 32 * WPR;         // threads of a row
   const int n_vec = d / N;
-  const int64_t base = (int64_t)blockIdx.x * d;
-  const uint4* xr = reinterpret_cast<const uint4*>(x + base);
-  uint4* orow = reinterpret_cast<uint4*>(out + base);
+  const int t = threadIdx.x % T;
+  const int row_in_block = threadIdx.x / T;
+  const int row = blockIdx.x * (blockDim.x / T) + row_in_block;
+  if (row >= rows) return;  // a whole row's warps leave together
 
-  uint4 cache[kMaxVec];
+  const uint4* wv = reinterpret_cast<const uint4*>(w);
+  const uint4* xr = reinterpret_cast<const uint4*>(x + (int64_t)row * d);
+  uint4* orow = reinterpret_cast<uint4*>(out + (int64_t)row * d);
+
+  // every load before the first wait: w's vectors, then x's
+  const uint64_t policy = evict_last_policy();
+  uint4 wc[kMaxVec][WV], xc[kMaxVec];
+#pragma unroll
+  for (int j = 0; j < kMaxVec; ++j) {
+    const int i = t + j * T;
+    if (i < n_vec) {
+#pragma unroll
+      for (int c = 0; c < WV; ++c) wc[j][c] = load_evict_last(wv + i * WV + c, policy);
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < kMaxVec; ++j) {
+    const int i = t + j * T;
+    if (i < n_vec) xc[j] = __ldcs(xr + i);
+  }
+
   float ss = 0.f;
 #pragma unroll
   for (int j = 0; j < kMaxVec; ++j) {
-    const int i = threadIdx.x + j * blockDim.x;
-    if (i < n_vec) {
-      cache[j] = xr[i];
+    if (t + j * T < n_vec) {
       float f[N];
-      to_float(cache[j], f, TX());
+      to_float(xc[j], f, TX());
 #pragma unroll
       for (int k = 0; k < N; ++k) ss = fmaf(f[k], f[k], ss);
     }
   }
-
-  __shared__ float partial[kMaxThreads / 32];
-  __shared__ float scale;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   ss = warp_sum(ss);
-  if (lane == 0) partial[warp] = ss;
-  __syncthreads();
-  if (warp == 0) {
-    float t = lane < (int)(blockDim.x >> 5) ? partial[lane] : 0.f;
-    t = warp_sum(t);
-    if (lane == 0) scale = rsqrtf(t / (float)d + eps);
+  if constexpr (WPR > 1) {
+    // the row's warps meet at their own barrier (ids 1.., 0 is the block's)
+    __shared__ float partial[kMaxThreads / 32];
+    const int warp = threadIdx.x / 32;
+    if (threadIdx.x % 32 == 0) partial[warp] = ss;
+    asm volatile("bar.sync %0, %1;" ::"r"(1 + row_in_block), "r"(T));
+    ss = 0.f;
+#pragma unroll
+    for (int k = 0; k < WPR; ++k) ss += partial[warp - warp % WPR + k];
   }
-  __syncthreads();
-  const float r = scale;
+  const float r = rsqrtf(ss / (float)d + eps);
 
 #pragma unroll
   for (int j = 0; j < kMaxVec; ++j) {
-    const int i = threadIdx.x + j * blockDim.x;
+    const int i = t + j * T;
     if (i < n_vec) {
       float f[N], wf[N];
-      to_float(cache[j], f, TX());
-      const uint4* wv = reinterpret_cast<const uint4*>(w + (int64_t)i * N);
+      to_float(xc[j], f, TX());
 #pragma unroll
-      for (int c = 0; c < N / NW; ++c) to_float(wv[c], wf + c * NW, TW());
+      for (int c = 0; c < WV; ++c) to_float(wc[j][c], wf + c * (N / WV), TW());
 #pragma unroll
       for (int k = 0; k < N; ++k) f[k] = (f[k] * r) * wf[k];
-      orow[i] = from_float(f, TX());
+      __stcs(orow + i, from_float(f, TX()));
     }
   }
 }
 
+template <typename TX, typename TW, int WPR>
+cudaError_t launch_rows(const void* x, const void* w, void* out, int rows,
+                        int d, float eps, int device, cudaStream_t s) {
+  constexpr int T = 32 * WPR;
+  // rows a block: enough that the grid covers the SMs about once
+  const int sms = sm_count(device);
+  int per_block = (rows + sms - 1) / sms;
+  if (per_block > kMaxThreads / T) per_block = kMaxThreads / T;
+  const int blocks = (rows + per_block - 1) / per_block;
+  rmsnorm_rows<TX, TW, WPR><<<blocks, per_block * T, 0, s>>>(
+      (const TX*)x, (const TW*)w, (TX*)out, rows, d, eps);
+  return cudaGetLastError();
+}
+
 template <typename TX, typename TW>
 cudaError_t launch(const void* x, const void* w, void* out, int rows, int d,
-                   float eps, cudaStream_t s) {
-  if (d % Vec<TX>::n) return cudaErrorInvalidValue;
+                   float eps, int device, cudaStream_t s) {
+  if (d <= 0 || d % Vec<TX>::n) return cudaErrorInvalidValue;
   const int n_vec = d / Vec<TX>::n;
-  int threads = (n_vec + 31) / 32 * 32;
-  if (threads > kMaxThreads) threads = kMaxThreads;
-  if (n_vec <= 0 || (n_vec + threads - 1) / threads > kMaxVec)
-    return cudaErrorInvalidValue;
-  rmsnorm_rows<TX, TW><<<rows, threads, 0, s>>>(
-      (const TX*)x, (const TW*)w, (TX*)out, d, eps);
-  return cudaGetLastError();
+  const int per_warp = 32 * kMaxVec;
+  // few rows leave most SMs idle: spread each over 8 warps where every
+  // lane still holds a vector
+  if (rows <= kFewRows && n_vec >= 32 * kMaxWarpsPerRow)
+    return launch_rows<TX, TW, 8>(x, w, out, rows, d, eps, device, s);
+  if (n_vec <= per_warp)
+    return launch_rows<TX, TW, 1>(x, w, out, rows, d, eps, device, s);
+  if (n_vec <= 2 * per_warp)
+    return launch_rows<TX, TW, 2>(x, w, out, rows, d, eps, device, s);
+  if (n_vec <= 4 * per_warp)
+    return launch_rows<TX, TW, 4>(x, w, out, rows, d, eps, device, s);
+  if (n_vec <= kMaxWarpsPerRow * per_warp)
+    return launch_rows<TX, TW, 8>(x, w, out, rows, d, eps, device, s);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -157,10 +233,10 @@ extern "C" int repro_rmsnorm(const void* x, const void* w, void* out,
   if (rows <= 0) return (int)cudaGetLastError();
   cudaStream_t s = (cudaStream_t)stream;
   if (x_dtype == 0 && w_dtype == 0)
-    return (int)launch<float, float>(x, w, out, rows, d, eps, s);
+    return (int)launch<float, float>(x, w, out, rows, d, eps, device, s);
   if (x_dtype == 1 && w_dtype == 1)
-    return (int)launch<bf16, bf16>(x, w, out, rows, d, eps, s);
+    return (int)launch<bf16, bf16>(x, w, out, rows, d, eps, device, s);
   if (x_dtype == 1 && w_dtype == 0)
-    return (int)launch<bf16, float>(x, w, out, rows, d, eps, s);
+    return (int)launch<bf16, float>(x, w, out, rows, d, eps, device, s);
   return (int)cudaErrorInvalidValue;
 }

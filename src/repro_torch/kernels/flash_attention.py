@@ -12,7 +12,8 @@ TF32).  ``plain`` is the dense PyTorch version, following ``ref.attention``
 ``chip_smoke.py`` hold the kernel to.  Both output 0 for a row that sees no
 key.  The tiling checks of the TPU kernel (``S % bq``, ``Sk % bk``) live in
 ``ops.flash_attention``, which checks the heads once and then calls
-``launch`` or ``plain``.
+``launch`` or ``plain``, or ``FlashAttentionFunction`` (the launch with a
+plain backward) where a graph is being recorded.
 """
 from __future__ import annotations
 
@@ -48,9 +49,9 @@ def plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     _, hkv, sk, _ = k.shape
     group = hq // hkv
     scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(d)
-    kr = k.repeat_interleave(group, dim=1).float()
-    vr = v.repeat_interleave(group, dim=1).float()
-    scores = torch.einsum("bhqd,bhkd->bhqk", q.float(), kr) * scale
+    kr = _build.wide(k.repeat_interleave(group, dim=1))
+    vr = _build.wide(v.repeat_interleave(group, dim=1))
+    scores = torch.einsum("bhqd,bhkd->bhqk", _build.wide(q), kr) * scale
     rows = torch.arange(s, device=q.device)[:, None]
     cols = torch.arange(sk, device=q.device)[None, :]
     mask = torch.ones((s, sk), dtype=torch.bool, device=q.device)
@@ -63,6 +64,29 @@ def plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     out = torch.einsum("bhqk,bhkd->bhqd", p, vr)
     out = torch.where(mask.any(dim=-1)[:, None], out, torch.zeros_like(out))
     return out.to(q.dtype)
+
+
+class FlashAttentionFunction(torch.autograd.Function):
+    """``launch`` (the kernel, one count) forward.  Backward: ``plain``
+    recomputed on the saved q, k and v under ``enable_grad`` (fp32 inside,
+    the same causal, window and GQA arguments) and differentiated.  A row
+    that sees no key outputs 0 through a ``where``, so it passes back no
+    gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, sm_scale):
+        ctx.save_for_backward(q, k, v)
+        ctx.args = dict(causal=causal, window=window, sm_scale=sm_scale)
+        return launch(q, k, v, **ctx.args)
+
+    @staticmethod
+    def backward(ctx, g):
+        qkv = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+        with torch.enable_grad():
+            out = plain(*qkv, **ctx.args)
+        grads = torch.autograd.grad(out, qkv, g)
+        return (*(gr if need else None for gr, need in
+                  zip(grads, ctx.needs_input_grad)), None, None, None)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

@@ -6,7 +6,9 @@ ring when m > 16 and a streaming kernel that reads y once when m <= 16 (the
 decode GEMV), one launch either way; for fp32, FMA without TF32.  ``plain``
 is the same function in PyTorch, the reference the tests and
 ``chip_smoke.py`` hold the kernel to.
-The tiling checks of the TPU kernel live in ``ops.matmul``.
+The tiling checks of the TPU kernel live in ``ops.matmul``, which takes
+``MatmulFunction`` (the launch with a plain backward) where a graph is being
+recorded.
 """
 from __future__ import annotations
 
@@ -21,7 +23,27 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 def plain(x: torch.Tensor, y: torch.Tensor, out_dtype=None) -> torch.Tensor:
     """``x @ y`` in float32, cast to ``out_dtype`` (default ``x.dtype``)."""
-    return (x.float() @ y.float()).to(out_dtype or x.dtype)
+    return (_build.wide(x) @ _build.wide(y)).to(out_dtype or x.dtype)
+
+
+class MatmulFunction(torch.autograd.Function):
+    """``matmul`` (the kernel, one count) forward; backward ``g @ y^T`` and
+    ``x^T @ g`` in fp32, each cast to its operand's dtype."""
+
+    @staticmethod
+    def forward(ctx, x, y, out_dtype):
+        ctx.save_for_backward(x, y)
+        return matmul(x, y, out_dtype=out_dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, y = ctx.saved_tensors
+        gf = _build.wide(g)
+        dx = (gf @ _build.wide(y).T).to(x.dtype) \
+            if ctx.needs_input_grad[0] else None
+        dy = (_build.wide(x).T @ gf).to(y.dtype) \
+            if ctx.needs_input_grad[1] else None
+        return dx, dy, None
 
 
 def matmul(x: torch.Tensor, y: torch.Tensor, out_dtype=None) -> torch.Tensor:

@@ -3,7 +3,11 @@
 Each op launches its CUDA kernel for a tensor on the card and takes the plain
 PyTorch version for a tensor on the CPU.  ``force="ref"`` takes the plain
 version on either device, and ``force="cuda"`` insists on the kernel (a CPU
-tensor then raises).  There is no fallback: a kernel that fails to build or
+tensor then raises).  Where autograd records (grad mode on and an input
+that requires grad), ``matmul``, ``rmsnorm`` and ``flash_attention`` launch
+through their ``autograd.Function``, whose backward is plain PyTorch;
+elsewhere, as under ``inference_mode``, they launch bare, at no host cost
+of the Function's.  There is no fallback: a kernel that fails to build or
 launch raises.  The shape checks of the TPU kernels (tiling, ``block_rows``,
 power-of-two rows) hold on every path but ``"ref"``, as they do for the
 Pallas path of the JAX ops, so the CPU raises what the card would.
@@ -39,6 +43,11 @@ def _use_kernel(x: torch.Tensor, force: str | None) -> bool:
     return force != "ref" and x.device.type == "cuda"
 
 
+def _records(*tensors: torch.Tensor) -> bool:
+    """Whether autograd would record an op on ``tensors``."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
 def matmul(x, y, *, bm=128, bn=128, bk=128, out_dtype=None, force=None):
     kernel = _use_kernel(x, force)
     if force != "ref":
@@ -50,9 +59,11 @@ def matmul(x, y, *, bm=128, bn=128, bk=128, out_dtype=None, force=None):
         if m % bm or n % bn or k % bk:
             raise ValueError(f"shape ({m},{k})x({k},{n}) not tiled by "
                              f"bm={bm}, bn={bn}, bk={bk}")
-    if kernel:
-        return _matmul.matmul(x, y, out_dtype=out_dtype)
-    return _matmul.plain(x, y, out_dtype=out_dtype)
+    if not kernel:
+        return _matmul.plain(x, y, out_dtype=out_dtype)
+    if _records(x, y):
+        return _matmul.MatmulFunction.apply(x, y, out_dtype)
+    return _matmul.matmul(x, y, out_dtype=out_dtype)
 
 
 def copy(x, *, block_rows=256, force=None):
@@ -97,8 +108,11 @@ def rmsnorm(x, w, *, eps=1e-6, block_rows=256, force=None):
         if rows % block_rows:
             raise ValueError(f"rows {rows} not divisible by block_rows "
                              f"{block_rows}")
-    fn = _rmsnorm.rmsnorm if kernel else _rmsnorm.plain
-    return fn(x, w, eps=eps)
+    if not kernel:
+        return _rmsnorm.plain(x, w, eps=eps)
+    if _records(x, w):
+        return _rmsnorm.RMSNormFunction.apply(x, w, eps)
+    return _rmsnorm.rmsnorm(x, w, eps=eps)
 
 
 def flash_attention(q, k, v, *, causal=True, window=None, bq=256, bk=256,
@@ -113,8 +127,14 @@ def flash_attention(q, k, v, *, causal=True, window=None, bq=256, bk=256,
         s, sk = q.shape[2], k.shape[2]
         if s % bq or sk % bk:
             raise ValueError(f"seq {s}/{sk} not tiled by bq={bq}/bk={bk}")
-    fn = _flash.launch if kernel else _flash.plain
-    return fn(q, k, v, causal=causal, window=window, sm_scale=sm_scale)
+    if not kernel:
+        return _flash.plain(q, k, v, causal=causal, window=window,
+                            sm_scale=sm_scale)
+    if _records(q, k, v):
+        return _flash.FlashAttentionFunction.apply(q, k, v, causal, window,
+                                                   sm_scale)
+    return _flash.launch(q, k, v, causal=causal, window=window,
+                         sm_scale=sm_scale)
 
 
 # ---------------------------------------------------------------------------

@@ -2,13 +2,19 @@
 
 Counterpart of the Pallas ``rmsnorm`` (src/repro/kernels/rmsnorm.py:19-47):
 ``x * rsqrt(mean(x^2) + eps) * w`` for each row of (rows, d), in fp32, cast
-back to x's dtype.  ``rmsnorm`` launches ``csrc/rmsnorm.cu`` (one block per
-row, the row cached in registers as 16-byte vectors, one read and one write);
+back to x's dtype.  ``rmsnorm`` launches ``csrc/rmsnorm.cu`` (a row owned by
+the fewest warps that cache it in registers as 16-byte vectors, one warp at
+the decoder's d = 2048, several rows a block; one read and one write);
 ``plain`` is the same function in PyTorch, following ``ref.rmsnorm``
 (src/repro/kernels/ref.py:27-30) and the models' own ``layers.rmsnorm``
 (src/repro/models/layers.py:27-31).  The port's decoder calls it through
 ``ops.rmsnorm`` for every norm.  The TPU kernel's checks (``w`` of shape
 (d,), ``rows % block_rows``) live in ``ops.rmsnorm``.
+
+``RMSNormFunction`` is the kernel's launch with a plain PyTorch backward,
+which ``ops.rmsnorm`` takes where a graph is being recorded: the Pallas
+kernel has no backward of its own (no ``custom_vjp``), and the JAX models
+differentiate the jnp layer.
 """
 from __future__ import annotations
 
@@ -19,22 +25,68 @@ from . import _build
 launches = _build.LaunchCounter()
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_MAX_THREADS, _MAX_VEC = 256, 8   # the kernel's block and register cache
+# the kernel's geometry: a row is owned by 1, 2, 4 or 8 warps, the fewest
+# that keep each lane at 8 or fewer 16-byte vectors of x
+_WARPS_PER_ROW, _MAX_VEC = (1, 2, 4, 8), 8
+# row counts on both sides of each step of the launch's geometry on 132
+# SMs: up to 32 rows a row gets 8 warps; above, a block holds
+# ceil(rows / 132) rows (at most 8), so one row a block up to 132, and the
+# grid steps past 128 blocks at 257 (2 a block) and 1025 (8 a block)
+EDGE_ROWS = (1, 2, 3, 4, 5, 31, 32, 33, 132, 133, 255, 256, 257, 1023, 1024,
+             1025)
 
 
 def plain(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6
           ) -> torch.Tensor:
     """RMSNorm of the rows of ``x`` (..., d) by ``w`` (d,)."""
-    xf = x.float()
+    xf = _build.wide(x)
     ms = (xf * xf).mean(dim=-1, keepdim=True)
-    return (xf * torch.rsqrt(ms + eps) * w.float()).to(x.dtype)
+    return (xf * torch.rsqrt(ms + eps) * _build.wide(w)).to(x.dtype)
+
+
+class RMSNormFunction(torch.autograd.Function):
+    """``rmsnorm`` (the kernel's launch, one count) forward; backward in
+    fp32 by the closed form, from the saved x and w and the per-row
+    r = rsqrt(mean(x^2) + eps):
+        dx = r (w g) - x r^3 mean(x w g),   dw = sum over rows of g x r."""
+
+    @staticmethod
+    def forward(ctx, x, w, eps):
+        ctx.save_for_backward(x, w)
+        ctx.eps = eps
+        return rmsnorm(x, w, eps=eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        xf, wf, gf = _build.wide(x), _build.wide(w), _build.wide(g)
+        r = torch.rsqrt((xf * xf).mean(dim=-1, keepdim=True) + ctx.eps)
+        wg = wf * gf
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = (r * wg - xf * r ** 3 * (xf * wg).mean(dim=-1, keepdim=True)
+                  ).to(x.dtype)
+        if ctx.needs_input_grad[1]:
+            dw = (gf * xf * r).sum(dim=0).to(w.dtype)
+        return dx, dw, None
 
 
 def max_width(dtype: torch.dtype) -> int:
-    """The widest row the kernel takes: its register cache of 16-byte
-    vectors per thread."""
-    return _MAX_THREADS * _MAX_VEC * 16 // torch.empty((), dtype=dtype
-                                                       ).element_size()
+    """The widest row the kernel takes: 8 warps of lanes caching 8
+    16-byte vectors each."""
+    return geometry_edges(dtype)[-1]
+
+
+def geometry_edges(dtype: torch.dtype) -> list[int]:
+    """The widths d around which the kernel's geometry changes: one vector,
+    and one vector either side of each warps-per-row step (the last is the
+    widest row it takes)."""
+    per_vec = 16 // torch.empty((), dtype=dtype).element_size()
+    vecs = {1}
+    for wpr in _WARPS_PER_ROW:
+        step = 32 * wpr * _MAX_VEC
+        vecs |= {step - 1, step} | ({step + 1} if wpr < 8 else set())
+    return [v * per_vec for v in sorted(vecs)]
 
 
 def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6

@@ -1,5 +1,6 @@
-"""LM cross-entropy, both variants of ``repro.models.losses`` (forward
-only: training waits for ROADMAP.md, Queue 1 item 4).
+"""LM cross-entropy, both variants of ``repro.models.losses``,
+differentiable on either device (the kernels under ``DecoderLM.loss`` launch
+through ``autograd.Function``s where a graph is recorded).
 
 ``gather`` takes the gold logit with ``gather`` over the vocab dim;
 ``onehot`` sums ``logits * one_hot(targets)``.  The JAX package keeps both

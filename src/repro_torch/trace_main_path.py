@@ -25,9 +25,11 @@ time (the union of all kernel intervals inside the run's span), its idle
 share, and device time and launches by kernel name.
 
 Run on a card:  PYTHONPATH=src python -m repro_torch.trace_main_path
+``--serve-only`` leaves out the mixed-mode DAG: the serving paths alone.
 """
 from __future__ import annotations
 
+import argparse
 import collections
 import json
 import os
@@ -185,10 +187,16 @@ def traced(label: str, span: str, run) -> dict:
     }
 
 
-def main() -> None:
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--serve-only", action="store_true",
+                    help="the serving paths alone, not the mixed-mode DAG")
+    args = ap.parse_args(argv)
     mixed_mode.resolve_device("cuda")
-    chunk_costs()
-    for policy in mixed_mode.POLICIES:
+    policies = () if args.serve_only else mixed_mode.POLICIES
+    if policies:
+        chunk_costs()
+    for policy in policies:
         print(json.dumps(spread(policy)), flush=True)
     print(json.dumps(arch_spread()), flush=True)
     tenants = zoo.default_zoo()
@@ -196,7 +204,7 @@ def main() -> None:
     serve_chunk_costs(tenants)
     for path in serve.PATHS:
         print(json.dumps(serve_spread(path, tenants)), flush=True)
-    for policy in mixed_mode.POLICIES:
+    for policy in policies:
         print(json.dumps(traced(
             f"mixed_mode:{policy}", mixed_mode.RUN_SPAN,
             lambda: mixed_mode.run(policy, N_TASKS))), flush=True)

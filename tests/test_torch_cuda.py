@@ -15,7 +15,9 @@ ulp (2^-7 of the value), as chip_smoke.py holds it.
 rmsnorm as tests/test_kernels.py holds the Pallas kernel (rtol=atol=2e-5
 fp32, 2e-2 bf16); triad bit-exact (both round the product and the sum one at
 a time).  The decoder on the card against the CPU at test_models.py's bf16
-formula: rtol 3e-2, atol 4 * 2^-8 * sqrt(4 L + 2).
+formula: rtol 3e-2, atol 4 * 2^-8 * sqrt(4 L + 2); its loss grads at full
+width and 2 layers within a relative Frobenius error of 3e-2 a parameter
+(bf16 activations summed in another order).
 """
 import dataclasses
 import math
@@ -354,6 +356,25 @@ def test_rmsnorm_kernel_matches_plain(card, rows, d, x_dtype, w_dtype, tol):
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
 
 
+@pytest.mark.parametrize("x_dtype,w_dtype,tol", [
+    (torch.float32, torch.float32, 2e-5),
+    (torch.bfloat16, torch.bfloat16, 2e-2),
+    (torch.bfloat16, torch.float32, 2e-2)])
+@pytest.mark.parametrize("edge", range(12))
+def test_rmsnorm_kernel_at_its_geometry_edges(card, edge, x_dtype, w_dtype,
+                                              tol):
+    """Every d at a warps-per-row step (one vector either side), each at
+    every row count around a step of the launch's geometry."""
+    d = rmsnorm.geometry_edges(x_dtype)[edge]
+    w = _t((d,), w_dtype, 40 + edge, card)
+    for rows in rmsnorm.EDGE_ROWS:
+        x = _t((rows, d), x_dtype, rows, card)
+        got = rmsnorm.rmsnorm(x, w, eps=1e-5)
+        torch.testing.assert_close(got.float(),
+                                   rmsnorm.plain(x, w, eps=1e-5).float(),
+                                   rtol=tol, atol=tol)
+
+
 def test_rmsnorm_kernel_at_its_widest_rows(card):
     for dtype in (torch.float32, torch.bfloat16):
         d = rmsnorm.max_width(dtype)
@@ -383,6 +404,29 @@ def test_rmsnorm_kernel_rejects_what_it_does_not_take(card):
         rmsnorm.rmsnorm(flat[1:].view(4, 64), x[0])
     with pytest.raises(ValueError, match="CUDA tensors"):
         rmsnorm.rmsnorm(x, x[0].cpu())
+
+
+def test_no_graph_under_inference_mode(card):
+    """Under ``inference_mode`` (every serving step) the ops launch bare:
+    no Function, no graph; where a graph is recorded they launch through
+    the Function, the same kernel and the same bits, one launch a call."""
+    x = _t((4, 2048), torch.bfloat16, 50, card).requires_grad_()
+    w = _t((2048,), torch.float32, 51, card).requires_grad_()
+    q = _t((2, 32, 64, 64), torch.bfloat16, 52, card).requires_grad_()
+    kv = _t((2, 8, 64, 64), torch.bfloat16, 53, card).requires_grad_()
+    calls = {"rmsnorm": lambda: ops.rmsnorm(x, w, eps=1e-5, block_rows=4),
+             "flash_attention": lambda: ops.flash_attention(q, kv, kv, bq=64,
+                                                            bk=64)}
+    for name, call in calls.items():
+        before = launch_counts()[name]
+        with torch.inference_mode():
+            bare = call()
+        assert bare.grad_fn is None and not bare.requires_grad
+        assert torch.is_inference(bare)
+        graphed = call()
+        assert type(graphed.grad_fn).__name__.endswith("FunctionBackward")
+        assert torch.equal(graphed.detach(), bare)
+        assert launch_counts()[name] == before + 2
 
 
 # ----------------------------------------------------------------- triad --
@@ -470,6 +514,43 @@ def test_decoder_launches_its_kernels_exactly(card):
         after = launch_counts()
         assert {k: after[k] - before[k] for k in after} == {
             "matmul": 0, "copy": 0, "triad": 0, "sort_rows": 0, **want}
+
+
+def test_decoder_loss_grads_on_the_card_match_the_cpu(card):
+    """llama3.2-1b at its published widths, cut to 2 layers, one set of
+    fp32 weights on the card (the kernels, through their Functions) and on
+    the CPU (plain versions): ``loss.backward()`` gives every parameter a
+    non-zero grad on the card, within a relative Frobenius error of 3e-2 of
+    the CPU's (bf16 activations summed in another order)."""
+    from repro_torch.configs import get_config
+
+    cfg = dataclasses.replace(get_config("llama3.2-1b"), n_layers=2)
+    model = get_model(cfg)
+    arrays = numpy_params(model, seed=7)
+    rng = np.random.default_rng(8)
+    toks, tgts = (torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 64)))
+                  for _ in "tt")
+    grads = {}
+    for dev in (card, torch.device("cpu")):
+        params = {k: v.requires_grad_() for k, v in
+                  params_from_numpy(arrays, dev).items()}
+        before = launch_counts()
+        loss, _ = model.loss(params, {"tokens": toks.to(dev),
+                                      "targets": tgts.to(dev)})
+        loss.backward()
+        if dev == card:
+            after = launch_counts()
+            assert {k: after[k] - before[k] for k in after} == {
+                "matmul": 0, "copy": 0, "triad": 0, "sort_rows": 0,
+                "rmsnorm": 2 * cfg.n_layers + 1,
+                "flash_attention": cfg.n_layers}
+        grads[dev.type] = {k: p.grad.float().cpu() for k, p in params.items()}
+        del params
+    for name, want in grads["cpu"].items():
+        got = grads["cuda"][name]
+        assert bool(got.abs().max() > 0), name
+        rel = float((got - want).norm() / want.norm())
+        assert rel <= 3e-2, (name, rel)
 
 
 def test_transformer_tenant_on_the_card_launches_every_chunk(card):
