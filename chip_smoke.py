@@ -14,12 +14,21 @@ that run it, and drives every ported path at full size:
   tenant and a kernel tenant at llama3.2-1b widths (slices 2 and 3): the
   trace, gate and controller of ``python -m repro_torch.launch.serve
   --zoo``, then a full backlog (the default ``bursty_serving_trace``, 100
-  requests) with no gate and no controller.
+  requests) with no gate and no controller;
+* ``python -m repro_torch.launch.train --arch llama3.2-1b`` (slice 7): the
+  launcher's default run (20 steps of batch 4 x seq 128 from
+  ``SyntheticLM(seed=0)``, AdamW under the cosine schedule, clipping) at
+  the full published size (``phase_train``), then ``--orchestrate
+  --microbatches 2`` for 4 steps, against a sequential run of the same
+  grads and updates (``phase_train_orchestrated``).
 
 Besides, it holds the RMSNorm kernel against its plain version at every
 edge of its geometry (``check_rmsnorm_edges``), and the decoder's loss
 gradients on the card, through the kernels' autograd Functions, against the
-CPU's at full width and 2 layers (``phase_grads``).
+CPU's at full width and 2 layers (``phase_grads``); two train steps there
+on the card against the CPU (``phase_train_vs_cpu``); and checkpointing on
+the card: a resumed run against a straight one, and a checkpoint written
+from the card restored on the CPU (``phase_checkpoint``).
 
 Run from the repository root on a machine with one NVIDIA H100:
 
@@ -43,6 +52,7 @@ import json
 import math
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -54,16 +64,22 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 from repro_torch import kernels, mixed_mode  # noqa: E402
 from repro_torch.core import random_dag  # noqa: E402
 from repro_torch.core.serve_orchestrator import DECODE_UNIT  # noqa: E402
+from repro_torch.checkpointing import (CheckpointManager,  # noqa: E402
+                                      Template)
+from repro_torch.data import SyntheticLM  # noqa: E402
 from repro_torch.kernel_bench import (L2_BYTES, NORM_ROWS,  # noqa: E402
-                                      attention_pairs, bound, device_ms,
-                                      sdpa, sort_ops)
+                                      TRAIN_ATTENTION, attention_pairs,
+                                      bound, device_ms, sdpa, sort_ops)
 from repro_torch.kernels import (_build, copy_stream, ops, ref,  # noqa: E402
                                  rmsnorm)
-from repro_torch.launch import serve, zoo  # noqa: E402
-from repro_torch.models import (get_model, make_decode_step,  # noqa: E402
-                                make_prefill_step)
+from repro_torch.launch import serve, train, zoo  # noqa: E402
+from repro_torch.models import (get_model, loss_and_grads,  # noqa: E402
+                                make_decode_step, make_prefill_step,
+                                make_train_step)
 from repro_torch.models.convert import (numpy_params,  # noqa: E402
                                         params_from_numpy)
+from repro_torch.optimizer import (adamw_init, adamw_update,  # noqa: E402
+                                   cosine_schedule)
 from repro_torch.workers import ChunkLog  # noqa: E402
 
 N_TASKS, DEGREE, SEED = 3000, 3.03, 1
@@ -88,14 +104,16 @@ KERNELS = {
 MIXED_PATHS = tuple(f"mixed_mode:{p}" for p in mixed_mode.POLICIES)
 MODEL_PATH = "serve:model"
 SERVE_PATHS = tuple(serve.PATHS)
+TRAIN_PATH, ORCH_TRAIN_PATH = "train", "train_orchestrated"
+TRAIN_PATHS = (TRAIN_PATH, ORCH_TRAIN_PATH)
 # kernel -> the paths whose main run must launch it.  triad has no caller
 # in either package: it is checked and timed, and no path runs it.
 KERNEL_PATHS = {"matmul": MIXED_PATHS + SERVE_PATHS,
                 "copy": MIXED_PATHS + SERVE_PATHS,
                 "triad": (),
                 "sort_rows": MIXED_PATHS,
-                "rmsnorm": (MODEL_PATH,) + SERVE_PATHS,
-                "flash_attention": (MODEL_PATH,) + SERVE_PATHS}
+                "rmsnorm": (MODEL_PATH,) + SERVE_PATHS + TRAIN_PATHS,
+                "flash_attention": (MODEL_PATH,) + SERVE_PATHS + TRAIN_PATHS}
 # kernel -> the shape (a key of phase_times's result) its top-level numbers
 # in the kernels line are taken at: the path that brought it into the port
 MAIN_SHAPE = {"matmul": "mixed_mode", "copy": "mixed_mode",
@@ -104,6 +122,10 @@ MAIN_SHAPE = {"matmul": "mixed_mode", "copy": "mixed_mode",
 ARCH = "llama3.2-1b"  # the model of serve:model and of the zoo's transformer
 D_MODEL = 2048        # its width (configs/llama3_2_1b.py)
 MODEL_BATCH, MODEL_PROMPT = 4, 64  # serve --arch's defaults (serve:model)
+# launch.train's defaults (train), and the orchestrated run's cut (4 steps
+# of 2 microbatches, train_orchestrated)
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_LR = 20, 4, 128, 3e-4
+ORCH_STEPS, MICROBATCHES = 4, 2
 
 
 def emit(obj: dict) -> None:
@@ -232,7 +254,7 @@ def phase_kernels() -> dict:
                   for dtype, tol in ((torch.float32, 2e-5),
                                      (torch.bfloat16, 2e-2))]
     norm_cases += [(rows, D_MODEL, rows, torch.bfloat16, torch.float32, 1e-5,
-                    2e-2) for rows in (256, 1024, 4, 1)]
+                    2e-2) for rows in (256, 1024, 4, 1, 512)]
     for i, (rows, d, block, xd, wd, eps, tol) in enumerate(norm_cases):
         x, w = tensor((rows, d), xd, 70 + i), tensor((d,), wd, 90 + i)
         got = ops.rmsnorm(x, w, eps=eps, block_rows=block).float()
@@ -407,9 +429,12 @@ def check_flash() -> tuple[int, float, float]:
     # check's forward (batch 2) over the prompt, their teacher-forcing
     # prefills over all but its last token, and the zoo transformer's chunk
     hq, hkv, d = s.q_heads, s.kv_heads, s.head_dim
+    # and a training step's forward (batch 4) and an orchestrated
+    # microbatch's (batch 2) over launch.train's 128 tokens
     for b, sq in ((MODEL_BATCH, MODEL_PROMPT), (MODEL_BATCH, MODEL_PROMPT - 1),
                   (2, MODEL_PROMPT), (2, MODEL_PROMPT - 1),
-                  (1, s.model_prompt)):
+                  (1, s.model_prompt), (TRAIN_BATCH, TRAIN_SEQ),
+                  (TRAIN_BATCH // MICROBATCHES, TRAIN_SEQ)):
         cases.append(((b, hq, hkv, sq, sq, d), s.dtype, True, None, sq))
     worst = main = 0.0
     for i, case in enumerate(cases):
@@ -454,8 +479,12 @@ def phase_times() -> dict:
     flash_ops = (4 * sv.head_dim * sv.batch * sv.q_heads
                  * attention_pairs(sv.seq, sv.seq, True, None))
     flash_library = sdpa(q, kv, kv)
-    lib_err = (flash_library().float()
-               - ref.attention(q, kv, kv).float()).abs().max().item()
+    tb, thq, thkv, ts, td = TRAIN_ATTENTION
+    qt = tensor((tb, thq, ts, td), sv.dtype, 20)
+    kvt = tensor((tb, thkv, ts, td), sv.dtype, 21)
+    lib_err = {key: (sdpa(a, b, b)().float() - ref.attention(a, b, b)
+                     .float()).abs().max().item()
+               for key, (a, b) in (("serve", (q, kv)), ("train", (qt, kvt)))}
 
     def mm(x, y):
         return (lambda: ops.matmul(x, y, bm=min(128, x.shape[0])),
@@ -497,6 +526,12 @@ def phase_times() -> dict:
             lambda: ref.attention(q, kv, kv), flash_library,
             2 * (q.numel() + kv.numel()) * q.element_size(), flash_ops,
             q.dtype, [list(q.shape), list(kv.shape)]),
+        ("flash_attention", "train"): (
+            lambda: ops.flash_attention(qt, kvt, kvt, bq=ts, bk=ts),
+            lambda: ref.attention(qt, kvt, kvt), sdpa(qt, kvt, kvt),
+            2 * (qt.numel() + kvt.numel()) * qt.element_size(),
+            4 * td * tb * thq * attention_pairs(ts, ts, True, None),
+            qt.dtype, [list(qt.shape), list(kvt.shape)]),
         ("matmul", "serve:projection"): mm(xp, w),
         ("matmul", "serve:gemv"): mm(x1, w),
         ("copy", "serve:slab"): cp(slab),
@@ -526,10 +561,11 @@ def phase_times() -> dict:
             raise AssertionError(f"{name} at {key}: {t['kernel_ms']} ms, "
                                  f"under its bound {t['bound_ms']} ms")
         times.setdefault(name, {})[key] = t
-        extra = {"flash_attention": {"library": "scaled_dot_product_attention",
-                                     "library_max_abs_err": lib_err},
-                 "rmsnorm": {"library": "rms_norm (fp32 weight)"},
+        extra = {"rmsnorm": {"library": "rms_norm (fp32 weight)"},
                  "triad": {"library": "add(y, x, alpha=a)"}}.get(name, {})
+        if name == "flash_attention":
+            extra = {"library": "scaled_dot_product_attention",
+                     "library_max_abs_err": lib_err[key]}
         emit({"phase": "time", "kernel": name, "at": key, "shape": shape,
               **t, **extra})
     return times
@@ -940,6 +976,266 @@ def phase_grads() -> None:
           "rel_frobenius_err": rel})
 
 
+def train_launches(forwards: int) -> dict:
+    """Launches of ``forwards`` forwards of the full llama3.2-1b through the
+    kernels' Functions: 2L + 1 norms and L attentions each, and none in a
+    backward or an update."""
+    from repro_torch.configs import get_config
+
+    layers = get_config(ARCH).n_layers
+    want = {name: 0 for name in KERNELS}
+    want.update(rmsnorm=forwards * (2 * layers + 1),
+                flash_attention=forwards * layers)
+    return want
+
+
+def phase_train() -> dict:
+    """train: ``python -m repro_torch.launch.train --arch llama3.2-1b`` at
+    full size, every counter reset just before and read just after.  Every
+    loss and grad norm finite, the mean loss of the last 3 steps under the
+    first's, every parameter moved and every moment non-zero, and exactly
+    33 norms and 16 attentions a step.  Returns kernel -> launches."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    out = train.run(ARCH, steps=TRAIN_STEPS, batch=TRAIN_BATCH,
+                    seq=TRAIN_SEQ, lr=TRAIN_LR, device="cuda")
+    torch.cuda.synchronize()
+    launched = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    losses, gnorms, lrs = out["losses"], out["grad_norms"], out["lrs"]
+    step_s = out["step_s"]
+    if launched != train_launches(TRAIN_STEPS):
+        raise AssertionError(f"{TRAIN_PATH}: launches {launched}, want "
+                             f"{train_launches(TRAIN_STEPS)}")
+    if len(losses) != TRAIN_STEPS or not np.isfinite(losses + gnorms).all():
+        raise AssertionError(f"{TRAIN_PATH}: losses {losses}, grad norms "
+                             f"{gnorms}")
+    if not np.mean(losses[-3:]) < losses[0]:
+        raise AssertionError(f"{TRAIN_PATH}: loss did not fall: {losses}")
+    opt, params, model = out["opt"], out["params"], out["model"]
+    if int(opt.step) != TRAIN_STEPS:
+        raise AssertionError(f"{TRAIN_PATH}: AdamW step {int(opt.step)}")
+    still = [k for k in params if not (bool(opt.mu[k].any())
+                                       and bool(opt.nu[k].any()))]
+    if still:
+        raise AssertionError(f"{TRAIN_PATH}: zero moments {still}")
+    del out, opt
+    torch.cuda.empty_cache()
+    init = model.init(torch.Generator("cuda").manual_seed(0))
+    moved = {k: (params[k] != init[k]).float().mean().item() for k in params}
+    if min(moved.values()) == 0.0:
+        raise AssertionError(f"{TRAIN_PATH}: a parameter did not move: "
+                             f"{moved}")
+    del params, init
+    torch.cuda.empty_cache()
+    warm_s = sum(step_s[1:])
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    emit({"phase": "train", "path": TRAIN_PATH, "arch": ARCH,
+          "params": model.param_count(), "steps": TRAIN_STEPS,
+          "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "losses": losses,
+          "grad_norms": gnorms, "lrs": lrs, "step_s": step_s,
+          "first_step_s": step_s[0],
+          "steps_per_s": (TRAIN_STEPS - 1) / warm_s,
+          "tokens_per_s": tokens * (TRAIN_STEPS - 1) / warm_s,
+          "tokens_per_s_with_first_step": tokens * TRAIN_STEPS / sum(step_s),
+          "share_of_elements_moved_least": min(moved.values()),
+          "launches": launched, "peak_memory_gib": peak / 2 ** 30})
+    return launched
+
+
+def phase_train_vs_cpu() -> None:
+    """Two train steps of llama3.2-1b at its published widths cut to 2
+    layers, on one set of fp32 weights (``numpy_params``) and the launcher's
+    first two batches at phase_grads' size (2 x 64), on the card (the
+    kernels through their Functions) and on the CPU (plain versions): loss
+    and grad norm of each step within 3e-2 relative (bf16 activations
+    summed in another order, phase_grads' bound), the lr equal."""
+    from repro_torch.configs import get_config
+
+    cfg = dataclasses.replace(get_config(ARCH), n_layers=2)
+    model = get_model(cfg)
+    arrays = numpy_params(model, seed=7)
+    data = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=MODEL_PROMPT,
+                       global_batch=2)
+    steps = 2
+    sched = cosine_schedule(TRAIN_LR, warmup_steps=max(steps // 20, 2),
+                            total_steps=steps)
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        step = make_train_step(model, lr_schedule=sched)
+        params = params_from_numpy(arrays, dev)
+        opt = adamw_init(params)
+        kernels.reset_launch_counts()
+        metrics = []
+        for s in range(steps):
+            params, opt, m = step(params, opt, data.batch(s, device=dev))
+            metrics.append({k: m[k].item() for k in ("loss", "grad_norm",
+                                                     "lr")})
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            want = {name: 0 for name in KERNELS}
+            want.update(rmsnorm=steps * (2 * cfg.n_layers + 1),
+                        flash_attention=steps * cfg.n_layers)
+            if kernels.launch_counts() != want:
+                raise AssertionError(f"train_vs_cpu: launches "
+                                     f"{kernels.launch_counts()}")
+        runs[dev] = {"metrics": metrics,
+                     "params": {k: v.cpu() for k, v in params.items()}}
+        del params, opt
+    torch.cuda.empty_cache()
+    rel = {"loss": [], "grad_norm": []}
+    for got, want in zip(runs["cuda"]["metrics"], runs["cpu"]["metrics"]):
+        for k in rel:
+            rel[k].append(abs(got[k] - want[k]) / abs(want[k]))
+        if not (max(rel["loss"][-1], rel["grad_norm"][-1]) <= 3e-2
+                and math.isfinite(got["loss"])) or \
+                abs(got["lr"] - want["lr"]) > 1e-6 * want["lr"]:
+            raise AssertionError(f"train_vs_cpu: card {got}, CPU {want}")
+    params_rel = max(float((runs["cuda"]["params"][k] - p).norm() / p.norm())
+                     for k, p in runs["cpu"]["params"].items())
+    emit({"phase": "train_vs_cpu", "arch": cfg.name, "layers": cfg.n_layers,
+          "tokens": [2, MODEL_PROMPT], "steps": steps,
+          "card": runs["cuda"]["metrics"], "cpu": runs["cpu"]["metrics"],
+          "rel_err": rel, "params_max_rel_frobenius_err": params_rel})
+
+
+def phase_train_orchestrated() -> dict:
+    """train_orchestrated: ``launch.train --orchestrate --microbatches 2``
+    at full size for 4 steps, every counter reset just before and read just
+    after: 4 x (2 + 2) TAOs, finite losses, exactly 8 forwards' launches;
+    the final params within 1e-5 relative Frobenius of a sequential run of
+    the same grads and updates (with 2 microbatches the sums are the same
+    in either order, so a larger gap means a stream read before its work
+    was done).  Returns kernel -> launches."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = train.run(ARCH, steps=ORCH_STEPS, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                    lr=TRAIN_LR, orchestrate=True, microbatches=MICROBATCHES,
+                    device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launched = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    stats = out["stats"]
+    if launched != train_launches(ORCH_STEPS * MICROBATCHES):
+        raise AssertionError(f"{ORCH_TRAIN_PATH}: launches {launched}")
+    if stats["completed"] != ORCH_STEPS * (MICROBATCHES + 2):
+        raise AssertionError(f"{ORCH_TRAIN_PATH}: {stats['completed']} TAOs")
+    losses = stats["losses"]
+    if len(losses) != ORCH_STEPS * MICROBATCHES or \
+            not np.isfinite(losses).all():
+        raise AssertionError(f"{ORCH_TRAIN_PATH}: losses {losses}")
+    got = {k: v.cpu() for k, v in out["params"].items()}
+    model = out["model"]
+    del out
+    torch.cuda.empty_cache()
+    # the sequential run: the same batches, grads summed in microbatch
+    # order and averaged, AdamW at the constant lr without clipping
+    params = model.init(torch.Generator("cuda").manual_seed(0))
+    opt = adamw_init(params)
+    data = SyntheticLM(vocab_size=model.cfg.vocab_size, seq_len=TRAIN_SEQ,
+                       global_batch=TRAIN_BATCH)
+    for mbs in train.microbatch_batches(data, 0, ORCH_STEPS, MICROBATCHES,
+                                        "cuda"):
+        grads = None
+        for mb in mbs:
+            g, _ = loss_and_grads(model, params, mb)
+            grads = g if grads is None else {k: grads[k] + g[k] for k in g}
+            del g
+        grads = {k: g / len(mbs) for k, g in grads.items()}
+        params, opt = adamw_update(params, grads, opt, lr=TRAIN_LR)
+        del grads
+    rel = {k: float((got[k] - p.cpu()).norm() / p.cpu().norm())
+           for k, p in params.items()}
+    del params, opt
+    torch.cuda.empty_cache()
+    if max(rel.values()) > 1e-5:
+        raise AssertionError(f"{ORCH_TRAIN_PATH}: params differ from the "
+                             f"sequential run's: {rel}")
+    widths = stats["widths"]
+    emit({"phase": "train_orchestrated", "path": ORCH_TRAIN_PATH,
+          "arch": ARCH, "steps": ORCH_STEPS, "microbatches": MICROBATCHES,
+          "completed_taos": stats["completed"],
+          "elapsed_s": stats["elapsed_s"], "wall_s": wall, "losses": losses,
+          "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ * ORCH_STEPS
+          / stats["elapsed_s"],
+          "params_rel_frobenius_err_vs_sequential": rel,
+          "ptt_fwdbwd_ms": {f"{leader},w{widths[wi]}": t * 1e3
+                            for leader, row in enumerate(
+                                stats["ptt"]["fwdbwd"])
+                            for wi, t in enumerate(row) if t > 0},
+          "launches": launched, "peak_memory_gib": peak / 2 ** 30})
+    return launched
+
+
+def phase_checkpoint() -> None:
+    """Checkpointing on the card, the smoke llama3.2-1b at head_dim 64 (a
+    size the flash kernel takes; the layout does not depend on width), into
+    a temporary directory that is deleted after: 4 straight steps against 2
+    steps, a save, a restore and 2 more, within 1e-6; then an async save
+    from the card, with a bf16 copy of the weights beside the fp32 state,
+    restored on the CPU to byte-equal leaves."""
+    from repro_torch.configs import get_smoke_config
+
+    cfg = dataclasses.replace(get_smoke_config(ARCH), head_dim=64)
+    model = get_model(cfg)
+    step = make_train_step(model, lr_schedule=1e-3)
+    batch = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=32,
+                        global_batch=2).batch(0, device="cuda")
+    p0 = model.init(torch.Generator("cuda").manual_seed(0))
+    o0 = adamw_init(p0)
+    ps, os_ = p0, o0
+    for _ in range(4):
+        ps, os_, _ = step(ps, os_, batch)
+    with tempfile.TemporaryDirectory() as tmp:
+        pa, oa = p0, o0
+        for _ in range(2):
+            pa, oa, _ = step(pa, oa, batch)
+        mgr = CheckpointManager(tmp)
+        mgr.save(2, {"params": pa, "opt": oa})
+        _, restored = mgr.restore({"params": p0, "opt": o0})
+        pb, ob = restored["params"], restored["opt"]
+        for _ in range(2):
+            pb, ob, _ = step(pb, ob, batch)
+        resume_err = max((pb[k] - ps[k]).abs().max().item() for k in ps)
+        if resume_err > 1e-6 or int(ob.step) != 4:
+            raise AssertionError(f"checkpoint: the resumed run differs by "
+                                 f"{resume_err}")
+        tree = {"params": pb, "opt": ob, "weights": model.bf16_copy(pb)}
+        mgr.async_save(4, tree)
+        mgr.wait()
+
+        def template(x):
+            if isinstance(x, dict):
+                return {k: template(v) for k, v in x.items()}
+            if dataclasses.is_dataclass(x):
+                return type(x)(**{f.name: template(getattr(x, f.name))
+                                  for f in dataclasses.fields(x)})
+            return Template(tuple(x.shape), x.dtype, "cpu")
+
+        step_no, on_cpu = mgr.restore(template(tree))
+        pairs = [(on_cpu[g][k], tree[g][k]) for g in ("params", "weights")
+                 for k in tree[g]]
+        pairs += [(on_cpu["opt"].step, ob.step)] + [
+            (getattr(on_cpu["opt"], f)[k], getattr(ob, f)[k])
+            for f in ("mu", "nu") for k in ob.mu]
+        for got, want in pairs:
+            if got.device.type != "cpu" or got.dtype != want.dtype or \
+                    not torch.equal(got, want.cpu()):
+                raise AssertionError("checkpoint: a leaf restored on the CPU "
+                                     "differs from the card's")
+        leaves = len(json.loads((Path(tmp) / "step_00000004" /
+                                 "MANIFEST.json").read_text())["leaves"])
+        kept = mgr.steps()
+    emit({"phase": "checkpoint", "arch": cfg.name, "head_dim": cfg.hd,
+          "resume_max_abs_err": resume_err, "restored_step": step_no,
+          "leaves_card_to_cpu": leaves, "byte_equal_pairs": len(pairs),
+          "kept_steps": kept})
+
+
 def phase_model() -> dict:
     """serve:model: ``python -m repro_torch.launch.serve --arch llama3.2-1b
     --orchestrate`` at full size, every counter reset just before and read
@@ -1006,6 +1302,10 @@ def main() -> None:
     launches[MODEL_PATH] = phase_model()
     phase_grads()
     launches.update(phase_serve(times))
+    launches[TRAIN_PATH] = phase_train()
+    phase_train_vs_cpu()
+    launches[ORCH_TRAIN_PATH] = phase_train_orchestrated()
+    phase_checkpoint()
     entries = []
     for name, (src, replaces, _) in KERNELS.items():
         on_path = {p: launches[p][name] for p in KERNEL_PATHS[name]}

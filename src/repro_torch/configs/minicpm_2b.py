@@ -5,6 +5,7 @@
 (padded to 122880).  long_500k skipped: full attention.
 """
 from ..models.model_api import ModelConfig
+from ..optimizer import wsd_schedule
 
 
 def config() -> ModelConfig:
@@ -16,8 +17,11 @@ def config() -> ModelConfig:
     )
 
 
-# train_schedule, MiniCPM's warmup-stable-decay schedule, waits for the
-# optimizer's port (ROADMAP.md, Queue 1 item 4).
+def train_schedule(total_steps: int = 10_000):
+    """MiniCPM's warmup-stable-decay schedule."""
+    warm = max(total_steps // 100, 10)
+    decay = max(total_steps // 10, 10)
+    return wsd_schedule(1e-2, warm, total_steps - warm - decay, decay)
 
 
 def smoke_config() -> ModelConfig:

@@ -9,17 +9,19 @@ bytes over HBM's rate and the operations over the peak rate for their type)
 and the kernel's share of it.  Shapes: the mixed-mode DAG's 2048^3 product,
 the zoo's projection (1024 x 2048 @ 2048^2) and decode GEMV (1 x 2048 @
 2048^2, with L2 flushed between calls and warm), the zoo's causal prefill
-attention (q 1 x 32 x 1024 x 64 over 8 kv heads) and the decoder's (q 4 x 32
-x 64 x 64), the mixed-mode DAG's copy (16384 x 1024 fp32) and sort (1024 x
-4096 fp32, L2 flushed, as ``chip_smoke.py`` times it), the zoo's KV-slab
-copy (4096 x 16384 bf16), a copy of 16896 x 1024 fp32 (a size at which the
-first copy kernel's grid-stride loop had no ragged tail on 132 SMs), the
-decoder's RMSNorm (bf16 x, fp32 w, d = 2048, L2 flushed) at its three row
-counts (256: serve:model's prefill; 1024: the zoo's prefill chunk; 4: a
-decode step) and the triad at 16384 x 1024 fp32.  Bytes and operations are
-those ``chip_smoke.py`` holds each kernel to.  Two more lines: the floor,
-one empty kernel (``torch.cuda._sleep(0)``) timed the same way, with L2
-flushed and warm, the least any kernel's time can read; and the host time
+attention (q 1 x 32 x 1024 x 64 over 8 kv heads), the decoder's (q 4 x 32
+x 64 x 64) and a training step's (q 4 x 32 x 128 x 64), the mixed-mode
+DAG's copy (16384 x 1024 fp32) and sort (1024 x 4096 fp32, L2 flushed, as
+``chip_smoke.py`` times it), the zoo's KV-slab copy (4096 x 16384 bf16), a
+copy of 16896 x 1024 fp32 (a size at which the first copy kernel's
+grid-stride loop had no ragged tail on 132 SMs), the decoder's RMSNorm
+(bf16 x, fp32 w, d = 2048, L2 flushed) at its four row counts (256:
+serve:model's prefill; 1024: the zoo's prefill chunk; 4: a decode step;
+512: a training step) and the triad at 16384 x 1024 fp32.  Bytes and
+operations are those ``chip_smoke.py`` holds each kernel to.  Two more
+lines: the floor, one empty kernel (``torch.cuda._sleep(0)``) timed the
+same way, with L2 flushed and warm, the least any kernel's time can read;
+and the host time
 per call of two tiny products, one on each bf16 path of the matmul (their
 difference is the wgmma path's tensor-map encoding).  The floor line also
 times one round trip: the copy kernel on a decode step's 4 x 2048 bf16 rows
@@ -64,11 +66,15 @@ L2_BYTES = 50 * 2 ** 20
 REPS, WARMUP = 30, 5
 SRC = Path(__file__).resolve().parents[1]  # this checkout's src/
 # the decoder's RMSNorm: llama3.2-1b's width, and its rows at serve:model's
-# prefill (batch 4 x prompt 64), the zoo's prefill chunk (1024 tokens) and
-# a decode step (batch 4)
+# prefill (batch 4 x prompt 64), the zoo's prefill chunk (1024 tokens), a
+# decode step (batch 4) and a training step of launch.train's defaults
+# (batch 4 x seq 128)
 NORM_WIDTH = 2048
 NORM_ROWS = {"serve:model": 256, "serve:zoo_prefill": 1024,
-             "serve:decode": 4}
+             "serve:decode": 4, "train": 512}
+# the decoder's attention in a training step of launch.train's defaults:
+# q (4, 32, 128, 64) over kv (4, 8, 128, 64), bf16, causal
+TRAIN_ATTENTION = (4, 32, 8, 128, 64)
 
 _flush_buf: torch.Tensor | None = None
 
@@ -237,6 +243,7 @@ def cases() -> dict[str, Case]:
                       sv.head_dim, sv.dtype, 10),
         "serve:model": attn(4, sv.q_heads, sv.kv_heads, 64, sv.head_dim,
                             sv.dtype, 20),
+        "train": attn(*TRAIN_ATTENTION, sv.dtype, 22),
         "mixed_mode:copy": copy(tensor(shapes["copy"], dtypes["copy"], 8)),
         "serve:slab": copy(tensor((sv.cache_rows, sv.cache_cols), sv.dtype,
                                   15)),

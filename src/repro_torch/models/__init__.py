@@ -1,8 +1,10 @@
-"""repro_torch.models -- the port's model zoo and its serve-step builders.
-Twin of ``repro.models``; this slice has the dense decoder.  The ``ssm``
-(mamba2) and ``hybrid`` (hymba) families and ``make_train_step`` wait for
-later slices (ROADMAP.md, Queue 1 items 3 and 4)."""
+"""repro_torch.models -- the port's model zoo and its generic train and
+serve steps.  Twin of ``repro.models``; the port has the dense decoder.  The
+``ssm`` (mamba2) and ``hybrid`` (hymba) families wait for a later slice
+(ROADMAP.md, Queue 1 item 3)."""
 from __future__ import annotations
+
+from typing import Callable
 
 import torch
 
@@ -18,6 +20,43 @@ def get_model(cfg: ModelConfig) -> BaseModel:
             f"{cfg.name}: the {cfg.family} family is not ported yet "
             f"(ROADMAP.md, Queue 1 item 3)")
     raise ValueError(f"unknown family {cfg.family!r}")
+
+
+def loss_and_grads(model: BaseModel, params: dict, batch: dict
+                   ) -> tuple[dict, dict]:
+    """``model.loss`` at ``params`` and its grads, the twin of
+    ``jax.value_and_grad(model.loss, has_aux=True)``: (grads keyed as
+    ``params``, detached metrics).  The grads are taken of detached copies
+    that require grad, so ``params`` stay as they were.  Grad mode is per
+    thread, so this turns it on itself (and inference mode off) for a
+    caller on any thread."""
+    with torch.inference_mode(False), torch.enable_grad():
+        leaves = {k: p.detach().requires_grad_() for k, p in params.items()}
+        loss, metrics = model.loss(leaves, batch)
+        grads = torch.autograd.grad(loss, list(leaves.values()))
+    return (dict(zip(leaves, grads)),
+            {k: v.detach() for k, v in metrics.items()})
+
+
+def make_train_step(model: BaseModel, lr_schedule: Callable | float = 3e-4,
+                    max_grad_norm: float = 1.0):
+    """(params, opt_state, batch) -> (params, opt_state, metrics): grads of
+    ``model.loss``, clipped to ``max_grad_norm``, then AdamW at
+    ``lr_schedule(opt_state.step + 1)``.  ``metrics`` holds ``loss``,
+    ``ppl_proxy``, ``grad_norm`` and ``lr``.  Functional, as JAX's step."""
+    from ..optimizer import adamw_update, clip_by_global_norm, constant_lr
+
+    sched = lr_schedule if callable(lr_schedule) else constant_lr(lr_schedule)
+
+    def train_step(params, opt_state, batch):
+        grads, metrics = loss_and_grads(model, params, batch)
+        grads, gnorm = clip_by_global_norm(grads, max_grad_norm)
+        lr = sched(opt_state.step + 1)
+        params, opt_state = adamw_update(params, grads, opt_state, lr)
+        metrics.update({"grad_norm": gnorm, "lr": lr})
+        return params, opt_state, metrics
+
+    return train_step
 
 
 def make_prefill_step(model: BaseModel):
@@ -40,4 +79,5 @@ def make_decode_step(model: BaseModel):
 
 
 __all__ = ["BaseModel", "ModelConfig", "ParamDef", "DecoderLM", "get_model",
-           "make_prefill_step", "make_decode_step"]
+           "loss_and_grads", "make_train_step", "make_prefill_step",
+           "make_decode_step"]

@@ -150,8 +150,12 @@ class DecoderLM(BaseModel):
         x = top["embed.w"][tokens].to(ACT_DTYPE)
         positions = torch.arange(tokens.shape[1], dtype=torch.int32,
                                  device=x.device)
-        for i in range(self.cfg.n_layers):
-            x, kv = self._layer({k: v[i] for k, v in stacked.items()}, x,
+        # each stacked parameter is unbound once, not indexed (``v[i]``) a
+        # layer: where a graph is recorded, the backward of L indexings
+        # writes L zeroed (L, ...) tensors and sums them into the grad,
+        # where unbind's backward stacks the L slices once
+        for vals in zip(*(v.unbind(0) for v in stacked.values())):
+            x, kv = self._layer(dict(zip(stacked, vals)), x,
                                 positions=positions)
             yield x, kv
 

@@ -1,0 +1,9 @@
+"""repro_torch.optimizer -- AdamW, LR schedules (cosine + MiniCPM's WSD),
+clipping.  Twin of ``repro.optimizer``."""
+from .adamw import AdamWState, adamw_init, adamw_update, clip_by_global_norm
+from .schedules import constant_lr, cosine_schedule, wsd_schedule
+
+__all__ = [
+    "AdamWState", "adamw_init", "adamw_update", "clip_by_global_norm",
+    "constant_lr", "cosine_schedule", "wsd_schedule",
+]

@@ -19,13 +19,22 @@ backlog with neither) through a warm zoo of the JAX pairing (a llama3.2-1b
 transformer tenant and a kernel tenant at llama3.2-1b widths), with tokens/s
 and p99 sojourn per tenant of every run.
 
-Last it runs each mixed-mode policy, ``serve --arch`` and each zoo path once
-under ``torch.profiler`` and prints one JSON line each with the card's busy
-time (the union of all kernel intervals inside the run's span), its idle
-share, and device time and launches by kernel name.
+Training (slice 7).  ``REPEATS`` runs of ``launch.train --arch
+llama3.2-1b`` at full size (20 steps of batch 4 x seq 128) and of its
+``--orchestrate --microbatches 2`` run for 4 steps: steps/s and training
+tokens/s (the first step, which warms, left out), the first step's time,
+and peak device memory of every run.
+
+Last it runs each mixed-mode policy, ``serve --arch``, each zoo path and
+both training runs once under ``torch.profiler`` and prints one JSON line
+each with the card's busy time (the union of all kernel intervals inside the
+run's span), its idle share, and device time and launches by kernel name.
+
+It prints the card's name and power limit first.
 
 Run on a card:  PYTHONPATH=src python -m repro_torch.trace_main_path
-``--serve-only`` leaves out the mixed-mode DAG: the serving paths alone.
+``--serve-only`` leaves out the mixed-mode DAG and training: the serving
+paths alone; ``--train-only`` runs the training paths alone.
 """
 from __future__ import annotations
 
@@ -34,6 +43,7 @@ import collections
 import json
 import os
 import statistics
+import subprocess
 import tempfile
 import time
 
@@ -42,11 +52,17 @@ from torch.profiler import ProfilerActivity, profile
 
 from . import mixed_mode
 from .core import random_dag
-from .launch import serve, zoo
+from .launch import serve, train, zoo
 
 N_TASKS = 3000  # the main path's size (mixed_mode.run's default)
 REPEATS = 5     # runs of each policy without and with a ChunkLog
 ARCH = "llama3.2-1b"
+# the training runs: launch.train's defaults, and the orchestrated run's
+# cut (4 steps of 2 microbatches)
+TRAIN_RUNS = {"train": dict(steps=20),
+              "train_orchestrated": dict(steps=4, orchestrate=True,
+                                         microbatches=2)}
+TRAIN_BATCH, TRAIN_SEQ = 4, 128
 
 
 def _union_us(intervals) -> float:
@@ -149,6 +165,43 @@ def serve_spread(path: str, tenants: dict) -> dict:
             "tokens_per_s_min": min(rate), "tokens_per_s_max": max(rate)}
 
 
+def train_run(label: str) -> dict:
+    """One training run at full size, freed after: its times and peak
+    memory."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = train.run(ARCH, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                    **TRAIN_RUNS[label])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    if "stats" in out:
+        st = out["stats"]
+        row = {"elapsed_s": st["elapsed_s"],
+               "tokens_per_s": tokens * TRAIN_RUNS[label]["steps"]
+               / st["elapsed_s"]}
+    else:
+        warm = sum(out["step_s"][1:])
+        row = {"first_step_s": out["step_s"][0],
+               "steps_per_s": (len(out["step_s"]) - 1) / warm,
+               "tokens_per_s": tokens * (len(out["step_s"]) - 1) / warm}
+    row.update(wall_s=wall, peak_memory_gib=torch.cuda.max_memory_allocated()
+               / 2 ** 30)
+    del out
+    torch.cuda.empty_cache()
+    return row
+
+
+def train_spread(label: str) -> dict:
+    """``REPEATS`` runs of one training run."""
+    runs = [train_run(label) for _ in range(REPEATS)]
+    rate = [r["tokens_per_s"] for r in runs]
+    return {"path": label, "runs": runs,
+            "tokens_per_s_median": statistics.median(rate),
+            "tokens_per_s_min": min(rate), "tokens_per_s_max": max(rate)}
+
+
 def traced(label: str, span: str, run) -> dict:
     """``run()`` once under ``torch.profiler``: the card's busy time and idle
     share inside the profiler span named ``span``."""
@@ -189,10 +242,20 @@ def traced(label: str, span: str, run) -> dict:
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--serve-only", action="store_true",
-                    help="the serving paths alone, not the mixed-mode DAG")
+    legs = ap.add_mutually_exclusive_group()
+    legs.add_argument("--serve-only", action="store_true",
+                      help="the serving paths alone")
+    legs.add_argument("--train-only", action="store_true",
+                      help="the training paths alone")
     args = ap.parse_args(argv)
     mixed_mode.resolve_device("cuda")
+    print(json.dumps({"card": subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.splitlines()[0]}), flush=True)
+    if args.train_only:
+        trace_training()
+        return
     policies = () if args.serve_only else mixed_mode.POLICIES
     if policies:
         chunk_costs()
@@ -215,6 +278,19 @@ def main(argv=None) -> None:
         requests, kw = trace(), controls()
         print(json.dumps(traced(path, serve.SERVE_SPAN, lambda: serve.run_zoo(
             requests, tenants, **kw))), flush=True)
+    if not args.serve_only:
+        del tenants
+        trace_training()
+
+
+def trace_training() -> None:
+    """The training runs' spread, then each once under the profiler."""
+    for label in TRAIN_RUNS:
+        print(json.dumps(train_spread(label)), flush=True)
+    for label, kw in TRAIN_RUNS.items():
+        print(json.dumps(traced(label, train.TRAIN_SPAN, lambda: train.run(
+            ARCH, batch=TRAIN_BATCH, seq=TRAIN_SEQ, **kw))), flush=True)
+        torch.cuda.empty_cache()
 
 
 if __name__ == "__main__":

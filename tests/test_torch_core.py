@@ -45,8 +45,11 @@ def test_importing_the_port_loads_no_jax_and_no_repro():
         "import repro_torch, repro_torch.core, repro_torch.kernels.ops\n"
         "import repro_torch.mixed_mode\n"
         "import repro_torch.launch.zoo, repro_torch.launch.serve\n"
+        "import repro_torch.launch.train, repro_torch.train_orchestrator\n"
+        "import repro_torch.data, repro_torch.optimizer\n"
+        "import repro_torch.checkpointing, repro_torch.configs.minicpm_2b\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'repro')]\n"
+        "('jax', 'jaxlib', 'repro', 'ml_dtypes')]\n"
         "print(json.dumps(bad))\n")
     env = {**os.environ, "PYTHONPATH": str(SRC)}
     out = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,

@@ -233,6 +233,8 @@ def test_sort_kernel_rejects_rows_beyond_shared_memory(card):
     (4, 32, 8, 64, 64, True, None),     # the decoder's prefill, batch 4
     (2, 32, 8, 63, 63, True, None),     # its teacher-forcing prefill
     (1, 32, 8, 1024, 1024, True, None),  # the zoo's prefill chunk
+    (4, 32, 8, 128, 128, True, None),   # a training step (launch.train)
+    (2, 32, 8, 128, 128, True, None),   # an orchestrated microbatch
 ])
 def test_flash_kernel_at_tile_edges(card, b, hq, hkv, s, sk, causal, window,
                                     d, dtype, rtol, atol):
@@ -346,7 +348,8 @@ def test_multi_impl_on_the_card_raises(card):
     (torch.bfloat16, torch.float32, 2e-2)])     # the model's mix
 @pytest.mark.parametrize("rows,d", [(256, 128), (512, 512), (256, 64),
                                     (1, 2048), (4, 2048), (1024, 2048),
-                                    (3, 8192), (5, 40), (2, 1000)])
+                                    (3, 8192), (5, 40), (2, 1000),
+                                    (512, 2048)])  # a training step's
 def test_rmsnorm_kernel_matches_plain(card, rows, d, x_dtype, w_dtype, tol):
     x = _t((rows, d), x_dtype, 20, card)
     w = _t((d,), w_dtype, 21, card)
@@ -578,3 +581,76 @@ def test_transformer_tenant_on_the_card_launches_every_chunk(card):
         "triad": 0, "sort_rows": 0,
         "rmsnorm": (2 * layers + 1) * (pre["steady"] + dec["steady"]),
         "flash_attention": pre["burst"] + layers * pre["steady"]}
+
+
+# -------------------------------------------------------------- training --
+def test_train_step_on_the_card_matches_the_cpu(card):
+    """Two steps of ``make_train_step`` on the smoke llama3.2-1b at head_dim
+    64, one set of fp32 weights on the card (the kernels, through their
+    Functions) and on the CPU: loss and grad norm of each step within 3e-2
+    relative, every parameter and moment within 3e-2 relative Frobenius
+    (bf16 activations summed in another order), and 2L + 1 norms and L
+    attentions a step."""
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models import make_train_step
+    from repro_torch.optimizer import adamw_init
+
+    cfg = _smoke_hd64()
+    model = get_model(cfg)
+    arrays = numpy_params(model, seed=3)
+    data = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=32, global_batch=2)
+    runs = {}
+    for dev in (card, torch.device("cpu")):
+        step = make_train_step(model, lr_schedule=1e-3)
+        params = params_from_numpy(arrays, dev)
+        opt = adamw_init(params)
+        before = launch_counts()
+        metrics = []
+        for s in range(2):
+            params, opt, m = step(params, opt, data.batch(s, device=dev))
+            metrics.append((m["loss"].item(), m["grad_norm"].item()))
+        if dev == card:
+            after = launch_counts()
+            assert {k: after[k] - before[k] for k in after} == {
+                "matmul": 0, "copy": 0, "triad": 0, "sort_rows": 0,
+                "rmsnorm": 2 * (2 * cfg.n_layers + 1),
+                "flash_attention": 2 * cfg.n_layers}
+        runs[dev.type] = (metrics, {k: v.cpu() for k, v in params.items()},
+                          {k: v.cpu() for k, v in opt.mu.items()})
+    for got, want in zip(runs["cuda"][0], runs["cpu"][0]):
+        np.testing.assert_allclose(got, want, rtol=3e-2)
+    for tree in (1, 2):
+        for name, want in runs["cpu"][tree].items():
+            got = runs["cuda"][tree][name]
+            assert float((got - want).norm() / want.norm()) <= 3e-2, name
+
+
+def test_checkpoint_from_the_card_restores_on_the_cpu(card, tmp_path):
+    """A checkpoint written from the card (fp32 params, AdamW state, a bf16
+    copy) restores on the CPU, and back onto the card, to equal bytes."""
+    from repro_torch.checkpointing import CheckpointManager, Template
+    from repro_torch.optimizer import adamw_init
+
+    model = get_model(_smoke_hd64())
+    params = {k: v.to(card) for k, v in _numpy_params(model).items()}
+    tree = {"params": params, "opt": adamw_init(params),
+            "weights": model.bf16_copy(params)}
+    tree["opt"].mu["embed.w"].normal_()
+    mgr = CheckpointManager(tmp_path)
+    mgr.async_save(1, tree)
+    mgr.wait()
+    like = {"params": {k: Template(tuple(v.shape), v.dtype)
+                       for k, v in params.items()},
+            "weights": {k: Template(tuple(v.shape), v.dtype)
+                        for k, v in tree["weights"].items()},
+            "opt": tree["opt"]}
+    _, on_cpu = mgr.restore(like)
+    for group in ("params", "weights"):
+        for k, want in tree[group].items():
+            got = on_cpu[group][k]
+            assert got.device.type == "cpu" and got.dtype == want.dtype
+            assert torch.equal(got, want.cpu()), (group, k)
+    # the opt template was the card's tensors: restored onto the card
+    assert on_cpu["opt"].step.is_cuda
+    for k, want in tree["opt"].mu.items():
+        assert torch.equal(on_cpu["opt"].mu[k], want), k
