@@ -15,6 +15,13 @@ that run it, and drives every ported path at full size:
   trace, gate and controller of ``python -m repro_torch.launch.serve
   --zoo``, then a full backlog (the default ``bursty_serving_trace``, 100
   requests) with no gate and no controller;
+* ``run_arch`` with ``--orchestrate`` on the MoE and sliding-window
+  decoders and the patch frontend (slice 8, the ``moe`` phase):
+  mixtral-8x22b at its published widths cut to 2 of 56 layers (a 4352-token
+  prompt through the rolling window cache), moonshot-v1-16b-a3b at its
+  widths cut to 4 of 48 layers, and internvl2-2b whole; teacher forcing on
+  the card (past mixtral's window through its shifted and ring caches) and
+  ``moe_ffn`` on the card against the CPU at both published widths;
 * ``python -m repro_torch.launch.train --arch llama3.2-1b`` (slice 7): the
   launcher's default run (20 steps of batch 4 x seq 128 from
   ``SyntheticLM(seed=0)``, AdamW under the cosine schedule, clipping) at
@@ -25,7 +32,8 @@ that run it, and drives every ported path at full size:
 Besides, it holds the RMSNorm kernel against its plain version at every
 edge of its geometry (``check_rmsnorm_edges``), and the decoder's loss
 gradients on the card, through the kernels' autograd Functions, against the
-CPU's at full width and 2 layers (``phase_grads``); two train steps there
+CPU's at full width and 2 layers, and moonshot-v1-16b-a3b's at full width
+and 1 layer (``phase_grads``); two train steps there
 on the card against the CPU (``phase_train_vs_cpu``); and checkpointing on
 the card: a resumed run against a straight one, and a checkpoint written
 from the card restored on the CPU (``phase_checkpoint``).
@@ -47,6 +55,7 @@ card.
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import json
 import math
@@ -55,6 +64,7 @@ import sys
 import tempfile
 import time
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -72,10 +82,13 @@ from repro_torch.kernel_bench import (L2_BYTES, NORM_ROWS,  # noqa: E402
                                       bound, device_ms, sdpa, sort_ops)
 from repro_torch.kernels import (_build, copy_stream, ops, ref,  # noqa: E402
                                  rmsnorm)
+from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.launch import serve, train, zoo  # noqa: E402
 from repro_torch.models import (get_model, loss_and_grads,  # noqa: E402
                                 make_decode_step, make_prefill_step,
-                                make_train_step)
+                                make_train_step, transformer)
+from repro_torch.models.layers import moe_ffn  # noqa: E402
+from repro_torch.models.losses import lm_cross_entropy  # noqa: E402
 from repro_torch.models.convert import (numpy_params,  # noqa: E402
                                         params_from_numpy)
 from repro_torch.optimizer import (adamw_init, adamw_update,  # noqa: E402
@@ -106,14 +119,29 @@ MODEL_PATH = "serve:model"
 SERVE_PATHS = tuple(serve.PATHS)
 TRAIN_PATH, ORCH_TRAIN_PATH = "train", "train_orchestrated"
 TRAIN_PATHS = (TRAIN_PATH, ORCH_TRAIN_PATH)
+# the moe phase's serving runs (serve.ARCH_RUNS): mixtral-8x22b cut to 2
+# layers, a 4352-token prompt through its rolling window cache (4352 % 4096
+# = 256 for the ring's shift), moonshot cut to 4, internvl2 whole
+MOE_RUNS = serve.ARCH_RUNS
+MOE_PATHS = tuple(MOE_RUNS)
+# teacher forcing of the MoE runs: decode steps after the prompt
+TF_DECODE = {"serve:mixtral": 8, "serve:moonshot": 4}
+# the share of moonshot's 128 tokens that the grads phase may leave out of
+# its bf16 loss for routing otherwise on the card and on the CPU: at most 4
+# of the 128 (an H100 leaves 1 out, at a near-tie of its router)
+MOVED_SHARE = 4 / 128
+# internvl2's loss with patch_embeds: 2 rows of its 256 patches and 64 tokens
+PATCH_BATCH, PATCH_SEQ = 2, 320
 # kernel -> the paths whose main run must launch it.  triad has no caller
 # in either package: it is checked and timed, and no path runs it.
 KERNEL_PATHS = {"matmul": MIXED_PATHS + SERVE_PATHS,
                 "copy": MIXED_PATHS + SERVE_PATHS,
                 "triad": (),
                 "sort_rows": MIXED_PATHS,
-                "rmsnorm": (MODEL_PATH,) + SERVE_PATHS + TRAIN_PATHS,
-                "flash_attention": (MODEL_PATH,) + SERVE_PATHS + TRAIN_PATHS}
+                "rmsnorm": (MODEL_PATH,) + SERVE_PATHS + TRAIN_PATHS
+                + MOE_PATHS,
+                "flash_attention": (MODEL_PATH,) + SERVE_PATHS + TRAIN_PATHS
+                + MOE_PATHS}
 # kernel -> the shape (a key of phase_times's result) its top-level numbers
 # in the kernels line are taken at: the path that brought it into the port
 MAIN_SHAPE = {"matmul": "mixed_mode", "copy": "mixed_mode",
@@ -255,6 +283,20 @@ def phase_kernels() -> dict:
                                      (torch.bfloat16, 2e-2))]
     norm_cases += [(rows, D_MODEL, rows, torch.bfloat16, torch.float32, 1e-5,
                     2e-2) for rows in (256, 1024, 4, 1, 512)]
+    # the moe phase's decoders at their widths: each run's prefill and
+    # decode step, its teacher forcing's forward (for the MoE decoders also
+    # in fp32 activations, at fp32's tolerance) and internvl2's prefill over
+    # all but the last token and its loss over 256 patches and 64 tokens
+    for path, (arch, _, b, prompt, _) in MOE_RUNS.items():
+        cfg = get_config(arch)
+        tf = TF_DECODE.get(path, 0)
+        rows = {b * prompt, b, b * (prompt + tf), b * (prompt - (tf == 0))}
+        if path == "serve:internvl2":
+            rows.add(PATCH_BATCH * PATCH_SEQ)
+        acts = ((torch.bfloat16, 2e-2),) + (
+            ((torch.float32, 2e-5),) if cfg.is_moe else ())
+        norm_cases += [(r, cfg.d_model, r, xd, torch.float32, cfg.norm_eps,
+                        tol) for r in sorted(rows) for xd, tol in acts]
     for i, (rows, d, block, xd, wd, eps, tol) in enumerate(norm_cases):
         x, w = tensor((rows, d), xd, 70 + i), tensor((d,), wd, 90 + i)
         got = ops.rmsnorm(x, w, eps=eps, block_rows=block).float()
@@ -436,6 +478,19 @@ def check_flash() -> tuple[int, float, float]:
                   (1, s.model_prompt), (TRAIN_BATCH, TRAIN_SEQ),
                   (TRAIN_BATCH // MICROBATCHES, TRAIN_SEQ)):
         cases.append(((b, hq, hkv, sq, sq, d), s.dtype, True, None, sq))
+    # the moe phase's decoders at head dim 128 (mixtral within its 4096-key
+    # window): each run's prefill, its teacher forcing's forward over the
+    # prompt and the decoded tokens (internvl2's prefill over all but the
+    # last), and internvl2's loss over 256 patches and 64 tokens
+    for path, (arch, _, b, prompt, _) in MOE_RUNS.items():
+        cfg = get_config(arch)
+        tf = TF_DECODE.get(path, 0)
+        for sq in sorted({prompt, prompt + tf, prompt - (tf == 0)}):
+            cases.append(((b, cfg.n_heads, cfg.n_kv_heads, sq, sq, cfg.hd),
+                          torch.bfloat16, True, cfg.window, sq))
+    cfg = get_config("internvl2-2b")
+    cases.append(((PATCH_BATCH, cfg.n_heads, cfg.n_kv_heads, PATCH_SEQ,
+                   PATCH_SEQ, cfg.hd), torch.bfloat16, True, None, PATCH_SEQ))
     worst = main = 0.0
     for i, case in enumerate(cases):
         (b, hq, hkv, sq, sk, d), dtype, causal, window, tile = case
@@ -482,9 +537,17 @@ def phase_times() -> dict:
     tb, thq, thkv, ts, td = TRAIN_ATTENTION
     qt = tensor((tb, thq, ts, td), sv.dtype, 20)
     kvt = tensor((tb, thkv, ts, td), sv.dtype, 21)
-    lib_err = {key: (sdpa(a, b, b)().float() - ref.attention(a, b, b)
-                     .float()).abs().max().item()
-               for key, (a, b) in (("serve", (q, kv)), ("train", (qt, kvt)))}
+    # mixtral's prefill (serve:mixtral): q (1, 48, 4352, 128) over kv (1, 8,
+    # 4352, 128) within its 4096-key window
+    mx = get_config("mixtral-8x22b")
+    mb, mseq = MOE_RUNS["serve:mixtral"][2:4]
+    qm = tensor((mb, mx.n_heads, mseq, mx.hd), torch.bfloat16, 22)
+    kvm = tensor((mb, mx.n_kv_heads, mseq, mx.hd), torch.bfloat16, 23)
+    lib_err = {key: (sdpa(a, b, b, w)().float() - ref.attention(
+        a, b, b, window=w).float()).abs().max().item()
+        for key, (a, b, w) in (("serve", (q, kv, None)),
+                               ("train", (qt, kvt, None)),
+                               ("serve:mixtral", (qm, kvm, mx.window)))}
 
     def mm(x, y):
         return (lambda: ops.matmul(x, y, bm=min(128, x.shape[0])),
@@ -498,15 +561,15 @@ def phase_times() -> dict:
                 lambda: torch.empty_like(x).copy_(x),
                 2 * x.numel() * x.element_size(), 0, x.dtype, list(x.shape))
 
-    def norm(rows):
+    def norm(rows, width=D_MODEL):
         # the model's operands: bf16 activations, fp32 weight, eps 1e-5; four
         # fp32 operations an element (square, sum, scale, weight)
-        x = tensor((rows, D_MODEL), torch.bfloat16, 16)
-        w = tensor((D_MODEL,), torch.float32, 17)
+        x = tensor((rows, width), torch.bfloat16, 16)
+        w = tensor((width,), torch.float32, 17)
         f = torch.nn.functional.rms_norm
         return (lambda: ops.rmsnorm(x, w, eps=1e-5, block_rows=rows),
                 lambda: ref.rmsnorm(x, w, 1e-5),
-                lambda: f(x, (D_MODEL,), w, 1e-5),
+                lambda: f(x, (width,), w, 1e-5),
                 2 * x.numel() * x.element_size() + w.numel() * w.element_size(),
                 4 * x.numel(), torch.float32, [list(x.shape), list(w.shape)])
 
@@ -541,6 +604,16 @@ def phase_times() -> dict:
             3 * xt.numel() * xt.element_size(), 2 * xt.numel(), xt.dtype,
             [list(xt.shape), list(yt.shape)]),
         **{("rmsnorm", key): norm(rows) for key, rows in NORM_ROWS.items()},
+        ("flash_attention", "serve:mixtral"): (
+            lambda: ops.flash_attention(qm, kvm, kvm, window=mx.window,
+                                        bq=mseq, bk=mseq),
+            lambda: ref.attention(qm, kvm, kvm, window=mx.window),
+            sdpa(qm, kvm, kvm, mx.window),
+            2 * (qm.numel() + kvm.numel()) * qm.element_size(),
+            4 * mx.hd * mb * mx.n_heads * attention_pairs(
+                mseq, mseq, True, mx.window),
+            qm.dtype, [list(qm.shape), list(kvm.shape)]),
+        ("rmsnorm", "serve:mixtral"): norm(mb * mseq, mx.d_model),
     }
     times: dict = {}
     for (name, key), (kern, plain, lib, nbytes, nops, dtype, shape) in \
@@ -564,8 +637,9 @@ def phase_times() -> dict:
         extra = {"rmsnorm": {"library": "rms_norm (fp32 weight)"},
                  "triad": {"library": "add(y, x, alpha=a)"}}.get(name, {})
         if name == "flash_attention":
-            extra = {"library": "scaled_dot_product_attention",
-                     "library_max_abs_err": lib_err[key]}
+            extra = {"library": "scaled_dot_product_attention" + (
+                " (window as a boolean mask)" if key == "serve:mixtral"
+                else ""), "library_max_abs_err": lib_err[key]}
         emit({"phase": "time", "kernel": name, "at": key, "shape": shape,
               **t, **extra})
     return times
@@ -856,7 +930,8 @@ def bf16_atol(layers: int) -> float:
     return 4 * 2.0 ** -8 * math.sqrt(4 * layers + 2)
 
 
-def teacher_forcing(model, weights, toks, atol: float, steps=None) -> dict:
+def teacher_forcing(model, weights, toks, atol: float, steps=None,
+                    label: str = MODEL_PATH) -> dict:
     """Prefill of all but the last token, then a decode step of it, against
     forward over all: test_models.py:86-106's check, at rtol 3e-2 and
     ``atol``.  With ``steps`` each call's launches are checked: 2L + 1
@@ -873,7 +948,7 @@ def teacher_forcing(model, weights, toks, atol: float, steps=None) -> dict:
         if steps is not None:
             if got != {**{k: 0 for k in KERNELS}, "rmsnorm": norms,
                        "flash_attention": flash}:
-                raise AssertionError(f"{MODEL_PATH} {name}: launches {got}")
+                raise AssertionError(f"{label} {name}: launches {got}")
             steps[name] = got
         return result
 
@@ -917,33 +992,58 @@ def check_full_width_on_two_layers() -> dict:
     return {"layers": cfg.n_layers, "tokens": list(toks.shape),
             "atol": atol, "max_abs_err": close(
                 "2-layer full width, card against CPU", logits["cuda"],
-                logits["cpu"], 3e-2, atol), "teacher_forcing": tf}
+                logits["cpu"], 3e-2, atol), "teacher_forcing": tf,
+            "max_row_rms": float(row_rms(logits["cpu"]).max())}
 
 
-def phase_grads() -> None:
-    """The decoder's loss gradients, llama3.2-1b at its published widths cut
-    to 2 layers: one set of fp32 weights on the card, where the norms and
-    attentions launch the kernels through their autograd Functions, and on
-    the CPU (plain versions).  ``loss.backward()`` must give every
-    parameter a non-zero grad on the card, within a relative Frobenius
-    error of 3e-2 of the CPU's (bf16 activations summed in another order),
-    and the card's forward must launch 2L + 1 norms and L flash attentions,
-    its backward none."""
-    from repro_torch.configs import get_config
+def row_rms(logits: torch.Tensor) -> torch.Tensor:
+    """The root mean square of each row of logits (..., V), in fp32."""
+    return logits.float().pow(2).mean(-1).sqrt()
 
-    cfg = dataclasses.replace(get_config(ARCH), n_layers=2)
+
+def grads_on_both(cfg, seed: int, label: str, routing: bool = False
+                  ) -> dict:
+    """``cfg``'s loss gradients from one set of fp32 weights
+    (``numpy_params(seed)``) and one (2, 64) batch, on the card, where the
+    norms and attentions launch the kernels through their autograd
+    Functions, and on the CPU (plain versions).  The card's forward must
+    launch 2L + 1 norms and L flash attentions, its backward none, and
+    every parameter must get a finite non-zero grad there.  Returns each
+    device's loss and grads and the card's launches.
+
+    With ``routing`` (an MoE decoder) a forward on each device first logs
+    each layer's router logits (``routing_alike``), and the loss is the
+    mean cross-entropy of the tokens that route alike on both: a token that
+    the two send to other experts, or whose kept assignments differ, adds
+    nothing to either loss."""
     model = get_model(cfg)
-    arrays = numpy_params(model, seed=7)
+    arrays = numpy_params(model, seed=seed)
     rng = np.random.default_rng(9)
     toks, tgts = (torch.from_numpy(rng.integers(
         0, cfg.vocab_size, (2, MODEL_PROMPT))) for _ in "tt")
-    grads, losses = {}, {}
+    out = {"grads": {}, "loss": {}}
+    mask = None
+    if routing:
+        routers = {}
+        for dev in ("cuda", "cpu"):
+            params = params_from_numpy(arrays, dev)
+            with routing_log() as rl, torch.inference_mode():
+                model.forward(params, {"tokens": toks.to(dev)})
+            routers[dev] = [(c[0].cpu(), c[1], c[2]) for c in rl]
+            del params
+        mask, out["routing"] = routing_alike(routers["cuda"], routers["cpu"],
+                                             label)
     for dev in ("cuda", "cpu"):
         params = {k: v.requires_grad_() for k, v in
                   params_from_numpy(arrays, dev).items()}
         batch = {"tokens": toks.to(dev), "targets": tgts.to(dev)}
         kernels.reset_launch_counts()
-        loss, _ = model.loss(params, batch)
+        if mask is None:
+            loss, _ = model.loss(params, batch)
+        else:
+            loss = lm_cross_entropy(model.forward(params, batch),
+                                    batch["targets"], onehot=cfg.ce_onehot,
+                                    mask=mask.to(dev))
         torch.cuda.synchronize()
         forward = kernels.launch_counts()
         loss.backward()
@@ -956,24 +1056,104 @@ def phase_grads() -> None:
                         flash_attention=cfg.n_layers)
             if launched != {"forward": want,
                             "backward": {name: 0 for name in KERNELS}}:
-                raise AssertionError(f"grads: launches {launched}")
-        losses[dev] = loss.item()
-        grads[dev] = {k: p.grad.float().cpu() for k, p in params.items()}
+                raise AssertionError(f"{label}: launches {launched}")
+            out["launches"] = launched
+        out["loss"][dev] = loss.item()
+        out["grads"][dev] = {k: p.grad.float().cpu()
+                             for k, p in params.items()}
         del params, loss
     torch.cuda.empty_cache()
-    rel = {}
-    for name, want in grads["cpu"].items():
-        got = grads["cuda"][name]
+    for name, got in out["grads"]["cuda"].items():
         if not bool(torch.isfinite(got).all()) or not bool(got.abs().max() > 0):
-            raise AssertionError(f"grads: {name} is zero or not finite on "
+            raise AssertionError(f"{label}: {name} is zero or not finite on "
                                  f"the card")
-        rel[name] = float((got - want).norm() / want.norm())
-        if rel[name] > 3e-2:
+    return out
+
+
+def routing_alike(card, cpu, label: str) -> tuple[torch.Tensor, dict]:
+    """Two devices' logged ``moe_ffn`` calls (router logits, top_k,
+    capacity) of one forward: a (B, S) float mask of the tokens that get
+    the same top-k and the same kept assignments in every layer, and what
+    it leaves out.  A token whose top-k differs must show a near-tie (its
+    boundary gap within twice the largest change of its logits); one whose
+    kept assignments alone differ was pushed past the capacity by such a
+    token earlier in its row."""
+    alike = None
+    flipped = 0
+    for (got, k, cap), (want, _, _) in zip(card, cpu):
+        top = (chosen(got, k) == chosen(want, k)).all(-1)
+        near = boundary_gap(want, k) <= 2 * (got - want).abs().amax(-1)
+        if bool((~top & ~near).any()):
+            raise AssertionError(f"{label}: a token changed its experts "
+                                 f"without a near-tie")
+        same = top & (kept(got, k, cap) == kept(want, k, cap)).all(-1)
+        flipped += int((~top).sum())
+        alike = same if alike is None else alike & same
+    return alike.float(), {
+        "tokens": alike.numel(), "alike": int(alike.sum()),
+        "changed_top_k": flipped,
+        "router_logits_max_abs_diff": max(
+            float((a[0] - b[0]).abs().max()) for a, b in zip(card, cpu))}
+
+
+def rel_frobenius(grads: dict) -> dict:
+    """Each parameter's card grad against the CPU's: relative Frobenius."""
+    return {name: float((grads["cuda"][name] - want).norm() / want.norm())
+            for name, want in grads["cpu"].items()}
+
+
+def phase_grads() -> None:
+    """The decoder's loss gradients on the card against the CPU's
+    (``grads_on_both``), within a relative Frobenius error of 3e-2 a
+    parameter (bf16 activations summed in another order): llama3.2-1b at
+    its published widths cut to 2 layers; then moonshot-v1-16b-a3b at its
+    widths cut to 1 layer (1.24 B parameters), whose router sends each
+    token to 6 of 64 experts.
+
+    moonshot twice, each held at 3e-2.  In its own bf16 activations the
+    router logits of the card and the CPU differ by bf16 roundings, which
+    sends a token whose 6th and 7th logits lie closer than that to other
+    experts on either side; there the two are other functions, so the loss
+    leaves such tokens out on both devices (``routing_alike``), and at most
+    ``MOVED_SHARE`` of the tokens may go.  With fp32 activations
+    (``transformer.ACT_DTYPE``, as the CPU tests run the decoder in fp32)
+    the logits agree to fp32 roundings, and every token must route
+    alike."""
+    cfg = dataclasses.replace(get_config(ARCH), n_layers=2)
+    out = grads_on_both(cfg, 7, "grads")
+    rel = rel_frobenius(out["grads"])
+    for name, r in rel.items():
+        if r > 3e-2:
             raise AssertionError(f"grads: {name} differs from the CPU's by "
-                                 f"{rel[name]} (relative Frobenius)")
+                                 f"{r} (relative Frobenius)")
     emit({"phase": "grads", "arch": cfg.name, "layers": cfg.n_layers,
-          "tokens": list(toks.shape), "loss": losses, "launches": launched,
-          "rel_frobenius_err": rel})
+          "tokens": [2, MODEL_PROMPT], "loss": out["loss"],
+          "launches": out["launches"], "rel_frobenius_err": rel})
+    del out
+    cfg = dataclasses.replace(get_config("moonshot-v1-16b-a3b"), n_layers=1)
+    for act in (torch.bfloat16, torch.float32):
+        transformer.ACT_DTYPE = act
+        label = f"grads {cfg.name} {act}"
+        try:
+            out = grads_on_both(cfg, 7, label, routing=True)
+        finally:
+            transformer.ACT_DTYPE = torch.bfloat16
+        routed = out["routing"]
+        left_out = 1 - routed["alike"] / routed["tokens"]
+        if left_out > MOVED_SHARE or (act == torch.float32 and left_out):
+            raise AssertionError(f"{label}: {routed} route alike")
+        rel = rel_frobenius(out["grads"])
+        for name, r in rel.items():
+            if r > 3e-2:
+                raise AssertionError(f"{label}: {name} differs from the "
+                                     f"CPU's by {r} (relative Frobenius)")
+        emit({"phase": "grads", "arch": cfg.name, "layers": cfg.n_layers,
+              "params": get_model(cfg).param_count(),
+              "activations": str(act).replace("torch.", ""),
+              "tokens": [2, MODEL_PROMPT], "loss": out["loss"],
+              "routing": routed, "routing_match_share": 1 - left_out,
+              "launches": out["launches"], "rel_frobenius_err": rel})
+        del out
 
 
 def train_launches(forwards: int) -> dict:
@@ -1236,34 +1416,45 @@ def phase_checkpoint() -> None:
           "kept_steps": kept})
 
 
-def phase_model() -> dict:
-    """serve:model: ``python -m repro_torch.launch.serve --arch llama3.2-1b
-    --orchestrate`` at full size, every counter reset just before and read
-    just after; then teacher forcing on the card at full depth, and the
-    card against the CPU at full width and 2 layers.  Returns kernel ->
-    launches of the run."""
-    kernels.reset_launch_counts()
-    out = serve.run_arch(ARCH, orchestrate=True, device="cuda")
-    torch.cuda.synchronize()
-    launched = kernels.launch_counts()
-    model, weights, toks = out["model"], out["weights"], out["tokens"]
-    cfg, stats = model.cfg, out["stats"]
-    batch, prompt = toks.shape
-    gen = out["out_tokens"].shape[1]
+def check_arch_run(path: str, out: dict, launched: dict) -> None:
+    """``run_arch``'s run with ``orchestrate``: every TAO of the 4 x batch
+    requests completed, and each kernel launched exactly as often as its
+    calls: 2L + 1 norms in each prefill and decode step, L flash attentions
+    in each prefill (the batch's, then one a request), none in a decode
+    step; the prefill's logits finite."""
+    cfg, stats = out["model"].cfg, out["stats"]
+    batch, gen = out["out_tokens"].shape
     n_prefill = batch * 4                        # the orchestrated requests
     n_decode = stats.result.completed - n_prefill
     if stats.result.completed != n_prefill * (1 + math.ceil(
             gen / DECODE_UNIT)):
-        raise AssertionError(f"{MODEL_PATH}: {stats.result.completed} TAOs")
+        raise AssertionError(f"{path}: {stats.result.completed} TAOs")
     norms, layers = 2 * cfg.n_layers + 1, cfg.n_layers
     want = {name: 0 for name in KERNELS}
     want["rmsnorm"] = norms * (1 + gen + n_prefill + n_decode)
     want["flash_attention"] = layers * (1 + n_prefill)
     if launched != want:
-        raise AssertionError(f"{MODEL_PATH}: launches {launched}, want "
-                             f"{want}")
+        raise AssertionError(f"{path}: launches {launched}, want {want}")
     if not bool(torch.isfinite(out["logits"].float()).all()):
-        raise AssertionError(f"{MODEL_PATH}: logits not finite")
+        raise AssertionError(f"{path}: logits not finite")
+
+
+def phase_model() -> dict:
+    """serve:model: ``python -m repro_torch.launch.serve --arch llama3.2-1b
+    --orchestrate`` at full size, every counter reset just before and read
+    just after; then teacher forcing on the card at full depth, and the
+    card against the CPU at full width and 2 layers.  Returns kernel ->
+    launches of the run, and the largest row RMS of the 2-layer logits
+    that ``bf16_atol(2)`` held (``moe_teacher_forcing`` scales from it)."""
+    kernels.reset_launch_counts()
+    out = serve.run_arch(ARCH, orchestrate=True, device="cuda")
+    torch.cuda.synchronize()
+    launched = kernels.launch_counts()
+    check_arch_run(MODEL_PATH, out, launched)
+    model, weights, toks = out["model"], out["weights"], out["tokens"]
+    cfg, stats = model.cfg, out["stats"]
+    batch, prompt = toks.shape
+    gen = out["out_tokens"].shape[1]
     # teacher forcing at full depth, each call's launches counted on its
     # own.  The flat 3e-2 of test_models.py:89-97 is set for 2 layers; at 16
     # the decode path's error on an H100 reached 0.0791, so the check takes
@@ -1286,7 +1477,323 @@ def phase_model() -> dict:
           "launches": launched, "launches_per_call": steps,
           "teacher_forcing": tf, "two_layer_card_vs_cpu": parity,
           "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30})
+    return launched, parity["max_row_rms"]
+
+
+# ------------------------------------------------------------- the moe phase
+@contextlib.contextmanager
+def routing_log():
+    """While open, each call of the decoder's ``moe_ffn`` (one a layer, in
+    order) is noted as (its router logits (B, S, E) fp32, top_k,
+    capacity), computed as ``moe_ffn`` computes them, on the same inputs.
+    Instrumentation of the checks: the main runs go without it."""
+    calls, inner = [], transformer.moe_ffn
+
+    def logged(x, router_w, *weights, n_experts, top_k, capacity):
+        calls.append((torch.einsum("bsm,me->bse", x.float(),
+                                   router_w.float()), top_k, capacity))
+        return inner(x, router_w, *weights, n_experts=n_experts,
+                     top_k=top_k, capacity=capacity)
+
+    transformer.moe_ffn = logged
+    try:
+        yield calls
+    finally:
+        transformer.moe_ffn = inner
+
+
+def chosen(logits: torch.Tensor, k: int) -> torch.Tensor:
+    """(B, S, E) bool: the k experts of each token's top-k."""
+    sel = torch.zeros(logits.shape, dtype=torch.bool, device=logits.device)
+    return sel.scatter_(-1, logits.topk(k, dim=-1).indices, True)
+
+
+def kept(logits: torch.Tensor, k: int, capacity: int) -> torch.Tensor:
+    """(B, S, E) bool: the assignments that the capacity keeps.  Another
+    form of moe_ffn's rule: a token's assignment to expert e is kept when
+    fewer than ``capacity`` tokens before it in its row chose e."""
+    sel = chosen(logits, k)
+    return sel & (sel.long().cumsum(dim=1) <= capacity)
+
+
+def boundary_gap(logits: torch.Tensor, k: int) -> torch.Tensor:
+    """(B, S): the k-th largest logit less the (k+1)-th."""
+    top = logits.topk(k + 1, dim=-1).values
+    return top[..., k - 1] - top[..., k]
+
+
+def drop_share(calls) -> dict:
+    """The share of the logged calls' assignments that the capacity drops,
+    over all layers and by layer."""
+    by_layer = []
+    dropped = total = 0
+    for logits, k, cap in calls:
+        n_sel = logits.shape[0] * logits.shape[1] * k
+        n_drop = n_sel - int(kept(logits, k, cap).sum())
+        by_layer.append(n_drop / n_sel)
+        dropped, total = dropped + n_drop, total + n_sel
+    return {"share": dropped / total, "by_layer": by_layer,
+            "capacity": calls[0][2]}
+
+
+def moe_teacher_forcing(model, weights, toks, prompt: int,
+                        ref_rms: float) -> dict:
+    """Teacher forcing of an MoE decoder on the card: forward over ``toks``
+    (B, T) against prefill of the first ``prompt`` tokens (its last logits)
+    and a decode step of each token after (each step's logits); for a
+    sliding-window model, once through the shifted cache and once through
+    the ring buffer.  ``model`` routes at capacity_factor = E / k, so that
+    nothing drops: forward over T tokens routes at moe_capacity(T) and
+    prefill at moe_capacity(prompt), and where assignments drop those are
+    other functions, in the reference as much as in the port.
+
+    Twice, elementwise.  In fp32 activations (``transformer.ACT_DTYPE``)
+    at rtol = atol = 1e-3.  Then in the model's bf16 at rtol 3e-2 and an
+    atol measured on the same rows: the median over the compared positions
+    of the row's largest |bf16 forward - fp32 forward|, the error that bf16
+    itself gives this forward.  The cached paths are another bf16
+    evaluation of the same function, and may differ from the forward by no
+    more than that.  For the record it also counts the elements over
+    test_models.py:114-125's bf16_atol(L) scaled by the row's logit RMS
+    over ``ref_rms`` (the largest row RMS of llama3.2-1b's logits at full
+    width and 2 layers, where that bound holds on the card): the formula
+    counts 4 bf16 reductions a dense layer, and mixtral's MoE layers at
+    d_model 6144 and d_ff 16384 round more than that.
+
+    A token is compared where both calls give it the same top-k in every
+    layer.  bf16 sums taken in another order move the router logits by a
+    little, which sends a token whose k-th and (k+1)-th logits lie closer
+    than that to another expert: such a token must show that near-tie (its
+    boundary gap within twice the largest change of its logits), and as in
+    ``check_moe_ffn`` at most 0.5% of the tokens may move (in fp32 none)."""
+    out, fp32_full = {}, None
+    for act in (torch.float32, torch.bfloat16):
+        transformer.ACT_DTYPE = act
+        try:
+            out[str(act).replace("torch.", "")], full = _moe_teacher_forcing(
+                model, weights, toks, prompt, act, ref_rms, fp32_full)
+        finally:
+            transformer.ACT_DTYPE = torch.bfloat16
+        fp32_full = full.float()
+    return out
+
+
+def _moe_teacher_forcing(model, weights, toks, prompt: int, act,
+                         ref_rms: float, fp32_full) -> tuple[dict, torch.Tensor]:
+    cfg = model.cfg
+    k = cfg.experts_per_token
+    formula = bf16_atol(cfg.n_layers)
+    with routing_log() as calls, torch.inference_mode():
+        full = model.forward(weights, {"tokens": toks})
+    f_logits = [c[0] for c in calls]
+    if act == torch.float32:
+        atol = 1e-3
+    else:
+        noise = (full[:, prompt - 1:].float() - fp32_full[:, prompt - 1:])
+        atol = float(noise.abs().amax(-1).median())
+    rows = []  # (variant, position, logits (B, V), router logits a layer)
+    variants = {"positional" if cfg.window is None else "shifted": model}
+    if cfg.window is not None:
+        variants["ring"] = get_model(dataclasses.replace(
+            cfg, swa_ring_buffer=True))
+    for name, m in variants.items():
+        with routing_log() as calls:
+            pre, cache = make_prefill_step(m)(
+                weights, {"tokens": toks[:, :prompt]})
+        rows.append((name, prompt - 1, pre[:, 0],
+                     [c[0][:, -1] for c in calls]))
+        for i in range(prompt, toks.shape[1]):
+            with routing_log() as calls:
+                dec, cache = make_decode_step(m)(weights, toks[:, i:i + 1],
+                                                 cache)
+            rows.append((name, i, dec[:, 0], [c[0][:, 0] for c in calls]))
+        if cfg.window is not None and cache["k"].shape[3] != cfg.window:
+            raise AssertionError(f"{name}: the cache did not roll")
+    worst, compared, moved, over = 0.0, 0, [], 0
+    for name, i, logits, routers in rows:
+        same = torch.ones(toks.shape[0], dtype=torch.bool, device=toks.device)
+        for got, want in zip(routers, (f[:, i] for f in f_logits)):
+            alike = (chosen(got, k) == chosen(want, k)).all(-1)
+            same &= alike
+            near = boundary_gap(want, k) <= 2 * (got - want).abs().amax(-1)
+            if bool((~alike & ~near).any()):
+                raise AssertionError(f"{name} at {i}: a token changed its "
+                                     f"experts without a near-tie")
+        for b in range(toks.shape[0]):
+            if not bool(same[b]):
+                moved.append(f"{name}:{b}@{i}")
+                continue
+            got, want = logits[b].float().cpu(), full[b, i].float().cpu()
+            rtol = 1e-3 if act == torch.float32 else 3e-2
+            worst = max(worst, close(f"teacher forcing {act}, {name}, row "
+                                     f"{b} at {i}", got, want, rtol, atol))
+            scaled = formula * max(1.0, float(row_rms(want)) / ref_rms)
+            over += int(((got - want).abs()
+                         > scaled + 3e-2 * want.abs()).sum())
+            compared += 1
+    share = len(moved) / (compared + len(moved))
+    if share > 5e-3 or (act == torch.float32 and moved):
+        raise AssertionError(f"teacher forcing {act}: {len(moved)} tokens "
+                             f"changed experts, {compared} compared")
+    return {"variants": list(variants), "capacity_factor":
+            cfg.capacity_factor, "compared": compared,
+            "routing_match_share": 1 - share, "changed_experts": moved,
+            "max_abs_err": worst, "atol": atol, "rtol": rtol,
+            "elements_over_rms_scaled_bf16_atol": over,
+            "bf16_atol": formula, "ref_rms": ref_rms}, full
+
+
+def patch_loss(model, weights) -> float:
+    """internvl2's loss over PATCH_BATCH rows of its n_patches patch
+    embeddings and 64 tokens: finite and positive, its patch positions
+    masked out."""
+    cfg = model.cfg
+    rng = np.random.default_rng(13)
+    toks = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (PATCH_BATCH, PATCH_SEQ))).cuda()
+    pe = torch.from_numpy(rng.standard_normal(
+        (PATCH_BATCH, cfg.n_patches, cfg.d_model), dtype=np.float32))
+    with torch.inference_mode():
+        loss, _ = model.loss(weights, {"tokens": toks, "targets": toks,
+                                       "patch_embeds": pe.cuda()})
+    loss = loss.item()
+    if not (math.isfinite(loss) and loss > 0):
+        raise AssertionError(f"internvl2 loss with patch_embeds: {loss}")
+    return loss
+
+
+def serve_arch_path(path: str, ref_rms: float) -> dict:
+    """One moe-phase run: ``run_arch`` with ``orchestrate`` on MOE_RUNS'
+    config, every counter reset just before and read just after, held by
+    ``check_arch_run``; then on its weights the checks of its kind: an MoE
+    decoder's prefill drop share and teacher forcing without drops (past
+    the window for mixtral; ``ref_rms`` as ``moe_teacher_forcing`` takes
+    it), internvl2's teacher forcing at full depth with
+    each call's launches and its loss with patch_embeds.  Returns kernel ->
+    launches of the run."""
+    run = serve.arch_run(path)
+    cfg, batch, prompt, gen = (run[k] for k in ("config", "batch",
+                                                "prompt_len", "gen"))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    out = serve.run_arch(**run, device="cuda")
+    torch.cuda.synchronize()
+    launched = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    check_arch_run(path, out, launched)
+    model, weights, toks, stats = (out[k] for k in ("model", "weights",
+                                                    "tokens", "stats"))
+    line = {"phase": "moe", "path": path, "arch": cfg.name,
+            "params": model.param_count(),
+            "active_params": model.active_param_count(),
+            "layers": cfg.n_layers, "published_layers":
+            get_config(run["arch"]).n_layers, "batch": batch,
+            "prompt": prompt,
+            "gen": gen, "prefill_s": out["prefill_s"],
+            "decode_s": out["decode_s"],
+            "decode_tokens_per_s": batch * gen / out["decode_s"],
+            "cache_slots": out["cache"]["k"].shape[3],
+            "orchestrated_taos": stats.result.completed,
+            "orchestrated_tokens_per_s": stats.tokens_per_s,
+            "orchestrated_p99_sojourn_s": stats.p99_latency,
+            "launches": launched, "peak_memory_gib": peak / 2 ** 30}
+    del out
+    if cfg.is_moe:
+        with routing_log() as calls:
+            make_prefill_step(model)(weights, {"tokens": toks})
+        line["prefill_drops"] = drop_share(calls)
+        del calls
+        free = get_model(dataclasses.replace(
+            cfg, capacity_factor=cfg.n_experts / cfg.experts_per_token))
+        more = torch.from_numpy(np.random.default_rng(14).integers(
+            0, cfg.vocab_size, (batch, TF_DECODE[path]))).cuda()
+        line["teacher_forcing"] = moe_teacher_forcing(
+            free, weights, torch.cat([toks, more], dim=1), prompt, ref_rms)
+    else:
+        steps = {}
+        line["teacher_forcing"] = teacher_forcing(
+            model, weights, toks, bf16_atol(cfg.n_layers), steps, label=path)
+        line["launches_per_call"] = steps
+        line["patch_loss"] = patch_loss(model, weights)
+    del weights
+    torch.cuda.empty_cache()
+    emit(line)
     return launched
+
+
+def check_moe_ffn() -> None:
+    """``moe_ffn`` on the card against the CPU at both published widths,
+    one layer's weights (fp32, ``numpy_params``) and bf16 inputs (unit
+    normal draws, as a norm gives them) identical on both: mixtral's at 256
+    tokens (its CPU products are slow, its fp32 experts ~10 GB of host
+    memory), moonshot's at 512, each at its config's capacity.  Two card
+    runs give the same bits.  The share of tokens whose top-k set differs
+    (near-ties of the router, whose fp32 sums run in another order) must
+    stay under 0.5%; a token whose kept assignments agree (kept: the
+    capacity rule in another form) is compared at rtol 3e-2 and atol 1e-2
+    of the largest output, bf16's tolerance."""
+    for arch, tokens in (("mixtral-8x22b", 256),
+                         ("moonshot-v1-16b-a3b", 512)):
+        cfg = dataclasses.replace(get_config(arch), n_layers=1)
+        defs = {n: d for n, d in get_model(cfg).param_defs().items()
+                if n.startswith("layers.moe.")}
+        arrays = numpy_params(SimpleNamespace(param_defs=lambda: defs), 11)
+        x = torch.from_numpy(np.random.default_rng(12).standard_normal(
+            (1, tokens, cfg.d_model), dtype=np.float32)).bfloat16()
+        kw = dict(n_experts=cfg.n_experts, top_k=cfg.experts_per_token,
+                  capacity=cfg.moe_capacity(tokens))
+        names = ("router", "experts.w1", "experts.w3", "experts.w2")
+        out, logits, seconds = {}, {}, {}
+        for dev in ("cuda", "cpu"):
+            ws = [torch.from_numpy(arrays[f"layers.moe.{n}"][0]).to(dev)
+                  for n in names]
+            xd = x.to(dev)
+            t0 = time.perf_counter()
+            out[dev] = moe_ffn(xd, *ws, **kw)
+            if dev == "cuda":
+                torch.cuda.synchronize()
+                if not torch.equal(moe_ffn(xd, *ws, **kw), out[dev]):
+                    raise AssertionError(f"{arch} moe_ffn: two card runs "
+                                         f"differ")
+            seconds[dev] = time.perf_counter() - t0
+            logits[dev] = torch.einsum("bsm,me->bse", xd.float(),
+                                       ws[0].float()).cpu()
+            out[dev] = out[dev].float().cpu()
+            del ws, xd
+        del arrays
+        torch.cuda.empty_cache()
+        k = cfg.experts_per_token
+        flipped = ~(chosen(logits["cuda"], k) == chosen(logits["cpu"], k)
+                    ).all(-1)
+        same = (kept(logits["cuda"], k, kw["capacity"])
+                == kept(logits["cpu"], k, kw["capacity"])).all(-1)
+        share = float(flipped.float().mean())
+        if share > 5e-3:
+            raise AssertionError(f"{arch} moe_ffn: {share} of tokens change "
+                                 f"experts between the card and the CPU")
+        atol = 1e-2 * float(out["cpu"].abs().max())
+        err = close(f"{arch} moe_ffn, card against CPU", out["cuda"][same],
+                    out["cpu"][same], 3e-2, atol)
+        emit({"phase": "moe_ffn", "arch": arch, "tokens": tokens,
+              "capacity": kw["capacity"], "experts": cfg.n_experts,
+              "top_k": k, "changed_top_k_share": share,
+              "tokens_compared": int(same.sum()),
+              "drop_share_cpu": 1 - float(
+                  kept(logits["cpu"], k, kw["capacity"]).sum())
+              / (tokens * k),
+              "max_abs_err": err, "atol": atol, "bit_equal_card_runs": True,
+              "card_s_first_call": seconds["cuda"],
+              "cpu_s": seconds["cpu"]})
+
+
+def phase_moe(ref_rms: float) -> dict:
+    """The moe phase: each of MOE_RUNS (``serve_arch_path``; ``ref_rms``
+    for its teacher forcing), then ``check_moe_ffn``.  Returns path ->
+    kernel -> launches."""
+    launches = {path: serve_arch_path(path, ref_rms) for path in MOE_RUNS}
+    check_moe_ffn()
+    return launches
 
 
 def main() -> None:
@@ -1299,7 +1806,8 @@ def main() -> None:
     times = phase_times()
     check_slice_outputs()
     launches = phase_slice(times)
-    launches[MODEL_PATH] = phase_model()
+    launches[MODEL_PATH], ref_rms = phase_model()
+    launches.update(phase_moe(ref_rms))
     phase_grads()
     launches.update(phase_serve(times))
     launches[TRAIN_PATH] = phase_train()

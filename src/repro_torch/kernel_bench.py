@@ -145,12 +145,21 @@ def tensor(shape, dtype, seed: int) -> torch.Tensor:
     return torch.from_numpy(a).to(device="cuda", dtype=dtype)
 
 
-def sdpa(q, k, v):
+def sdpa(q, k, v, window: int | None = None):
     """``scaled_dot_product_attention`` over GQA heads, causal (top-left, as
     the kernel's mask at S = Sk): the library yardstick, never called by the
-    port."""
+    port.  SDPA takes no window: with ``window`` the causal band is a
+    boolean mask, over k and v repeated to q's heads (built before the
+    call, outside its time), as a masked SDPA takes them."""
     f = torch.nn.functional.scaled_dot_product_attention
-    return lambda: f(q, k, v, is_causal=True, enable_gqa=True)
+    if window is None:
+        return lambda: f(q, k, v, is_causal=True, enable_gqa=True)
+    rows = torch.arange(q.shape[2], device=q.device)[:, None]
+    cols = torch.arange(k.shape[2], device=q.device)[None, :]
+    mask = (cols <= rows) & (cols > rows - window)
+    group = q.shape[1] // k.shape[1]
+    kr, vr = (t.repeat_interleave(group, dim=1) for t in (k, v))
+    return lambda: f(q, kr, vr, attn_mask=mask)
 
 
 def host_us(fn, calls: int = 400, batches: int = 5) -> float:

@@ -22,6 +22,7 @@ Run:  PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 
 import torch
@@ -34,7 +35,8 @@ from ..core.serve_orchestrator import (ServeRequest, ServeStats,
                                        bursty_serving_trace,
                                        run_serving_threaded,
                                        run_serving_workload_threaded)
-from ..models import get_model, make_decode_step, make_prefill_step
+from ..models import (ModelConfig, get_model, make_decode_step,
+                      make_prefill_step)
 from ..workers import ChunkLog, on_own_stream, resolve_device
 from .zoo import SERVE_SHAPES, ZOO_SHAPES, default_zoo, warm_zoo, zoo_binder
 
@@ -65,6 +67,28 @@ PATHS = {
 }
 
 
+# serving runs of the MoE and sliding-window decoders and the patch frontend
+# at their published widths: path -> (arch, layers kept or None for all,
+# batch, prompt, gen).  mixtral and moonshot are cut in depth to fit one card
+# (all 56 layers of mixtral hold 141 B parameters, 282 GB in bf16;
+# moonshot's 48 need 112 GB of fp32 masters); mixtral's prompt passes its
+# 4096-token window, so the cache rolls; internvl2 whole at --arch's
+# defaults.  chip_smoke.py checks them, trace_main_path.py profiles them.
+ARCH_RUNS = {"serve:mixtral": ("mixtral-8x22b", 2, 1, 4352, 32),
+             "serve:moonshot": ("moonshot-v1-16b-a3b", 4, 4, 512, 32),
+             "serve:internvl2": ("internvl2-2b", None, 4, 64, 32)}
+
+
+def arch_run(path: str) -> dict:
+    """``run_arch``'s arguments for ``ARCH_RUNS[path]``, orchestrated."""
+    arch, layers, batch, prompt, gen = ARCH_RUNS[path]
+    cfg = get_config(arch)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    return dict(arch=arch, config=cfg, batch=batch, prompt_len=prompt,
+                gen=gen, orchestrate=True)
+
+
 def run_zoo(requests, zoo: dict, *, policy: str = "molding:weight",
             admission=None, preemption=None, log: ChunkLog | None = None,
             timeout_s: float = 300.0) -> ServeStats:
@@ -88,14 +112,16 @@ def _sync(dev: torch.device) -> None:
 
 def run_arch(arch: str, *, smoke: bool = False, batch: int = 4,
              prompt_len: int = 64, gen: int = 32, orchestrate: bool = False,
-             device="cuda") -> dict:
+             device="cuda", config: ModelConfig | None = None) -> dict:
     """``--arch``'s run (serve.py:36-86), printing the JAX launcher's lines.
-    Returns what it made: the model, its weights (``bf16_copy`` of the fp32
-    masters, which are dropped), the prompt ``tokens``, the prefill's last
-    logits, the greedy ``out_tokens`` (B, gen), the final ``cache`` and,
-    with ``orchestrate``, the run's ``stats``."""
+    ``config``, where given, is served in place of the arch's (a published
+    width at a cut depth, say).  Returns what it made: the model, its
+    weights (``bf16_copy`` of the fp32 masters, which are dropped), the
+    prompt ``tokens``, the prefill's last logits, the greedy ``out_tokens``
+    (B, gen), the final ``cache`` and, with ``orchestrate``, the run's
+    ``stats``."""
     dev = resolve_device(device)
-    cfg = get_smoke_config(arch) if smoke else get_config(arch)
+    cfg = config or (get_smoke_config(arch) if smoke else get_config(arch))
     if cfg.family == "encoder":
         raise SystemExit(f"{cfg.name} is encoder-only: no decode serving")
     model = get_model(cfg)
@@ -157,14 +183,21 @@ def _orchestrate(prefill, decode, next_tok, cache, n_requests: int,
     """The same prefill and decode as payloads of ``n_requests`` requests on
     ``ThreadedRuntime`` under ``molding:weight``.  The final cache has one
     free slot, so every decode payload steps from it (``decode_step`` leaves
-    it as it was)."""
+    it as it was).  The payloads reach the model through ``work``, which is
+    emptied after the run: the returned stats keep the run's DAGs, and
+    through them the payloads, which would otherwise keep the weights and
+    the cache on the card for as long as the stats live."""
+    work = {"prefill": prefill, "decode": lambda: decode(next_tok, cache)}
     chunks = on_own_stream({
-        "prefill": lambda r: prefill()[0],
-        "decode": lambda r, i: decode(next_tok, cache)[0]}, dev)
+        "prefill": lambda r: work["prefill"]()[0],
+        "decode": lambda r, i: work["decode"]()[0]}, dev)
     reqs = [ServeRequest(i, prompt_len, gen) for i in range(n_requests)]
-    stats = run_serving_threaded(
-        reqs, hikey960(), make_policy("molding:weight"),
-        prefill_fn=chunks["prefill"], decode_fn=chunks["decode"])
+    try:
+        stats = run_serving_threaded(
+            reqs, hikey960(), make_policy("molding:weight"),
+            prefill_fn=chunks["prefill"], decode_fn=chunks["decode"])
+    finally:
+        work.clear()
     print(f"orchestrated: {stats.result.completed} TAOs, "
           f"{stats.tokens_per_s:.0f} tok/s, "
           f"mean sojourn {stats.mean_latency * 1e3:.1f} ms, "

@@ -1,7 +1,8 @@
 """repro_torch.models -- the port's model zoo and its generic train and
-serve steps.  Twin of ``repro.models``; the port has the dense decoder.  The
-``ssm`` (mamba2) and ``hybrid`` (hymba) families wait for a later slice
-(ROADMAP.md, Queue 1 item 3)."""
+serve steps.  Twin of ``repro.models``; the port has the decoder family
+(dense, MoE with sliding windows, the patch frontend).  The encoder
+(hubert), ``ssm`` (mamba2) and ``hybrid`` (hymba) families wait for a later
+slice (ROADMAP.md, Queue 1 item 3)."""
 from __future__ import annotations
 
 from typing import Callable

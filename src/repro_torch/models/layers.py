@@ -1,5 +1,6 @@
 """Shared model layers of the port: RMSNorm, RoPE, GQA attention (prefill
-and decode) and SwiGLU.  Twin of ``repro.models.layers``.
+and decode), SwiGLU and sort-based MoE dispatch.  Twin of
+``repro.models.layers``.
 
 Two of them run the port's kernels through ``kernels.ops``, which launches
 the CUDA kernel for a tensor on the card and takes its plain PyTorch version
@@ -9,16 +10,17 @@ on the CPU:
   * ``attention`` runs the flash-attention kernel.  The JAX layer computes the
     same function in jnp, dense up to ``dense_max_seq`` and q-chunked above
     it; the kernel takes any length, so the port has one path.
-``decode_attention`` and ``swiglu`` stay plain PyTorch, as the JAX package
-leaves them to XLA outside any Pallas kernel.  ``moe_ffn`` waits for the MoE
-port (ROADMAP.md, Queue 1 item 3).
+``decode_attention``, ``swiglu`` and ``moe_ffn`` stay plain PyTorch, as the
+JAX package leaves them to XLA outside any Pallas kernel.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
 import torch.nn.functional as F
+from torch.profiler import record_function
 
 from ..kernels import ops
 
@@ -77,17 +79,20 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
 # ---------------------------------------------------------------------------
 # attention
 # ---------------------------------------------------------------------------
-def attention(q: torch.Tensor, k: torch.Tensor,
-              v: torch.Tensor) -> torch.Tensor:
-    """Causal GQA attention over a whole sequence.  q: (B, Hq, S, D); k, v:
-    (B, Hkv, S, D).  Positions are 0..S-1, as in every model path, so the
-    kernel's top-left mask on indices is the JAX layer's mask on positions;
-    every row sees a key, so the JAX bias fill of -1e30 and the kernel agree.
-    ``bq = bk = S`` satisfy the TPU kernel's tiling check at any length; the
-    CUDA kernel tiles by itself."""
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+              causal: bool = True, window: int | None = None) -> torch.Tensor:
+    """GQA attention over a whole sequence, causal and within ``window``
+    positions (a key at p is seen from rows p..p+window-1) where given.
+    q: (B, Hq, S, D); k, v: (B, Hkv, S, D).  Positions are 0..S-1, as in
+    every model path, so the kernel's top-left mask on indices is the JAX
+    layer's mask on positions; every row sees at least itself, so the JAX
+    bias fill of -1e30 and the kernel agree.  ``bq = bk = S`` satisfy the
+    TPU kernel's tiling check at any length; the CUDA kernel tiles by
+    itself."""
     s = q.shape[2]
     return ops.flash_attention(q.contiguous(), k.contiguous(),
-                               v.contiguous(), causal=True, bq=s, bk=s)
+                               v.contiguous(), causal=causal, window=window,
+                               bq=s, bk=s)
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
@@ -117,3 +122,92 @@ def swiglu(x: torch.Tensor, w1: torch.Tensor, w3: torch.Tensor,
            w2: torch.Tensor) -> torch.Tensor:
     """x: (..., M); w1/w3: (M, F); w2: (F, M)."""
     return (F.silu(x @ w1) * (x @ w3)) @ w2
+
+
+# ---------------------------------------------------------------------------
+# MoE: sort-based dispatch with capacity (token dropping)
+# ---------------------------------------------------------------------------
+def _span(name: str):
+    """A profiler span named ``name``, opened only while a profiler
+    records: without one a span still costs the host a dispatcher call on
+    entry and on exit, on decode steps that the host bounds."""
+    if torch._C._autograd._profiler_enabled():
+        return record_function(name)
+    return contextlib.nullcontext()
+
+
+def moe_ffn(x: torch.Tensor, router_w: torch.Tensor, we1: torch.Tensor,
+            we3: torch.Tensor, we2: torch.Tensor, *, n_experts: int,
+            top_k: int, capacity: int) -> torch.Tensor:
+    """x: (B, S, M) -> (B, S, M); router_w (M, E), we1/we3 (E, M, F), we2
+    (E, F, M).  The function of the JAX layer (layers.py:213-286), per
+    batch row:
+      1. fp32 router logits, softmax, top-k; the k weights renormalised by
+         their sum (floored at 1e-9);
+      2. the S*k assignments (token-major, flat index token * k + j)
+         stably sorted by expert id; slot = rank within the expert;
+      3. slots >= ``capacity`` dropped: they contribute nothing;
+      4. tokens gathered to (B, E, C, M), the expert SwiGLU with the weights
+         cast to x's dtype, each assignment's output times its bf16 weight,
+         summed over its token's k assignments.
+
+    Every shape is static and no index list is built on the host: a dropped
+    assignment is scattered to a spare slot of its own past the E * C real
+    ones, which are sliced off, where JAX scatters to the out-of-range
+    expert ``E`` with ``mode="drop"``.  A slot that no assignment fills
+    reads an appended zero row of x.  While a profiler records, each stage
+    runs in a span (``moe.router``, ``moe.sort``, ``moe.dispatch``,
+    ``moe.experts``, ``moe.combine``), which ``trace_main_path --moe-only``
+    reads.
+
+    Ties: ``torch.topk`` does not promise ``lax.top_k``'s lower-index-first
+    order on equal gates, so on exact ties the two may pick other experts;
+    random fp32 router logits have none.
+
+    Combine: JAX scatter-adds the (E * C) weighted outputs into (S, M) in
+    bf16, rounding after each add, in expert order.  Here each token
+    gathers its k weighted outputs through the map (token, j) -> (expert,
+    slot) and sums them in fp32 with one rounding to bf16.  The sum has no
+    atomics, so two runs on the card give the same bits; against JAX it
+    differs by at most (k - 1) / 2 bf16 ulps of the output, under the bf16
+    tolerance (rtol 3e-2) the tests hold it to.
+    """
+    b, s, m = x.shape
+    e, c, k = n_experts, capacity, top_k
+    dev = x.device
+    with _span("moe.router"):
+        logits = torch.einsum("bsm,me->bse", x.float(), router_w.float())
+        gates = torch.softmax(logits, dim=-1)                    # (B,S,E)
+        top_w, top_ids = torch.topk(gates, k, dim=-1)            # (B,S,k)
+        top_w = top_w / torch.clamp(top_w.sum(-1, keepdim=True), min=1e-9)
+    with _span("moe.sort"):
+        flat_ids = top_ids.reshape(b, s * k)
+        sid, order = torch.sort(flat_ids, dim=-1, stable=True)
+        # rank within expert: position - first position of this expert id
+        first = torch.searchsorted(
+            sid, torch.arange(e, device=dev).expand(b, e).contiguous())
+        rank = torch.arange(s * k, device=dev) - first.gather(1, sid)
+        slot = torch.empty_like(rank).scatter_(1, order, rank)  # flat order
+        kept = slot < c
+        flat = torch.arange(s * k, device=dev).expand(b, s * k)
+        dest = torch.where(kept, flat_ids * c + slot, e * c + flat)
+    with _span("moe.dispatch"):
+        # the token of each (expert, slot); an empty slot reads row s, zeros
+        tok = torch.full((b, e * c + s * k), s, dtype=torch.long, device=dev)
+        tok = tok.scatter_(1, dest, flat // k)[:, :e * c]
+        xz = torch.cat([x, x.new_zeros(b, 1, m)], dim=1)
+        xin = xz.gather(1, tok[..., None].expand(b, e * c, m))
+        xin = xin.reshape(b, e, c, m)
+    with _span("moe.experts"):
+        we1, we3, we2 = (w.to(x.dtype) for w in (we1, we3, we2))
+        h = F.silu(torch.einsum("becm,emf->becf", xin, we1))
+        h = h * torch.einsum("becm,emf->becf", xin, we3)
+        out = torch.einsum("becf,efm->becm", h, we2).reshape(b, e * c, m)
+    with _span("moe.combine"):
+        # each assignment's output, weighted, summed over its token's k
+        src = torch.where(kept, dest, 0)
+        w = torch.where(kept, top_w.reshape(b, s * k), 0.0).to(out.dtype)
+        parts = out.gather(1, src[..., None].expand(b, s * k, m)) \
+            * w[..., None]
+        y = parts.reshape(b, s, k, m).sum(dim=2, dtype=torch.float32)
+    return y.to(x.dtype)

@@ -67,8 +67,8 @@ class ModelConfig:
     frontend: str = "none"               # none | patch (vlm) | frames (audio)
     n_patches: int = 256                 # vlm stub patch count
     # --- execution knobs of the JAX package, kept so that configs carry
-    # across unchanged; the port's eager decoder reads only ce_onehot and
-    # logits_chunk (it raises above 1) ---
+    # across unchanged; the port's eager decoder reads ce_onehot,
+    # logits_chunk and swa_ring_buffer ---
     remat: bool = True
     remat_policy: str = "nothing"
     attn_chunk: int = 1024
@@ -94,6 +94,14 @@ class ModelConfig:
     @property
     def is_moe(self) -> bool:
         return self.n_experts > 0
+
+    def moe_capacity(self, group_tokens: int) -> int:
+        """Slots an expert has for a group (one batch row) of
+        ``group_tokens`` tokens: their share of the top-k assignments times
+        ``capacity_factor``, rounded up to a multiple of 8, at least 8."""
+        c = math.ceil(group_tokens * self.experts_per_token *
+                      self.capacity_factor / self.n_experts)
+        return max(8, pad_to_multiple(c, 8))
 
 
 # ---------------------------------------------------------------------------
@@ -147,3 +155,14 @@ class BaseModel:
     def param_count(self) -> int:
         return int(sum(math.prod(d.shape)
                        for d in self.param_defs().values()))
+
+    def active_param_count(self) -> int:
+        """Params touched per token (MoE: top-k of the experts)."""
+        cfg = self.cfg
+        total = 0
+        for name, d in self.param_defs().items():
+            n = math.prod(d.shape)
+            if cfg.is_moe and ".experts." in name:
+                n = n * cfg.experts_per_token // cfg.n_experts
+            total += n
+        return int(total)

@@ -1,62 +1,67 @@
-"""Decoder-only transformer LM of the port: the dense decoders of the JAX
-package's zoo (llama3/3.2, chatglm3, minicpm).  Twin of
-``repro.models.transformer``.
+"""Decoder-only transformer LM of the port: the dense, MoE and VLM-backbone
+decoders of the JAX package's zoo (llama3/3.2, chatglm3, minicpm, mixtral,
+moonshot, internvl2's InternLM2).  Twin of ``repro.models.transformer``.
 
 Structure per layer (pre-norm):
-    x += attn(rmsnorm(x))          # GQA + RoPE (+ optional qkv bias)
-    x += swiglu(rmsnorm(x))
+    x += attn(rmsnorm(x))          # GQA + RoPE (+ optional SWA, qkv bias)
+    x += ffn(rmsnorm(x))           # SwiGLU, or MoE top-k routed SwiGLU
 
 Every norm runs the RMSNorm kernel and every prefill or forward attention
-the flash-attention kernel (``layers``); the projections are plain
-``torch.matmul``, as the JAX package leaves them to XLA.  The layers run in
-a Python loop over the stacked parameters, where JAX scans.
+the flash-attention kernel, sliding windows included (``layers``); the
+projections and the MoE dispatch are plain PyTorch, as the JAX package
+leaves them to XLA.  The layers run in a Python loop over the stacked
+parameters, where JAX scans.
 
 Numerics follow JAX: activations are bf16 (the embedding is gathered from
 the fp32 table, then cast), every weight matrix is cast to bf16 where it is
-used, norm weights are read in fp32.  The casts are ``.to(bf16)``, which is
-free on a tensor that is bf16 already: ``bf16_copy`` casts the matrices once
-at load, with identical values, and the serving paths pass that copy.
+used, norm weights and the MoE router are read in fp32.  The casts are
+``.to(bf16)``, which is free on a tensor that is bf16 already: ``bf16_copy``
+casts the matrices once at load, with identical values, and the serving
+paths pass that copy.
 
-Scope: dense decoders with full causal attention over token inputs.  MoE
-dispatch, a sliding ``window`` (its rolling and ring-buffer caches), the
-patch and frame frontends, bidirectional encoders and ``logits_chunk > 1``
-raise ``NotImplementedError`` (ROADMAP.md, Queue 1 item 3).
+Caches follow JAX branch for branch: a sliding-window model whose prompt
+reaches the window keeps a rolling W-slot cache (shifted each step, or a
+ring buffer under ``swa_ring_buffer``); any other cache is padded to
+``max_len`` and written at ``pos``.  A windowed model on that positional
+cache decodes with full attention past the window, as the reference does
+(ROADMAP.md, Queue 3, fault 5).
+
+Scope: the ``frames`` frontend and bidirectional attention (hubert) raise
+``NotImplementedError`` (ROADMAP.md, Queue 1 item 3).
 """
 from __future__ import annotations
 
 import torch
 
-from .layers import apply_rope, attention, decode_attention, rmsnorm, swiglu
+from .layers import (apply_rope, attention, decode_attention, moe_ffn,
+                     rmsnorm, swiglu)
 from .losses import lm_cross_entropy
 from .model_api import BaseModel, ModelConfig, ParamDef
 
 ACT_DTYPE = torch.bfloat16
-_NORMS = ("final_norm.w", "layers.attn_norm.w", "layers.mlp_norm.w")
+# read in fp32 where used: the norm weights, and the router (layers.py:227)
+_FP32 = ("final_norm.w", "layers.attn_norm.w", "layers.mlp_norm.w",
+         "layers.moe.router")
 
 
 def _unsupported(cfg: ModelConfig) -> str | None:
-    if cfg.is_moe:
-        return "MoE dispatch"
-    if cfg.window is not None:
-        return "a sliding window (rolling and ring-buffer caches)"
-    if cfg.frontend != "none":
-        return f"the {cfg.frontend!r} frontend"
+    if cfg.frontend == "frames":
+        return "the 'frames' frontend"
     if not cfg.causal:
         return "bidirectional (encoder) attention"
-    if cfg.logits_chunk > 1:
-        return "sequence-chunked cross-entropy (logits_chunk > 1)"
     return None
 
 
 class DecoderLM(BaseModel):
-    """Dense decoder with full causal attention."""
+    """Dense / MoE / VLM-backbone decoder."""
 
     def __init__(self, cfg: ModelConfig):
         what = _unsupported(cfg)
         if what is not None:
             raise NotImplementedError(
                 f"{cfg.name}: {what} is not ported yet (ROADMAP.md, Queue 1 "
-                f"item 3)")
+                f"item 3: hubert's frames, causal=False and a flash "
+                f"instantiation at its head dim 80)")
         super().__init__(cfg)
 
     # ------------------------------------------------------------- params --
@@ -77,23 +82,38 @@ class DecoderLM(BaseModel):
             "attn.wv": ParamDef((L, M, Hkv * HD), ("layers", "embed", "kv_heads")),
             "attn.wo": ParamDef((L, Hq * HD, M), ("layers", "heads", "embed")),
             "mlp_norm.w": ParamDef((L, M), ("layers", None), init="ones"),
-            "mlp.w1": ParamDef((L, M, F), ("layers", "embed", "ff")),
-            "mlp.w3": ParamDef((L, M, F), ("layers", "embed", "ff")),
-            "mlp.w2": ParamDef((L, F, M), ("layers", "ff", "embed")),
         }
         if cfg.qkv_bias:
             lyr["attn.bq"] = ParamDef((L, Hq * HD), ("layers", "heads"), init="zeros")
             lyr["attn.bk"] = ParamDef((L, Hkv * HD), ("layers", "kv_heads"), init="zeros")
             lyr["attn.bv"] = ParamDef((L, Hkv * HD), ("layers", "kv_heads"), init="zeros")
+        if cfg.is_moe:
+            E = cfg.n_experts
+            lyr.update({
+                "moe.router": ParamDef((L, M, E), ("layers", "embed", None)),
+                "moe.experts.w1": ParamDef((L, E, M, F),
+                                           ("layers", "expert", "embed", "ff")),
+                "moe.experts.w3": ParamDef((L, E, M, F),
+                                           ("layers", "expert", "embed", "ff")),
+                "moe.experts.w2": ParamDef((L, E, F, M),
+                                           ("layers", "expert", "ff", "embed")),
+            })
+        else:
+            lyr.update({
+                "mlp.w1": ParamDef((L, M, F), ("layers", "embed", "ff")),
+                "mlp.w3": ParamDef((L, M, F), ("layers", "embed", "ff")),
+                "mlp.w2": ParamDef((L, F, M), ("layers", "ff", "embed")),
+            })
         defs.update({f"layers.{k}": v for k, v in lyr.items()})
         return defs
 
     @staticmethod
     def bf16_copy(params: dict) -> dict:
         """``params`` with every weight that JAX casts to bf16 at use
-        (transformer.py:89-95, 115, 125-127, 144, 182) cast once; the
-        norm weights stay as they are, since rmsnorm reads them in fp32."""
-        return {k: v if k in _NORMS else v.to(ACT_DTYPE)
+        (transformer.py:89-95, 115, 125-127, 144, 182; the experts at
+        layers.py:265-267) cast once; the norm weights and the router stay
+        as they are, since JAX reads them in fp32."""
+        return {k: v if k in _FP32 else v.to(ACT_DTYPE)
                 for k, v in params.items()}
 
     # ------------------------------------------------------------ forward --
@@ -116,8 +136,18 @@ class DecoderLM(BaseModel):
         k = apply_rope(k, positions, cfg.rope_theta, cfg.rope_fraction)
         return (q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
 
-    def _mlp(self, p: dict, x: torch.Tensor) -> torch.Tensor:
-        h = rmsnorm(x, p["mlp_norm.w"], self.cfg.norm_eps)
+    def _mlp(self, p: dict, x: torch.Tensor, group_tokens: int
+             ) -> torch.Tensor:
+        """x + ffn(rmsnorm(x)); the MoE routes each batch row of
+        ``group_tokens`` tokens at ``moe_capacity(group_tokens)``."""
+        cfg = self.cfg
+        h = rmsnorm(x, p["mlp_norm.w"], cfg.norm_eps)
+        if cfg.is_moe:
+            return x + moe_ffn(h, p["moe.router"], p["moe.experts.w1"],
+                               p["moe.experts.w3"], p["moe.experts.w2"],
+                               n_experts=cfg.n_experts,
+                               top_k=cfg.experts_per_token,
+                               capacity=cfg.moe_capacity(group_tokens))
         return x + swiglu(h, p["mlp.w1"].to(h.dtype), p["mlp.w3"].to(h.dtype),
                           p["mlp.w2"].to(h.dtype))
 
@@ -128,10 +158,10 @@ class DecoderLM(BaseModel):
         B, S, _ = x.shape
         h = rmsnorm(x, p["attn_norm.w"], cfg.norm_eps)
         qT, kT, vT = self._qkv(p, h, positions)
-        o = attention(qT, kT, vT)
+        o = attention(qT, kT, vT, causal=cfg.causal, window=cfg.window)
         o = o.transpose(1, 2).reshape(B, S, cfg.n_heads * cfg.hd)
         x = x + (o @ p["attn.wo"].to(o.dtype))
-        return self._mlp(p, x), (kT, vT)
+        return self._mlp(p, x, S), (kT, vT)
 
     @staticmethod
     def _split_params(params: dict) -> tuple[dict, dict]:
@@ -143,12 +173,22 @@ class DecoderLM(BaseModel):
     def _head(self, top: dict) -> torch.Tensor:
         return top["embed.w"].T if self.cfg.tie_embeddings else top["head.w"]
 
-    def _layers(self, params: dict, tokens: torch.Tensor):
-        """Backbone over ``tokens`` (B, S): yields (x, (k, v)) after each
-        layer; ``x`` enters as the bf16 embedding."""
+    def _embed_inputs(self, top: dict, batch: dict) -> torch.Tensor:
+        """bf16 token embeddings (B, S, M); under the ``patch`` frontend the
+        batch's ``patch_embeds`` (B, P, M), where given, replace the first P
+        positions (transformer.py:138-148)."""
+        x = top["embed.w"][batch["tokens"]].to(ACT_DTYPE)
+        if self.cfg.frontend == "patch" and "patch_embeds" in batch:
+            pe = batch["patch_embeds"].to(ACT_DTYPE)
+            x = torch.cat([pe, x[:, pe.shape[1]:]], dim=1)
+        return x
+
+    def _layers(self, params: dict, batch: dict):
+        """Backbone over ``batch``'s inputs: yields (x, (k, v)) after each
+        layer; ``x`` enters as ``_embed_inputs``."""
         top, stacked = self._split_params(params)
-        x = top["embed.w"][tokens].to(ACT_DTYPE)
-        positions = torch.arange(tokens.shape[1], dtype=torch.int32,
+        x = self._embed_inputs(top, batch)
+        positions = torch.arange(x.shape[1], dtype=torch.int32,
                                  device=x.device)
         # each stacked parameter is unbound once, not indexed (``v[i]``) a
         # layer: where a graph is recorded, the backward of L indexings
@@ -159,84 +199,159 @@ class DecoderLM(BaseModel):
                                 positions=positions)
             yield x, kv
 
-    def forward(self, params: dict, batch: dict) -> torch.Tensor:
-        """Full-sequence forward -> logits (B, S, V)."""
+    def _hidden(self, params: dict, batch: dict):
+        """Backbone -> (final-normed hidden (B, S, M), LM head (M, V))."""
         x = None
-        for x, _ in self._layers(params, batch["tokens"]):
+        for x, _ in self._layers(params, batch):
             pass
         top, _ = self._split_params(params)
-        x = rmsnorm(x, top["final_norm.w"], self.cfg.norm_eps)
-        return x @ self._head(top).to(x.dtype)
+        return rmsnorm(x, top["final_norm.w"], self.cfg.norm_eps), \
+            self._head(top)
+
+    def forward(self, params: dict, batch: dict) -> torch.Tensor:
+        """Full-sequence forward -> logits (B, S, V)."""
+        x, head = self._hidden(params, batch)
+        return x @ head.to(x.dtype)
 
     # --------------------------------------------------------------- loss --
     def loss(self, params: dict, batch: dict):
-        logits = self.forward(params, batch)
-        loss = lm_cross_entropy(logits, batch["targets"],
-                                onehot=self.cfg.ce_onehot)
+        cfg = self.cfg
+        targets = batch["targets"]
+        mask = None
+        if cfg.frontend == "patch":  # VLM: patch positions carry no LM loss
+            mask = torch.ones(targets.shape, dtype=torch.float32,
+                              device=targets.device)
+            mask[:, :cfg.n_patches] = 0.0
+        if cfg.logits_chunk > 1:
+            loss = self._chunked_ce(params, batch, targets, mask)
+        else:
+            loss = lm_cross_entropy(self.forward(params, batch), targets,
+                                    onehot=cfg.ce_onehot, mask=mask)
         return loss, {"loss": loss,
                       "ppl_proxy": torch.exp(torch.clamp(loss, max=20.0))}
 
+    def _chunked_ce(self, params: dict, batch: dict, targets: torch.Tensor,
+                    mask: torch.Tensor | None) -> torch.Tensor:
+        """Cross-entropy over ``logits_chunk`` chunks of the sequence, one
+        (B, S/K, V) logits chunk at a time: a loop where JAX scans
+        (transformer.py:202-230), the same sums in the same order."""
+        cfg = self.cfg
+        x, head = self._hidden(params, batch)
+        B, S, _ = x.shape
+        K = cfg.logits_chunk
+        if S % K:
+            raise ValueError(f"seq {S} not divisible by logits_chunk {K}")
+        cs = S // K
+        headc = head.to(x.dtype)
+        tot = cnt = torch.zeros((), dtype=torch.float32, device=x.device)
+        for i in range(K):
+            part = slice(i * cs, (i + 1) * cs)
+            mi = (mask[:, part] if mask is not None else
+                  torch.ones((B, cs), dtype=torch.float32, device=x.device))
+            nll = lm_cross_entropy(x[:, part] @ headc, targets[:, part],
+                                   onehot=cfg.ce_onehot, mask=mi)
+            tot = tot + nll * torch.clamp(mi.sum(), min=1.0)
+            cnt = cnt + mi.sum()
+        return tot / torch.clamp(cnt, min=1.0)
+
     # -------------------------------------------------------------- serve --
     def prefill(self, params: dict, batch: dict, max_len: int | None = None):
-        """Returns (last-token logits (B, 1, V), KV cache).  The cache holds
-        ``max_len`` positions (default prompt + 64) so that decode steps have
-        room to insert; ``pos`` is the prompt length."""
+        """Returns (last-token logits (B, 1, V), KV cache); ``pos`` is the
+        prompt length S.  A sliding-window model whose prompt reaches the
+        window W keeps the last W positions (rolled by S % W under
+        ``swa_ring_buffer``, so that position p sits at slot p % W); any
+        other cache holds ``max_len`` positions (default S + 64), the prompt
+        first, so that decode steps have room to insert
+        (transformer.py:235-273)."""
         cfg = self.cfg
+        W = cfg.window
         tokens = batch["tokens"]
         B, S = tokens.shape
-        max_len = max(max_len or S + 64, S)
-        cache = self.init_cache(B, max_len, device=tokens.device)
+        rolling = W is not None and S >= W
+        length = W if rolling else max(max_len or S + 64, S)
+        cache = self._empty_cache(B, length, tokens.device)
         x = None
-        for i, (x, (k, v)) in enumerate(self._layers(params, tokens)):
-            cache["k"][i, :, :, :S] = k
-            cache["v"][i, :, :, :S] = v
+        for i, (x, (k, v)) in enumerate(self._layers(params, batch)):
+            if rolling:
+                k, v = k[:, :, -W:], v[:, :, -W:]
+                if cfg.swa_ring_buffer:
+                    k = torch.roll(k, S % W, dims=2)
+                    v = torch.roll(v, S % W, dims=2)
+            cache["k"][i, :, :, :k.shape[2]] = k
+            cache["v"][i, :, :, :v.shape[2]] = v
         top, _ = self._split_params(params)
         x = rmsnorm(x, top["final_norm.w"], cfg.norm_eps)
         logits = x[:, -1:] @ self._head(top).to(x.dtype)
         cache["pos"] = torch.tensor(S, dtype=torch.int32)
         return logits, cache
 
-    def init_cache(self, batch_size: int, max_len: int, device="cpu") -> dict:
-        """An empty cache: ``k``, ``v`` (L, B, Hkv, max_len, HD) bf16 on
-        ``device``; ``pos``, the next position to write, a 0-dim int32 on
-        the CPU (the host reads it to index, so keeping it there spares a
-        device sync per step)."""
+    def _empty_cache(self, batch_size: int, length: int, device) -> dict:
         cfg = self.cfg
-        shape = (cfg.n_layers, batch_size, cfg.n_kv_heads, max_len, cfg.hd)
+        shape = (cfg.n_layers, batch_size, cfg.n_kv_heads, length, cfg.hd)
         return {"k": torch.zeros(shape, dtype=ACT_DTYPE, device=device),
                 "v": torch.zeros(shape, dtype=ACT_DTYPE, device=device),
                 "pos": torch.zeros((), dtype=torch.int32)}
+
+    def init_cache(self, batch_size: int, max_len: int, device="cpu") -> dict:
+        """An empty cache: ``k``, ``v`` (L, B, Hkv, eff, HD) bf16 on
+        ``device``, eff = min(max_len, window) (transformer.py:279);
+        ``pos``, the next position to write, a 0-dim int32 on the CPU (the
+        host reads it to index, so keeping it there spares a device sync
+        per step)."""
+        W = self.cfg.window
+        eff = min(max_len, W) if W else max_len
+        return self._empty_cache(batch_size, eff, device)
 
     def decode_step(self, params: dict, tokens: torch.Tensor, cache: dict):
         """One-token decode.  tokens: (B, 1).  Functional, as JAX's
         ``dynamic_update_slice`` is: returns the logits (B, 1, V) and a new
         cache, and leaves ``cache`` as it was, so that several threads may
-        step from one cache at once.  Raises where the cache has no room
-        (JAX clamps the write onto the last slot instead: ROADMAP.md,
-        Queue 3)."""
+        step from one cache at once.
+
+        The cache is rolling when the model has a window W and the cache W
+        slots (transformer.py:306-346): a ring buffer writes slot pos % W
+        and sees the slots holding positions in (pos - W, pos]; otherwise
+        the slots shift left by one, the new entry goes last and the last
+        min(pos + 1, W) are seen.  Any other cache is written at ``pos`` and
+        sees slots 0..pos, with no window (fault 5, ROADMAP.md Queue 3), and
+        raises where it has no room (JAX clamps the write onto the last slot
+        instead: fault 3)."""
         cfg = self.cfg
         top, stacked = self._split_params(params)
         pos = int(cache["pos"])
         eff = cache["k"].shape[3]
-        if not 0 <= pos < eff:
-            raise ValueError(f"decode at position {pos} past the cache's "
-                             f"{eff} slots")
+        rolling = cfg.window is not None and eff == cfg.window
         B = tokens.shape[0]
         x = top["embed.w"][tokens].to(ACT_DTYPE)
-        positions = torch.full((1,), pos, dtype=torch.int32,
-                               device=x.device)
-        valid = torch.arange(eff, device=x.device) <= pos
-        new_k, new_v = cache["k"].clone(), cache["v"].clone()
+        dev = x.device
+        slots = torch.arange(eff, device=dev)
+        if rolling and cfg.swa_ring_buffer:
+            at = pos % eff
+            valid = pos - torch.remainder(pos - slots, eff) >= 0
+            new_k, new_v = cache["k"].clone(), cache["v"].clone()
+        elif rolling:
+            at = eff - 1
+            valid = slots >= eff - min(pos + 1, eff)
+            new_k = torch.roll(cache["k"], -1, dims=3)
+            new_v = torch.roll(cache["v"], -1, dims=3)
+        else:
+            if not 0 <= pos < eff:
+                raise ValueError(f"decode at position {pos} past the "
+                                 f"cache's {eff} slots")
+            at = pos
+            valid = slots <= pos
+            new_k, new_v = cache["k"].clone(), cache["v"].clone()
+        positions = torch.full((1,), pos, dtype=torch.int32, device=dev)
         for i in range(cfg.n_layers):
             p = {k: v[i] for k, v in stacked.items()}
             h = rmsnorm(x, p["attn_norm.w"], cfg.norm_eps)
             qT, kT, vT = self._qkv(p, h, positions)
-            new_k[i, :, :, pos] = kT[:, :, 0]
-            new_v[i, :, :, pos] = vT[:, :, 0]
+            new_k[i, :, :, at] = kT[:, :, 0]
+            new_v[i, :, :, at] = vT[:, :, 0]
             o = decode_attention(qT, new_k[i], new_v[i], valid_mask=valid)
             o = o.transpose(1, 2).reshape(B, 1, cfg.n_heads * cfg.hd)
             x = x + o @ p["attn.wo"].to(o.dtype)
-            x = self._mlp(p, x)
+            x = self._mlp(p, x, 1)
         x = rmsnorm(x, top["final_norm.w"], cfg.norm_eps)
         logits = x @ self._head(top).to(x.dtype)
         return logits, {"k": new_k, "v": new_v,

@@ -25,6 +25,15 @@ llama3.2-1b`` at full size (20 steps of batch 4 x seq 128) and of its
 tokens/s (the first step, which warms, left out), the first step's time,
 and peak device memory of every run.
 
+MoE and sliding-window decoders, patch frontend (slice 8, ``--moe-only``).
+``REPEATS`` runs of each of ``serve.ARCH_RUNS`` (mixtral-8x22b and
+moonshot-v1-16b-a3b at their published widths cut in depth, internvl2-2b
+whole), each once under the profiler as below; then, for the MoE decoders,
+one prefill and one decode step alone under the profiler: the device time of
+the kernels launched in each of ``moe_ffn``'s stage spans (router, sort,
+dispatch, experts, combine), summed over the layers, and the host ms of a
+decode step with those spans opened and without (``span_cost``).
+
 Last it runs each mixed-mode policy, ``serve --arch``, each zoo path and
 both training runs once under ``torch.profiler`` and prints one JSON line
 each with the card's busy time (the union of all kernel intervals inside the
@@ -34,7 +43,8 @@ It prints the card's name and power limit first.
 
 Run on a card:  PYTHONPATH=src python -m repro_torch.trace_main_path
 ``--serve-only`` leaves out the mixed-mode DAG and training: the serving
-paths alone; ``--train-only`` runs the training paths alone.
+paths alone; ``--train-only`` runs the training paths alone;
+``--moe-only`` the slice-8 serving runs alone.
 """
 from __future__ import annotations
 
@@ -48,11 +58,12 @@ import tempfile
 import time
 
 import torch
-from torch.profiler import ProfilerActivity, profile
+from torch.profiler import ProfilerActivity, profile, record_function
 
 from . import mixed_mode
 from .core import random_dag
 from .launch import serve, train, zoo
+from .models import get_model, layers, make_decode_step, make_prefill_step
 
 N_TASKS = 3000  # the main path's size (mixed_mode.run's default)
 REPEATS = 5     # runs of each policy without and with a ChunkLog
@@ -131,18 +142,25 @@ def serve_chunk_costs(tenants: dict, reps: int = 20) -> None:
                   flush=True)
 
 
-def arch_spread() -> dict:
-    """``REPEATS`` runs of ``serve --arch llama3.2-1b --orchestrate``."""
+def arch_spread(path: str = "serve:model", **run) -> dict:
+    """``REPEATS`` runs of ``serve.run_arch(**run)``, by default ``serve
+    --arch llama3.2-1b --orchestrate``."""
+    run = run or dict(arch=ARCH, orchestrate=True)
     runs = []
     for _ in range(REPEATS):
-        out = serve.run_arch(ARCH, orchestrate=True)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        out = serve.run_arch(**run)
         st = out["stats"]
         runs.append({"prefill_s": out["prefill_s"],
                      "decode_s": out["decode_s"],
                      "orchestrated_tokens_per_s": st.tokens_per_s,
-                     "orchestrated_p99_sojourn_s": st.p99_latency})
+                     "orchestrated_p99_sojourn_s": st.p99_latency,
+                     "peak_memory_gib": torch.cuda.max_memory_allocated()
+                     / 2 ** 30})
+        del out
     rate = [r["orchestrated_tokens_per_s"] for r in runs]
-    return {"path": "serve:model", "runs": runs,
+    return {"path": path, "runs": runs,
             "decode_s_median": statistics.median(r["decode_s"] for r in runs),
             "tokens_per_s_median": statistics.median(rate),
             "tokens_per_s_min": min(rate), "tokens_per_s_max": max(rate)}
@@ -202,17 +220,98 @@ def train_spread(label: str) -> dict:
             "tokens_per_s_min": min(rate), "tokens_per_s_max": max(rate)}
 
 
-def traced(label: str, span: str, run) -> dict:
-    """``run()`` once under ``torch.profiler``: the card's busy time and idle
-    share inside the profiler span named ``span``."""
+def trace_events(run) -> list:
+    """``run()`` once under ``torch.profiler``: its chrome-trace events."""
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "trace.json")
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             run()
+            torch.cuda.synchronize()
         prof.export_chrome_trace(path)
         with open(path) as f:
-            events = json.load(f)["traceEvents"]
+            return json.load(f)["traceEvents"]
+
+
+def span_device_ms(events: list, prefix: str) -> dict:
+    """Device ms of the kernels launched inside each host span whose name
+    starts with ``prefix``, by span name: a kernel belongs to the span in
+    which its launch call (same thread, same correlation id) fell."""
+    spans = [e for e in events if e.get("cat") == "user_annotation"
+             and e.get("name", "").startswith(prefix)]
+    launch = {e["args"]["correlation"]: e for e in events
+              if e.get("cat") in ("cuda_runtime", "cuda_driver")
+              and "correlation" in e.get("args", {})}
+    out = collections.defaultdict(float)
+    for k in (e for e in events if e.get("cat") == "kernel"):
+        call = launch.get(k.get("args", {}).get("correlation"))
+        if call is None:
+            continue
+        for sp in spans:
+            if sp["tid"] == call["tid"] and \
+                    sp["ts"] <= call["ts"] <= sp["ts"] + sp["dur"]:
+                out[sp["name"]] += k["dur"] / 1e3
+                break
+    return dict(sorted(out.items()))
+
+
+def moe_ops(path: str) -> dict:
+    """One prefill and one decode step of ``serve.ARCH_RUNS[path]``'s MoE
+    decoder, warm, each alone under the profiler: the card's busy ms and
+    the device ms of each ``moe_ffn`` stage, over all layers."""
+    run = serve.arch_run(path)
+    cfg = run["config"]
+    model = get_model(cfg)
+    weights = model.bf16_copy(model.init(
+        torch.Generator("cuda").manual_seed(0)))
+    toks = torch.randint(0, cfg.vocab_size, (run["batch"], run["prompt_len"]),
+                         device="cuda",
+                         generator=torch.Generator("cuda").manual_seed(1))
+    prefill, decode = make_prefill_step(model), make_decode_step(model)
+    logits, cache = prefill(weights, {"tokens": toks})
+    nxt = logits.argmax(-1)
+    decode(weights, nxt, cache)
+    torch.cuda.synchronize()
+    row = {"path": path, "arch": cfg.name, "layers": cfg.n_layers}
+    for name, fn in (("prefill", lambda: prefill(weights, {"tokens": toks})),
+                     ("decode_step", lambda: decode(weights, nxt, cache))):
+        events = trace_events(fn)
+        kernels = [e for e in events if e.get("cat") == "kernel"]
+        row[name] = {
+            "device_busy_ms": _union_us((e["ts"], e["ts"] + e["dur"])
+                                        for e in kernels) / 1e3,
+            "kernels": len(kernels),
+            "moe_device_ms": span_device_ms(events, "moe.")}
+    row["decode_step_host_ms"] = span_cost(lambda: decode(weights, nxt,
+                                                          cache))
+    del weights, cache
+    torch.cuda.empty_cache()
+    return row
+
+
+def span_cost(step, reps: int = 50) -> dict:
+    """Median wall ms of ``step()`` (a decode step, synced) with
+    ``moe_ffn``'s stage spans opened, as under a profiler, and as served,
+    without: turns off, on, on, off of ``reps`` steps each."""
+    walls = {"spans_off": [], "spans_on": []}
+    gated = layers._span
+    try:
+        for mode in ("spans_off", "spans_on", "spans_on", "spans_off"):
+            layers._span = gated if mode == "spans_off" else record_function
+            for _ in range(reps):
+                t0 = time.perf_counter()
+                step()
+                torch.cuda.synchronize()
+                walls[mode].append((time.perf_counter() - t0) * 1e3)
+    finally:
+        layers._span = gated
+    return {mode: statistics.median(w) for mode, w in walls.items()}
+
+
+def traced(label: str, span: str, run) -> dict:
+    """``run()`` once under ``torch.profiler``: the card's busy time and idle
+    share inside the profiler span named ``span``."""
+    events = trace_events(run)
     window = [e for e in events if e.get("cat") == "user_annotation"
               and e.get("name") == span]
     kernels = [e for e in events if e.get("cat") == "kernel"]
@@ -247,6 +346,9 @@ def main(argv=None) -> None:
                       help="the serving paths alone")
     legs.add_argument("--train-only", action="store_true",
                       help="the training paths alone")
+    legs.add_argument("--moe-only", action="store_true",
+                      help="the MoE, sliding-window and patch decoders' "
+                           "serving runs alone")
     args = ap.parse_args(argv)
     mixed_mode.resolve_device("cuda")
     print(json.dumps({"card": subprocess.run(
@@ -255,6 +357,9 @@ def main(argv=None) -> None:
         check=True).stdout.splitlines()[0]}), flush=True)
     if args.train_only:
         trace_training()
+        return
+    if args.moe_only:
+        trace_moe()
         return
     policies = () if args.serve_only else mixed_mode.POLICIES
     if policies:
@@ -281,6 +386,19 @@ def main(argv=None) -> None:
     if not args.serve_only:
         del tenants
         trace_training()
+
+
+def trace_moe() -> None:
+    """Each of ``serve.ARCH_RUNS``: its spread, one traced run, and for the
+    MoE decoders the stage times of a prefill and a decode step."""
+    for path in serve.ARCH_RUNS:
+        run = serve.arch_run(path)
+        print(json.dumps(arch_spread(path, **run)), flush=True)
+        print(json.dumps(traced(path, serve.ARCH_SPAN,
+                                lambda: serve.run_arch(**run))), flush=True)
+        torch.cuda.empty_cache()
+        if run["config"].is_moe:
+            print(json.dumps(moe_ops(path)), flush=True)
 
 
 def trace_training() -> None:

@@ -28,8 +28,9 @@ import torch
 
 from repro_torch import mixed_mode
 from repro_torch.configs import get_smoke_config
-from repro_torch.models import get_model
+from repro_torch.models import get_model, transformer
 from repro_torch.models.convert import numpy_params, params_from_numpy
+from repro_torch.models.layers import moe_ffn
 from repro_torch.core.serve_orchestrator import bursty_serving_trace
 from repro_torch.launch import serve, zoo
 from repro_torch.workers import ChunkLog
@@ -349,7 +350,11 @@ def test_multi_impl_on_the_card_raises(card):
 @pytest.mark.parametrize("rows,d", [(256, 128), (512, 512), (256, 64),
                                     (1, 2048), (4, 2048), (1024, 2048),
                                     (3, 8192), (5, 40), (2, 1000),
-                                    (512, 2048)])  # a training step's
+                                    (512, 2048),   # a training step's
+                                    # mixtral's prefill, decode step and
+                                    # teacher forcing; moonshot's prefill
+                                    (4352, 6144), (1, 6144), (4360, 6144),
+                                    (2048, 2048)])
 def test_rmsnorm_kernel_matches_plain(card, rows, d, x_dtype, w_dtype, tol):
     x = _t((rows, d), x_dtype, 20, card)
     w = _t((d,), w_dtype, 21, card)
@@ -554,6 +559,114 @@ def test_decoder_loss_grads_on_the_card_match_the_cpu(card):
         assert bool(got.abs().max() > 0), name
         rel = float((got - want).norm() / want.norm())
         assert rel <= 3e-2, (name, rel)
+
+
+# --------------------------------------- MoE, window and patch decoders --
+def test_moe_ffn_on_the_card_syncs_no_host_and_repeats_its_bits(card):
+    """moonshot-smoke's moe_ffn (8 experts top-2) at its capacity and at 2,
+    where most assignments drop: no call of it waits for the card (sync
+    debug mode raises on one), two calls give the same bits, and it agrees
+    with the CPU on identical inputs at bf16's rtol = atol = 3e-2."""
+    cfg = get_smoke_config("moonshot-v1-16b-a3b")
+    m, e, f = cfg.d_model, cfg.n_experts, cfg.d_ff
+    x = _t((3, 33, m), torch.bfloat16, 31, card)
+    ws = [_t(shape, torch.float32, 32 + i, card) * scale for i, (shape, scale)
+          in enumerate((((m, e), 0.2), ((e, m, f), 0.1), ((e, m, f), 0.1),
+                        ((e, f, m), 0.1)))]
+    for capacity in (cfg.moe_capacity(33), 2):
+        kw = dict(n_experts=e, top_k=cfg.experts_per_token,
+                  capacity=capacity)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            y = moe_ffn(x, *ws, **kw)
+            again = moe_ffn(x, *ws, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        assert torch.equal(y, again)
+        want = moe_ffn(x.cpu(), *(w.cpu() for w in ws), **kw)
+        torch.testing.assert_close(y.float().cpu(), want.float(), rtol=3e-2,
+                                   atol=3e-2)
+
+
+@pytest.mark.parametrize("arch", ["mixtral-8x22b", "moonshot-v1-16b-a3b",
+                                  "internvl2-2b"])
+def test_moe_window_and_patch_decoders_on_the_card_match_the_cpu(
+        card, monkeypatch, arch):
+    """The smoke mixtral (window 32), moonshot and internvl2 (patch
+    frontend) at head_dim 32 (a size the flash kernel takes), one set of
+    numpy weights on the card and the CPU, in fp32 activations: there the
+    router picks the same experts on both (in bf16 a near-tie of its logits
+    may go either way).  forward over 41 tokens, prefill of 40 and 4 decode
+    steps (mixtral: past its window, through the shifted and the ring
+    cache) agree at rtol = atol = 1e-3 (fp32 sums in another order), each
+    call launching its kernels exactly."""
+    monkeypatch.setattr(transformer, "ACT_DTYPE", torch.float32)
+    base = dataclasses.replace(get_smoke_config(arch), head_dim=32)
+    variants = [base] + ([dataclasses.replace(base, swa_ring_buffer=True)]
+                         if base.window else [])
+    arrays = numpy_params(get_model(base), seed=4)
+    rng = np.random.default_rng(5)
+    toks = torch.from_numpy(rng.integers(0, base.vocab_size, (2, 44)))
+    extra = {}
+    if base.frontend == "patch":
+        extra["patch_embeds"] = torch.from_numpy(rng.standard_normal(
+            (2, base.n_patches, base.d_model), dtype=np.float32))
+    norms, layers = 2 * base.n_layers + 1, base.n_layers
+
+    def on(dev):
+        return {k: v.to(dev) for k, v in extra.items()}
+
+    def counted(fn, flash):
+        before = launch_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        after = launch_counts()
+        assert {k: after[k] - before[k] for k in after} == {
+            "matmul": 0, "copy": 0, "triad": 0, "sort_rows": 0,
+            "rmsnorm": norms, "flash_attention": flash}
+        return out
+
+    def close(got, want):
+        torch.testing.assert_close(got.float().cpu(), want.float(),
+                                   rtol=1e-3, atol=1e-3)
+
+    cpu = params_from_numpy(arrays, "cpu")
+    gpu = params_from_numpy(arrays, card)
+    close(counted(lambda: get_model(base).forward(
+        gpu, {"tokens": toks[:, :41].to(card), **on(card)}), layers),
+        get_model(base).forward(cpu, {"tokens": toks[:, :41], **extra}))
+    for cfg in variants:
+        model = get_model(cfg)
+        pre_g, cache_g = counted(lambda: model.prefill(
+            gpu, {"tokens": toks[:, :40].to(card), **on(card)}), layers)
+        pre_c, cache_c = model.prefill(cpu, {"tokens": toks[:, :40],
+                                             **extra})
+        close(pre_g, pre_c)
+        for i in range(40, 44):
+            dec_g, cache_g = counted(lambda: model.decode_step(
+                gpu, toks[:, i:i + 1].to(card), cache_g), 0)
+            dec_c, cache_c = model.decode_step(cpu, toks[:, i:i + 1],
+                                               cache_c)
+            close(dec_g, dec_c)
+            close(cache_g["k"], cache_c["k"])
+        assert cache_g["k"].shape[3] == (32 if cfg.window else 40 + 64)
+
+
+def test_flash_kernel_at_mixtrals_windowed_prefill(card):
+    """mixtral-8x22b's prefill attention: q (1, 48, 4352, 128) over kv (1,
+    8, 4352, 128), bf16, causal within its 4096-key window, as the decoder
+    calls it (bq = bk = S), against the plain version at the bf16
+    tolerance of the header."""
+    q = _t((1, 48, 4352, 128), torch.bfloat16, 41, card)
+    k = _t((1, 8, 4352, 128), torch.bfloat16, 42, card)
+    v = _t((1, 8, 4352, 128), torch.bfloat16, 43, card)
+    before = launch_counts()["flash_attention"]
+    got = ops.flash_attention(q, k, v, window=4096, bq=4352, bk=4352)
+    assert launch_counts()["flash_attention"] == before + 1
+    want = flash_attention.plain(q, k, v, window=4096)
+    torch.testing.assert_close(got.float(), want.float(), rtol=1e-2,
+                               atol=2e-3)
 
 
 def test_transformer_tenant_on_the_card_launches_every_chunk(card):

@@ -1,6 +1,7 @@
-"""The port's decoder against the JAX package's, on the smoke llama3.2-1b
-(2 layers, d_model 64, vocab 503 padded to 512) and its other dense smoke
-configs.
+"""The port's decoder against the JAX package's, on the CPU: the smoke
+llama3.2-1b (2 layers, d_model 64, vocab 503 padded to 512) and the other
+smoke decoders: chatglm3, minicpm, mixtral (4 experts top-2, window 32),
+moonshot (8 experts top-2) and internvl2 (the patch frontend, 8 patches).
 
 JAX initialises the weights (``init(PRNGKey(0))``), which go to numpy and
 through ``convert.params_from_numpy`` into the port, so both run the same
@@ -11,6 +12,7 @@ another order); the KV cache, bf16 values under 1, at one bf16 ulp scale
 (rtol 2^-7, atol 2^-8).
 """
 import dataclasses
+import weakref
 
 import jax
 import jax.numpy as jnp
@@ -54,16 +56,38 @@ def _tokens(cfg, b: int, s: int, seed: int = 3):
     return jnp.asarray(t, jnp.int32), torch.from_numpy(t)
 
 
+def _patches(cfg, b: int, seed: int = 6):
+    """The patch frontend's ``patch_embeds`` (B, n_patches, M), fp32 draws
+    that both packages cast to bf16, as each package's batch entry; none
+    for another frontend."""
+    if cfg.frontend != "patch":
+        return {}, {}
+    pe = np.random.default_rng(seed).standard_normal(
+        (b, cfg.n_patches, cfg.d_model)).astype(np.float32)
+    return {"patch_embeds": jnp.asarray(pe)}, \
+        {"patch_embeds": torch.from_numpy(pe)}
+
+
 # (arch, config changes, sequence length): the llama smoke at S = 17 takes
 # JAX's dense branch; at dense_attn_max_seq = attn_chunk = 64 and S = 128 its
 # q-chunked branch; chatglm3 adds qkv bias and half-dim RoPE, minicpm tied
-# embeddings and head_dim 12
+# embeddings and head_dim 12.  mixtral (window 32) prefills 16 tokens into a
+# positional cache and 40 into a rolling one, shifted or a ring buffer;
+# moonshot routes 8 experts; internvl2 takes patch_embeds in place of its
+# first 8 positions and masks them out of the loss; logits_chunk = 4 takes
+# the loss over 4 chunks of the sequence
 CASES = {
     "llama-dense": ("llama3.2-1b", {}, 17),
     "llama-chunked": ("llama3.2-1b", dict(dense_attn_max_seq=64,
                                           attn_chunk=64), 128),
     "chatglm3": ("chatglm3-6b", {}, 17),
     "minicpm": ("minicpm-2b", {}, 17),
+    "mixtral-positional": ("mixtral-8x22b", {}, 17),
+    "mixtral-rolling": ("mixtral-8x22b", {}, 41),
+    "mixtral-ring": ("mixtral-8x22b", dict(swa_ring_buffer=True), 41),
+    "moonshot": ("moonshot-v1-16b-a3b", {}, 17),
+    "internvl2-patch": ("internvl2-2b", {}, 17),
+    "llama-logits-chunk": ("llama3.2-1b", dict(logits_chunk=4), 16),
 }
 
 
@@ -72,16 +96,18 @@ def test_forward_loss_prefill_and_decode_match_jax(case):
     arch, replace, s = CASES[case]
     jm, jp, tm, tp = _both(arch, **replace)
     tj, tt = _tokens(tm.cfg, 2, s)
+    jx, tx = _patches(tm.cfg, 2)
     # forward and loss over the whole sequence
-    np.testing.assert_allclose(_np(tm.forward(tp, {"tokens": tt})),
-                               _np(jm.forward(jp, {"tokens": tj})), **LOGITS)
-    jl, jmet = jm.loss(jp, {"tokens": tj, "targets": tj})
-    tl, tmet = tm.loss(tp, {"tokens": tt, "targets": tt})
+    np.testing.assert_allclose(_np(tm.forward(tp, {"tokens": tt, **tx})),
+                               _np(jm.forward(jp, {"tokens": tj, **jx})),
+                               **LOGITS)
+    jl, jmet = jm.loss(jp, {"tokens": tj, "targets": tj, **jx})
+    tl, tmet = tm.loss(tp, {"tokens": tt, "targets": tt, **tx})
     np.testing.assert_allclose(float(tl), float(jl), **LOGITS)
     assert set(tmet) == set(jmet)
     # prefill of all but the last token: last logits and the cache
-    jpre, jc = jm.prefill(jp, {"tokens": tj[:, :-1]})
-    tpre, tc = tm.prefill(tp, {"tokens": tt[:, :-1]})
+    jpre, jc = jm.prefill(jp, {"tokens": tj[:, :-1], **jx})
+    tpre, tc = tm.prefill(tp, {"tokens": tt[:, :-1], **tx})
     assert tpre.shape == jpre.shape and tc["k"].shape == jc["k"].shape
     np.testing.assert_allclose(_np(tpre), _np(jpre), **LOGITS)
     for name in ("k", "v"):
@@ -167,15 +193,41 @@ def test_init_is_deterministic_per_generator_seed():
     assert abs(float(a["layers.mlp.w1"].std()) - 0.02) < 2e-3
 
 
+# every config the port builds (hubert, mamba2 and hymba wait: Queue 1)
+PORTED = ("llama3.2-1b", "llama3-8b", "chatglm3-6b", "minicpm-2b",
+          "mixtral-8x22b", "moonshot-v1-16b-a3b", "internvl2-2b")
+
+
 def test_param_counts_match_jax():
     from repro.configs import get_config as jax_get_config
-    for arch in ("llama3.2-1b", "llama3-8b", "chatglm3-6b", "minicpm-2b"):
+    for arch in PORTED:
         mine = get_model(get_config(arch))
         theirs = jax_get_model(jax_get_config(arch))
         assert mine.param_count() == theirs.param_count()
+        assert mine.active_param_count() == theirs.active_param_count()
         assert {k: d.shape for k, d in mine.param_defs().items()} == {
             k: d.shape for k, d in theirs.param_defs().items()}
     assert get_model(get_config("llama3.2-1b")).param_count() == 1498482688
+    mixtral = get_model(get_config("mixtral-8x22b"))
+    assert mixtral.active_param_count() < mixtral.param_count() / 3
+
+
+def test_moe_capacity_matches_jax_for_every_config():
+    from repro.configs import get_config as jax_get_config
+    for arch in ARCH_IDS:
+        for mine, theirs in ((get_config(arch), jax_get_config(arch)),
+                             (get_smoke_config(arch),
+                              jax_smoke_config(arch))):
+            if not mine.is_moe:
+                continue
+            for tokens in (1, 7, 17, 64, 512, 4352):
+                assert mine.moe_capacity(tokens) == \
+                    theirs.moe_capacity(tokens)
+    # the slice's serving shapes: 1360 slots a row at mixtral's prompt of
+    # 4352, 64 at moonshot's 512, 8 at a decode step
+    assert get_config("mixtral-8x22b").moe_capacity(4352) == 1360
+    assert get_config("moonshot-v1-16b-a3b").moe_capacity(512) == 64
+    assert get_config("moonshot-v1-16b-a3b").moe_capacity(1) == 8
 
 
 def test_configs_are_the_jax_packages():
@@ -190,20 +242,82 @@ def test_configs_are_the_jax_packages():
 
 
 @pytest.mark.parametrize("arch,what", [
-    ("mixtral-8x22b", "MoE"), ("moonshot-v1-16b-a3b", "MoE"),
-    ("internvl2-2b", "frontend"), ("hubert-xlarge", "frontend"),
+    ("hubert-xlarge", "frontend"),
     ("mamba2-780m", "ssm family"), ("hymba-1.5b", "hybrid family")])
 def test_unported_configs_raise(arch, what):
     with pytest.raises(NotImplementedError, match=f"{what}.*Queue 1"):
         get_model(get_smoke_config(arch))
 
 
-def test_window_and_chunked_loss_raise():
-    cfg = get_smoke_config("llama3.2-1b")
-    for change, what in ((dict(window=8), "sliding window"),
-                         (dict(logits_chunk=4), "logits_chunk")):
-        with pytest.raises(NotImplementedError, match=what):
-            get_model(dataclasses.replace(cfg, **change))
+def test_bidirectional_attention_raises_naming_what_it_waits_for():
+    cfg = dataclasses.replace(get_smoke_config("llama3.2-1b"), causal=False)
+    with pytest.raises(NotImplementedError,
+                       match="bidirectional.*Queue 1.*head dim 80"):
+        get_model(cfg)
+
+
+def _no_drops(arch: str) -> dict:
+    """capacity_factor = n_experts / top_k: a group of S tokens then has S
+    slots an expert, so no assignment drops.  forward over S + n tokens
+    routes at moe_capacity(S + n) and prefill at moe_capacity(S): where
+    assignments drop, the two are other functions, in the reference as much
+    as in the port."""
+    cfg = get_smoke_config(arch)
+    return dict(capacity_factor=cfg.n_experts / cfg.experts_per_token)
+
+
+@pytest.mark.parametrize("ring", [False, True])
+def test_decode_past_the_window_matches_jax_at_every_step(ring):
+    """mixtral-smoke (window 32): prefill of 40 tokens into the rolling
+    cache, then 8 decode steps, shift-concat or ring buffer
+    (test_perf_knobs.py:53): each step's cache equals JAX's to one bf16
+    ulp, its logits JAX's and the windowed forward's at 3e-2."""
+    jm, jp, tm, tp = _both("mixtral-8x22b", swa_ring_buffer=ring,
+                           **_no_drops("mixtral-8x22b"))
+    tj, tt = _tokens(tm.cfg, 1, 48, seed=5)
+    full = tm.forward(tp, {"tokens": tt})
+    _, jc = jm.prefill(jp, {"tokens": tj[:, :40]})
+    _, tc = tm.prefill(tp, {"tokens": tt[:, :40]})
+    for i in range(40, 48):
+        jd, jc = jm.decode_step(jp, tj[:, i:i + 1], jc)
+        td, tc = tm.decode_step(tp, tt[:, i:i + 1], tc)
+        assert tc["k"].shape == jc["k"].shape == (2, 1, 2, 32, 16)
+        for name in ("k", "v"):
+            np.testing.assert_allclose(_np(tc[name]), _np(jc[name]), **CACHE)
+        assert int(tc["pos"]) == int(jc["pos"]) == i + 1
+        np.testing.assert_allclose(_np(td), _np(jd), **LOGITS)
+        np.testing.assert_allclose(_np(td[:, 0]), _np(full[:, i]), **LOGITS)
+
+
+def test_fault_5_a_short_prompt_decodes_past_the_window_unwindowed():
+    """ROADMAP.md Queue 3, fault 5: mixtral-smoke (window 32) prefills a
+    prompt of 28 tokens into a positional cache of 92 slots, and decode at
+    positions 28-43 attends to every cached position, in both packages:
+    each step equals the unwindowed forward (window=None) and, from
+    position 32 on, departs from the windowed one."""
+    jm, jp, tm, tp = _both("mixtral-8x22b", **_no_drops("mixtral-8x22b"))
+    toks = jax.random.randint(jax.random.PRNGKey(5), (1, 44), 0,
+                              tm.cfg.vocab_size)
+    runs = {"jax": (jm, jp, toks, jax_get_model(dataclasses.replace(
+                jm.cfg, window=None))),
+            "port": (tm, tp, torch.from_numpy(np.array(toks)), get_model(
+                dataclasses.replace(tm.cfg, window=None)))}
+    for name, (model, params, tokens, unwindowed) in runs.items():
+        windowed = _np(model.forward(params, {"tokens": tokens}))
+        full = _np(unwindowed.forward(params, {"tokens": tokens}))
+        _, cache = model.prefill(params, {"tokens": tokens[:, :28]})
+        assert cache["k"].shape[3] == 28 + 64
+        dec = []
+        for i in range(28, 44):
+            lg, cache = model.decode_step(params, tokens[:, i:i + 1], cache)
+            dec.append(_np(lg[:, 0]))
+        dec = np.stack(dec, axis=1)
+        np.testing.assert_allclose(dec, full[:, 28:44], **LOGITS,
+                                   err_msg=name)
+        np.testing.assert_allclose(dec[:, :4], windowed[:, 28:32], **LOGITS,
+                                   err_msg=name)
+        past = np.abs(dec[:, 4:] - windowed[:, 32:44]).max(axis=(0, 2))
+        assert past.min() > 0.02 and past.max() > 0.06, (name, past)
 
 
 def test_rope_pairs_interleaved_lanes():
@@ -238,6 +352,44 @@ def test_serve_arch_runs_on_the_cpu(capsys, orchestrate):
     assert "arch=llama3.2-1b-smoke batch=2 prompt=16 gen=4" in out
     assert "prefill:" in out and "decode:" in out
     assert ("orchestrated: 16 TAOs" in out) == orchestrate
+
+
+def test_serve_arch_runs_the_moe_decoder_on_the_cpu(capsys):
+    out = serve.run_arch("mixtral-8x22b", smoke=True, batch=2, prompt_len=40,
+                         gen=3, orchestrate=True, device="cpu")
+    assert "arch=mixtral-smoke batch=2 prompt=40 gen=3" in \
+        capsys.readouterr().out
+    # the prompt reaches the window: a rolling cache of 32 slots
+    assert out["cache"]["k"].shape[3] == 32
+    assert int(out["cache"]["pos"]) == 43
+    assert out["stats"].result.completed == 8 * 2
+    assert torch.isfinite(out["logits"].float()).all()
+
+
+def test_orchestrated_serving_keeps_no_weights_once_it_returns():
+    """The stats of an orchestrated run keep its DAGs and their payloads;
+    the payloads let go of the model once the run is over, so the weights
+    live no longer than the caller's own reference to them."""
+    out = serve.run_arch("llama3.2-1b", smoke=True, batch=1, prompt_len=8,
+                         gen=2, orchestrate=True, device="cpu")
+    weights = weakref.ref(out["weights"]["embed.w"])
+    cache = weakref.ref(out["cache"]["k"])
+    stats = out["stats"]
+    del out
+    assert weights() is None and cache() is None
+    assert stats.result.completed == 8
+
+
+def test_serve_arch_takes_a_config_in_place_of_the_archs():
+    cfg = dataclasses.replace(get_smoke_config("moonshot-v1-16b-a3b"),
+                              n_layers=1)
+    out = serve.run_arch("moonshot-v1-16b-a3b", config=cfg, batch=2,
+                         prompt_len=8, gen=2, device="cpu")
+    assert out["model"].cfg is cfg
+    assert out["weights"]["layers.moe.experts.w1"].shape[0] == 1
+    assert out["weights"]["layers.moe.experts.w1"].dtype == torch.bfloat16
+    assert out["weights"]["layers.moe.router"].dtype == torch.float32
+    assert out["out_tokens"].shape == (2, 2)
 
 
 def test_serve_arch_generates_what_the_model_does():
