@@ -22,6 +22,17 @@ that run it, and drives every ported path at full size:
   widths cut to 4 of 48 layers, and internvl2-2b whole; teacher forcing on
   the card (past mixtral's window through its shifted and ring caches) and
   ``moe_ffn`` on the card against the CPU at both published widths;
+* the state-space, hybrid and encoder families (slice 9, the ``families``
+  phase): ``run_arch`` with ``--orchestrate`` on mamba2-780m and
+  hymba-1.5b whole (a 1000-token prompt across mamba2's chunk edges into
+  a padded chunk; a 1100-token prompt past hymba's 1024-token window, so
+  its windowed layers roll and its global ones stay positional), with
+  teacher forcing on the card; hubert-xlarge whole through
+  ``make_encode_step`` (4 clips of 500 frames, the flash kernel at head
+  dim 80, not causal) and 3 train steps on that batch; the zoo's ``ssm``
+  and ``hybrid`` tenants at their full models, checked and then serving a
+  trace together; and each family at full width and 2 layers on the card
+  against the CPU, forward and loss grads;
 * ``python -m repro_torch.launch.train --arch llama3.2-1b`` (slice 7): the
   launcher's default run (20 steps of batch 4 x seq 128 from
   ``SyntheticLM(seed=0)``, AdamW under the cosine schedule, clipping) at
@@ -49,8 +60,8 @@ bound raises.  Every phase prints one JSON line.  Any failed check raises,
 and the script exits with a code other than 0; it does the same without a
 CUDA device.  The line before the last lists every kernel with its launches
 in each path's run (``launches`` is the smallest over the paths that run
-it), its error and its times at each path's shapes; the last line names the
-card.
+it), its error and its times at each path's shapes; the line before it
+gives the script's wall time; the last line names the card.
 """
 from __future__ import annotations
 
@@ -77,16 +88,18 @@ from repro_torch.core.serve_orchestrator import DECODE_UNIT  # noqa: E402
 from repro_torch.checkpointing import (CheckpointManager,  # noqa: E402
                                       Template)
 from repro_torch.data import SyntheticLM  # noqa: E402
-from repro_torch.kernel_bench import (L2_BYTES, NORM_ROWS,  # noqa: E402
+from repro_torch.kernel_bench import (FAMILY_NORMS,  # noqa: E402
+                                      HUBERT_ATTENTION, L2_BYTES, NORM_ROWS,
                                       TRAIN_ATTENTION, attention_pairs,
                                       bound, device_ms, sdpa, sort_ops)
-from repro_torch.kernels import (_build, copy_stream, ops, ref,  # noqa: E402
-                                 rmsnorm)
+from repro_torch.kernels import (_build, copy_stream,  # noqa: E402
+                                 flash_attention, ops, ref, rmsnorm)
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.launch import serve, train, zoo  # noqa: E402
-from repro_torch.models import (get_model, loss_and_grads,  # noqa: E402
-                                make_decode_step, make_prefill_step,
-                                make_train_step, transformer)
+from repro_torch.models import (get_model, hybrid,  # noqa: E402
+                                loss_and_grads, make_decode_step,
+                                make_prefill_step, make_train_step, mamba2,
+                                transformer)
 from repro_torch.models.layers import moe_ffn  # noqa: E402
 from repro_torch.models.losses import lm_cross_entropy  # noqa: E402
 from repro_torch.models.convert import (numpy_params,  # noqa: E402
@@ -122,8 +135,31 @@ TRAIN_PATHS = (TRAIN_PATH, ORCH_TRAIN_PATH)
 # the moe phase's serving runs (serve.ARCH_RUNS): mixtral-8x22b cut to 2
 # layers, a 4352-token prompt through its rolling window cache (4352 % 4096
 # = 256 for the ring's shift), moonshot cut to 4, internvl2 whole
-MOE_RUNS = serve.ARCH_RUNS
+MOE_RUNS = {p: serve.ARCH_RUNS[p] for p in ("serve:mixtral", "serve:moonshot",
+                                            "serve:internvl2")}
 MOE_PATHS = tuple(MOE_RUNS)
+# the families phase (slice 9): mamba2-780m and hymba-1.5b whole through
+# run_arch (serve.ARCH_RUNS), hubert-xlarge whole through its encode step
+# (serve.ENCODE_RUNS), and the zoo's ssm and hybrid tenants at SERVE_SHAPES
+FAMILY_RUNS = {p: serve.ARCH_RUNS[p] for p in ("serve:mamba2",
+                                               "serve:hymba")}
+ENCODE_PATH = "encode:hubert"
+FAMILY_ZOO_PATH = "serve:ssm_hybrid"
+FAMILY_PATHS = tuple(FAMILY_RUNS) + (ENCODE_PATH, FAMILY_ZOO_PATH)
+# teacher forcing of the families' runs: decode steps after the prompt
+# (mamba2's cross the forward's chunk edge at 1024)
+TF_FAMILY = {"serve:mamba2": 32, "serve:hymba": 8}
+# the families at full width and 2 layers, card against CPU: (batch, length)
+# of the fp32 forward (mamba2's crosses a chunk edge into a padded chunk,
+# hymba's passes its window, hubert's is the encode's clip); the bf16
+# forward and the loss grads take (2, 64), as phase_grads does
+PARITY_TOKENS = {"mamba2-780m": (1, 300), "hymba-1.5b": (1, 1100),
+                 "hubert-xlarge": (1, 500)}
+ENCODE_TRAIN_STEPS = 3
+# the ssm and hybrid tenants' trace: 12 requests of 512-2048 prompt tokens
+FAMILY_TRACE = dict(n_steady=6, n_burst=6, burst_at=0.2,
+                    steady_prompts=(512, 1024), steady_gens=(64,),
+                    burst_prompts=(1024, 2048), burst_gens=(64,), seed=3)
 # teacher forcing of the MoE runs: decode steps after the prompt
 TF_DECODE = {"serve:mixtral": 8, "serve:moonshot": 4}
 # the share of moonshot's 128 tokens that the grads phase may leave out of
@@ -139,9 +175,9 @@ KERNEL_PATHS = {"matmul": MIXED_PATHS + SERVE_PATHS,
                 "triad": (),
                 "sort_rows": MIXED_PATHS,
                 "rmsnorm": (MODEL_PATH,) + SERVE_PATHS + TRAIN_PATHS
-                + MOE_PATHS,
+                + MOE_PATHS + FAMILY_PATHS,
                 "flash_attention": (MODEL_PATH,) + SERVE_PATHS + TRAIN_PATHS
-                + MOE_PATHS}
+                + MOE_PATHS + ("serve:hymba", ENCODE_PATH, FAMILY_ZOO_PATH)}
 # kernel -> the shape (a key of phase_times's result) its top-level numbers
 # in the kernels line are taken at: the path that brought it into the port
 MAIN_SHAPE = {"matmul": "mixed_mode", "copy": "mixed_mode",
@@ -297,6 +333,7 @@ def phase_kernels() -> dict:
             ((torch.float32, 2e-5),) if cfg.is_moe else ())
         norm_cases += [(r, cfg.d_model, r, xd, torch.float32, cfg.norm_eps,
                         tol) for r in sorted(rows) for xd, tol in acts]
+    norm_cases += family_norm_cases()
     for i, (rows, d, block, xd, wd, eps, tol) in enumerate(norm_cases):
         x, w = tensor((rows, d), xd, 70 + i), tensor((d,), wd, 90 + i)
         got = ops.rmsnorm(x, w, eps=eps, block_rows=block).float()
@@ -330,6 +367,43 @@ def phase_kernels() -> dict:
     emit({"phase": "kernels", "checked": list(KERNELS), "cases": cases,
           "max_abs_err": err, "max_abs_err_main_shape": main_err})
     return main_err
+
+
+def norm_widths(cfg) -> tuple:
+    """The widths ``cfg``'s model norms: d_model, and mamba2's gated norm
+    at d_inner (hymba's fused norms are at d_inner_hybrid = n_heads * hd,
+    which is its d_model)."""
+    extra = {"ssm": cfg.d_inner, "hybrid": cfg.d_inner_hybrid}.get(
+        cfg.family, cfg.d_model)
+    return tuple(sorted({cfg.d_model, extra}))
+
+
+def family_norm_cases() -> list:
+    """rmsnorm cases (rows, d, block, x dtype, w dtype, eps, tol) at the
+    families phase's shapes: each run's prefill, decode step and teacher
+    forcing's forward in bf16 and fp32 activations, the tenants' 1024-token
+    chunk and one-token step, the 2-layer parity's fp32 forward and the
+    (2, 64) bf16 forward and grads; hubert's encode and train steps."""
+    out = []
+    for path, (arch, _, b, prompt, _) in FAMILY_RUNS.items():
+        cfg = get_config(arch)
+        p_b, p_s = PARITY_TOKENS[arch]
+        rows = {torch.bfloat16: {b * prompt, b, b * (prompt + TF_FAMILY[path]),
+                                 1024, 1, 2 * MODEL_PROMPT},
+                torch.float32: {b * prompt, b, b * (prompt + TF_FAMILY[path]),
+                                p_b * p_s}}
+        for d in norm_widths(cfg):
+            out += [(r, d, r, xd, torch.float32, cfg.norm_eps,
+                     2e-2 if xd == torch.bfloat16 else 2e-5)
+                    for xd, rs in rows.items() for r in sorted(rs)]
+    cfg = get_config("hubert-xlarge")
+    _, eb, es = serve.ENCODE_RUNS[ENCODE_PATH]
+    p_b, p_s = PARITY_TOKENS["hubert-xlarge"]
+    out += [(r, cfg.d_model, r, torch.bfloat16, torch.float32, cfg.norm_eps,
+             2e-2) for r in (eb * es, 2 * MODEL_PROMPT)]
+    out.append((p_b * p_s, cfg.d_model, p_b * p_s, torch.float32,
+                torch.float32, cfg.norm_eps, 2e-5))
+    return out
 
 
 def check_sort_edges() -> int:
@@ -453,8 +527,9 @@ def check_flash() -> tuple[int, float, float]:
         cases.append(((1, 8, hkv, 256, 256, 32), torch.float32, True, None,
                       64))
     cases.append(((1, 2, 1, 256, 256, 64), torch.bfloat16, True, None, 64))
-    # every head size the kernel takes
-    for d in (32, 64, 128):
+    # every head size the kernel takes, 80 (hubert's) among them: causal,
+    # over GQA heads
+    for d in flash_attention.HEAD_DIMS:
         for dtype in FLASH_TOL:
             cases.append(((1, 4, 2, 320, 320, d), dtype, True, None, 64))
     # S != Sk, with rows (319 on) that see no key: the reference's fault 2
@@ -491,6 +566,7 @@ def check_flash() -> tuple[int, float, float]:
     cfg = get_config("internvl2-2b")
     cases.append(((PATCH_BATCH, cfg.n_heads, cfg.n_kv_heads, PATCH_SEQ,
                    PATCH_SEQ, cfg.hd), torch.bfloat16, True, None, PATCH_SEQ))
+    cases += family_flash_cases()
     worst = main = 0.0
     for i, case in enumerate(cases):
         (b, hq, hkv, sq, sk, d), dtype, causal, window, tile = case
@@ -513,6 +589,40 @@ def check_flash() -> tuple[int, float, float]:
         if case == serving:
             main = diff.max().item()
     return len(cases), main, worst
+
+
+def family_flash_cases() -> list:
+    """flash cases at the families phase's shapes.  hubert-xlarge at head
+    dim 80, not causal: its encode's 4 clips of 500 frames (500 is not a
+    multiple of the 64-row tile), the 2-layer parity's clip (fp32 too) and
+    the grads' (2, 64); and a GQA case (16 q over 4 kv heads).  hymba-1.5b's
+    25 q over 5 kv heads of 64, in its windowed (1024) and global layers:
+    the run's prefill, the teacher forcing's forward (bf16 and fp32), the
+    tenant's 1024-token chunk, the parity's fp32 forward and the grads'."""
+    out = []
+    hb = get_config("hubert-xlarge")
+    _, eb, es = serve.ENCODE_RUNS[ENCODE_PATH]
+    p_b, p_s = PARITY_TOKENS["hubert-xlarge"]
+    for b, sq, dtypes in ((eb, es, (torch.bfloat16, torch.float32)),
+                          (p_b, p_s, (torch.float32,)),
+                          (2, MODEL_PROMPT, (torch.bfloat16,))):
+        out += [((b, hb.n_heads, hb.n_kv_heads, sq, sq, hb.hd), dt, False,
+                 None, sq) for dt in dtypes]
+    out += [((2, 16, 4, 500, 500, 80), dt, causal, None, 500)
+            for dt in FLASH_TOL for causal in (False, True)]
+    hy = get_config("hymba-1.5b")
+    b, prompt = FAMILY_RUNS["serve:hymba"][2:4]
+    tf = prompt + TF_FAMILY["serve:hymba"]
+    p_b, p_s = PARITY_TOKENS["hymba-1.5b"]
+    for bb, sq, dtypes in ((b, prompt, (torch.bfloat16,)),
+                           (b, tf, (torch.bfloat16, torch.float32)),
+                           (1, zoo.SERVE_SHAPES.model_prompt,
+                            (torch.bfloat16,)),
+                           (p_b, p_s, (torch.float32,)),
+                           (2, MODEL_PROMPT, (torch.bfloat16,))):
+        out += [((bb, hy.n_heads, hy.n_kv_heads, sq, sq, hy.hd), dt, True,
+                 win, sq) for dt in dtypes for win in (hy.window, None)]
+    return out
 
 
 def phase_times() -> dict:
@@ -543,11 +653,22 @@ def phase_times() -> dict:
     mb, mseq = MOE_RUNS["serve:mixtral"][2:4]
     qm = tensor((mb, mx.n_heads, mseq, mx.hd), torch.bfloat16, 22)
     kvm = tensor((mb, mx.n_kv_heads, mseq, mx.hd), torch.bfloat16, 23)
-    lib_err = {key: (sdpa(a, b, b, w)().float() - ref.attention(
-        a, b, b, window=w).float()).abs().max().item()
-        for key, (a, b, w) in (("serve", (q, kv, None)),
-                               ("train", (qt, kvt, None)),
-                               ("serve:mixtral", (qm, kvm, mx.window)))}
+    # hubert's encode (encode:hubert): q = k = v (4, 16, 500, 80), not
+    # causal; hymba's prefill (serve:hymba) in its 29 windowed layers: q
+    # (4, 25, 1100, 64) over kv (4, 5, 1100, 64) within 1024 keys
+    eb, ehq, _, es, ed = HUBERT_ATTENTION
+    qh = tensor((eb, ehq, es, ed), torch.bfloat16, 24)
+    hy = get_config("hymba-1.5b")
+    yb, yseq = FAMILY_RUNS["serve:hymba"][2:4]
+    qy = tensor((yb, hy.n_heads, yseq, hy.hd), torch.bfloat16, 25)
+    kvy = tensor((yb, hy.n_kv_heads, yseq, hy.hd), torch.bfloat16, 26)
+    lib_err = {key: (sdpa(a, b, b, w, causal)().float() - ref.attention(
+        a, b, b, causal=causal, window=w).float()).abs().max().item()
+        for key, (a, b, w, causal) in (
+            ("serve", (q, kv, None, True)), ("train", (qt, kvt, None, True)),
+            ("serve:mixtral", (qm, kvm, mx.window, True)),
+            (ENCODE_PATH, (qh, qh, None, False)),
+            ("serve:hymba", (qy, kvy, hy.window, True)))}
 
     def mm(x, y):
         return (lambda: ops.matmul(x, y, bm=min(128, x.shape[0])),
@@ -614,6 +735,25 @@ def phase_times() -> dict:
                 mseq, mseq, True, mx.window),
             qm.dtype, [list(qm.shape), list(kvm.shape)]),
         ("rmsnorm", "serve:mixtral"): norm(mb * mseq, mx.d_model),
+        ("flash_attention", ENCODE_PATH): (
+            lambda: ops.flash_attention(qh, qh, qh, causal=False, bq=es,
+                                        bk=es),
+            lambda: ref.attention(qh, qh, qh, causal=False),
+            sdpa(qh, qh, qh, causal=False),
+            4 * qh.numel() * qh.element_size(),
+            4 * ed * eb * ehq * attention_pairs(es, es, False, None),
+            qh.dtype, [list(qh.shape)] * 3),
+        ("flash_attention", "serve:hymba"): (
+            lambda: ops.flash_attention(qy, kvy, kvy, window=hy.window,
+                                        bq=yseq, bk=yseq),
+            lambda: ref.attention(qy, kvy, kvy, window=hy.window),
+            sdpa(qy, kvy, kvy, hy.window),
+            2 * (qy.numel() + kvy.numel()) * qy.element_size(),
+            4 * hy.hd * yb * hy.n_heads * attention_pairs(
+                yseq, yseq, True, hy.window),
+            qy.dtype, [list(qy.shape), list(kvy.shape)]),
+        **{("rmsnorm", key): norm(rows, width) for key, (rows, width) in
+           FAMILY_NORMS.items()},
     }
     times: dict = {}
     for (name, key), (kern, plain, lib, nbytes, nops, dtype, shape) in \
@@ -638,7 +778,8 @@ def phase_times() -> dict:
                  "triad": {"library": "add(y, x, alpha=a)"}}.get(name, {})
         if name == "flash_attention":
             extra = {"library": "scaled_dot_product_attention" + (
-                " (window as a boolean mask)" if key == "serve:mixtral"
+                " (window as a boolean mask)" if key in ("serve:mixtral",
+                                                         "serve:hymba")
                 else ""), "library_max_abs_err": lib_err[key]}
         emit({"phase": "time", "kernel": name, "at": key, "shape": shape,
               **t, **extra})
@@ -743,9 +884,9 @@ def chunk_launches(tenant) -> dict:
     if tenant.flavor == "kernel":
         return {"prefill": {"flash_attention": 1, "matmul": 1},
                 "decode": {"copy": 1, "matmul": 1}}
-    layers = tenant.config.n_layers
-    return {"prefill": {"rmsnorm": 2 * layers + 1, "flash_attention": layers},
-            "decode": {"rmsnorm": 2 * layers + 1}}
+    norms, flash = call_launches(tenant.config)
+    return {"prefill": {"rmsnorm": norms, "flash_attention": flash},
+            "decode": {"rmsnorm": norms}}
 
 
 def serve_floors(times, tenants) -> dict:
@@ -930,13 +1071,39 @@ def bf16_atol(layers: int) -> float:
     return 4 * 2.0 ** -8 * math.sqrt(4 * layers + 2)
 
 
+def call_launches(cfg) -> tuple[int, int]:
+    """(norms, flash attentions) of one forward or prefill of ``cfg``'s
+    model; a decode step launches the norms alone.  Two norms a layer and
+    the final one (the decoder, the encoder, mamba2's norm and gated norm);
+    four a layer for the hybrid (its input, both fused branches and the
+    MLP's).  One flash attention a layer, none for the ssm family."""
+    L = cfg.n_layers
+    norms = (4 if cfg.family == "hybrid" else 2) * L + 1
+    return norms, 0 if cfg.family == "ssm" else L
+
+
+@contextlib.contextmanager
+def act_dtype(dtype):
+    """While open, the models compute in ``dtype`` activations (each model
+    module's ``ACT_DTYPE``; mamba2's also sets the hybrid's conv cache)."""
+    mods = (transformer, mamba2, hybrid)
+    before = [m.ACT_DTYPE for m in mods]
+    for m in mods:
+        m.ACT_DTYPE = dtype
+    try:
+        yield
+    finally:
+        for m, d in zip(mods, before):
+            m.ACT_DTYPE = d
+
+
 def teacher_forcing(model, weights, toks, atol: float, steps=None,
                     label: str = MODEL_PATH) -> dict:
     """Prefill of all but the last token, then a decode step of it, against
     forward over all: test_models.py:86-106's check, at rtol 3e-2 and
     ``atol``.  With ``steps`` each call's launches are checked: 2L + 1
     norms each, L flash attentions in forward and prefill."""
-    norms, layers = 2 * model.cfg.n_layers + 1, model.cfg.n_layers
+    norms, layers = call_launches(model.cfg)
 
     def run(name, fn, flash):
         before = kernels.launch_counts()
@@ -1007,9 +1174,12 @@ def grads_on_both(cfg, seed: int, label: str, routing: bool = False
     (``numpy_params(seed)``) and one (2, 64) batch, on the card, where the
     norms and attentions launch the kernels through their autograd
     Functions, and on the CPU (plain versions).  The card's forward must
-    launch 2L + 1 norms and L flash attentions, its backward none, and
-    every parameter must get a finite non-zero grad there.  Returns each
-    device's loss and grads and the card's launches.
+    launch ``call_launches(cfg)``, its backward none, and every parameter
+    must get a finite non-zero grad there, but for an encoder on frames the
+    token embedding, which its loss does not read: no grad on either
+    device.  A frames encoder's batch is (2, 64, d_model) unit normal
+    frames in bf16 and targets.  Returns each device's loss and grads and
+    the card's launches.
 
     With ``routing`` (an MoE decoder) a forward on each device first logs
     each layer's router logits (``routing_alike``), and the loss is the
@@ -1021,6 +1191,10 @@ def grads_on_both(cfg, seed: int, label: str, routing: bool = False
     rng = np.random.default_rng(9)
     toks, tgts = (torch.from_numpy(rng.integers(
         0, cfg.vocab_size, (2, MODEL_PROMPT))) for _ in "tt")
+    inputs = {"tokens": toks}
+    if cfg.frontend == "frames":
+        inputs = {"frames": torch.from_numpy(rng.standard_normal(
+            (2, MODEL_PROMPT, cfg.d_model), dtype=np.float32)).bfloat16()}
     out = {"grads": {}, "loss": {}}
     mask = None
     if routing:
@@ -1036,7 +1210,8 @@ def grads_on_both(cfg, seed: int, label: str, routing: bool = False
     for dev in ("cuda", "cpu"):
         params = {k: v.requires_grad_() for k, v in
                   params_from_numpy(arrays, dev).items()}
-        batch = {"tokens": toks.to(dev), "targets": tgts.to(dev)}
+        batch = {**{k: v.to(dev) for k, v in inputs.items()},
+                 "targets": tgts.to(dev)}
         kernels.reset_launch_counts()
         if mask is None:
             loss, _ = model.loss(params, batch)
@@ -1052,17 +1227,21 @@ def grads_on_both(cfg, seed: int, label: str, routing: bool = False
             launched = {"forward": forward, "backward": {
                 k: n - forward[k] for k, n in kernels.launch_counts().items()}}
             want = {name: 0 for name in KERNELS}
-            want.update(rmsnorm=2 * cfg.n_layers + 1,
-                        flash_attention=cfg.n_layers)
+            want["rmsnorm"], want["flash_attention"] = call_launches(cfg)
             if launched != {"forward": want,
                             "backward": {name: 0 for name in KERNELS}}:
                 raise AssertionError(f"{label}: launches {launched}")
             out["launches"] = launched
         out["loss"][dev] = loss.item()
         out["grads"][dev] = {k: p.grad.float().cpu()
-                             for k, p in params.items()}
+                             for k, p in params.items() if p.grad is not None}
         del params, loss
     torch.cuda.empty_cache()
+    unread = {"embed.w"} if cfg.frontend == "frames" else set()
+    for dev, grads in out["grads"].items():
+        if set(arrays) - set(grads) != unread:
+            raise AssertionError(f"{label}: no grad on {dev} for "
+                                 f"{sorted(set(arrays) - set(grads))}")
     for name, got in out["grads"]["cuda"].items():
         if not bool(torch.isfinite(got).all()) or not bool(got.abs().max() > 0):
             raise AssertionError(f"{label}: {name} is zero or not finite on "
@@ -1421,7 +1600,8 @@ def check_arch_run(path: str, out: dict, launched: dict) -> None:
     requests completed, and each kernel launched exactly as often as its
     calls: 2L + 1 norms in each prefill and decode step, L flash attentions
     in each prefill (the batch's, then one a request), none in a decode
-    step; the prefill's logits finite."""
+    step (``call_launches``: 4L + 1 norms for the hybrid, and no flash
+    attention for the ssm family); the prefill's logits finite."""
     cfg, stats = out["model"].cfg, out["stats"]
     batch, gen = out["out_tokens"].shape
     n_prefill = batch * 4                        # the orchestrated requests
@@ -1429,7 +1609,7 @@ def check_arch_run(path: str, out: dict, launched: dict) -> None:
     if stats.result.completed != n_prefill * (1 + math.ceil(
             gen / DECODE_UNIT)):
         raise AssertionError(f"{path}: {stats.result.completed} TAOs")
-    norms, layers = 2 * cfg.n_layers + 1, cfg.n_layers
+    norms, layers = call_launches(cfg)
     want = {name: 0 for name in KERNELS}
     want["rmsnorm"] = norms * (1 + gen + n_prefill + n_decode)
     want["flash_attention"] = layers * (1 + n_prefill)
@@ -1796,9 +1976,304 @@ def phase_moe(ref_rms: float) -> dict:
     return launches
 
 
+# -------------------------------------------------------- the families phase
+def family_teacher_forcing(model, weights, toks, prompt: int) -> dict:
+    """Teacher forcing of mamba2 or hymba on the card: forward over ``toks``
+    (B, T) against prefill of the first ``prompt`` tokens (its last logits)
+    and a decode step of each token after (each step's logits).  mamba2's
+    prompt ends in a padded chunk and its steps cross the forward's chunk
+    edge at 1024; hymba's prompt passes its window, so its windowed layers
+    decode through the rolling cache and its global ones through the
+    positional one.
+
+    Twice, elementwise.  In fp32 activations the cached paths against the
+    forward at rtol = atol = 1e-3.  In the model's bf16 the cached paths
+    against the fp32 forward at rtol 3e-2 and, as atol, the largest
+    |bf16 forward - fp32 forward| over the same rows: the cached paths are
+    another bf16 evaluation of the same function, and may stray from the
+    fp32 result no further than the bf16 forward does.  For the record it
+    also gives ``moe_teacher_forcing``'s form (bf16 cached paths against
+    the bf16 forward, atol the median over the rows of each row's largest
+    such error): both sides of that err, so it can read up to twice the
+    bf16 error, and mamba2's 48 layers erred 0.197 there against 0.173 on
+    an H100."""
+    cfg = model.cfg
+    out, fp32_full = {}, None
+    for act in (torch.float32, torch.bfloat16):
+        with act_dtype(act):
+            with torch.inference_mode():
+                full = model.forward(weights, {"tokens": toks})
+            pre, cache = make_prefill_step(model)(
+                weights, {"tokens": toks[:, :prompt]})
+            if cfg.family == "hybrid":
+                slots = [k.shape[2] for k in cache["k"]]
+                want = [prompt + 64 if model.window(i) is None else
+                        cfg.window for i in range(cfg.n_layers)]
+                if slots != want:
+                    raise AssertionError(f"{cfg.name}: cache slots {slots}")
+            rows = [(prompt - 1, pre[:, 0])]
+            for i in range(prompt, toks.shape[1]):
+                dec, cache = make_decode_step(model)(
+                    weights, toks[:, i:i + 1], cache)
+                rows.append((i, dec[:, 0]))
+        name = str(act).replace("torch.", "")
+        if act == torch.float32:
+            fp32_full = full.float()
+            out[name] = {"rtol": 1e-3, "atol": 1e-3, "max_abs_err": max(
+                close(f"{cfg.name} teacher forcing fp32 at {i}", logits,
+                      full[:, i], 1e-3, 1e-3) for i, logits in rows)}
+        else:
+            noise = (full[:, prompt - 1:].float()
+                     - fp32_full[:, prompt - 1:]).abs().amax(-1)
+            atol = float(noise.max())
+            err = max(close(f"{cfg.name} teacher forcing bf16 at {i}",
+                            logits, fp32_full[:, i], 3e-2, atol)
+                      for i, logits in rows)
+            against_bf16 = max(float((logits.float() - full[:, i].float())
+                                     .abs().max()) for i, logits in rows)
+            out[name] = {"rtol": 3e-2, "atol": atol,
+                         "max_abs_err_vs_fp32_forward": err,
+                         "max_abs_err_vs_bf16_forward": against_bf16,
+                         "bf16_forward_err_median_row_max":
+                         float(noise.median())}
+        out[name]["decode_steps"] = len(rows) - 1
+        del full, rows, cache
+    return out
+
+
+def serve_family_path(path: str) -> dict:
+    """One families-phase run: ``run_arch`` with ``orchestrate`` on
+    FAMILY_RUNS' config (mamba2-780m or hymba-1.5b whole), every counter
+    reset just before and read just after, held by ``check_arch_run``;
+    then teacher forcing on its weights.  Returns kernel -> launches of the
+    run."""
+    run = serve.arch_run(path)
+    cfg, batch, prompt, gen = (run[k] for k in ("config", "batch",
+                                                "prompt_len", "gen"))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    out = serve.run_arch(**run, device="cuda")
+    torch.cuda.synchronize()
+    launched = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    check_arch_run(path, out, launched)
+    model, weights, toks, stats = (out[k] for k in ("model", "weights",
+                                                    "tokens", "stats"))
+    line = {"phase": "families", "path": path, "arch": cfg.name,
+            "params": model.param_count(), "layers": cfg.n_layers,
+            "batch": batch, "prompt": prompt, "gen": gen,
+            "prefill_s": out["prefill_s"], "decode_s": out["decode_s"],
+            "decode_tokens_per_s": batch * gen / out["decode_s"],
+            "orchestrated_taos": stats.result.completed,
+            "orchestrated_tokens_per_s": stats.tokens_per_s,
+            "orchestrated_p99_sojourn_s": stats.p99_latency,
+            "launches": launched, "peak_memory_gib": peak / 2 ** 30}
+    del out, stats
+    more = torch.from_numpy(np.random.default_rng(14).integers(
+        0, cfg.vocab_size, (batch, TF_FAMILY[path]))).cuda()
+    line["teacher_forcing"] = family_teacher_forcing(
+        model, weights, torch.cat([toks, more], dim=1), prompt)
+    del weights
+    torch.cuda.empty_cache()
+    emit(line)
+    return launched
+
+
+def encode_path() -> dict:
+    """encode:hubert: ``serve.run_encode`` on hubert-xlarge whole (4 clips
+    of 500 frames of ``SyntheticFrames(seed=0)``), every counter reset just
+    before and read just after: 2L + 1 norms and L flash attentions, the
+    logits (4, 500, 504) finite.  Then ENCODE_TRAIN_STEPS steps of
+    ``make_train_step`` on that batch at full size from fp32 masters
+    (seed 0): each step's forward launches the same, losses finite, every
+    parameter moved.  Returns kernel -> launches of the encode."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    out = serve.run_encode(ENCODE_PATH, device="cuda")
+    torch.cuda.synchronize()
+    launched = kernels.launch_counts()
+    model, batch, logits = out["model"], out["batch"], out["logits"]
+    cfg = model.cfg
+    want = {name: 0 for name in KERNELS}
+    want["rmsnorm"], want["flash_attention"] = call_launches(cfg)
+    if launched != want:
+        raise AssertionError(f"{ENCODE_PATH}: launches {launched}, want "
+                             f"{want}")
+    shape = (*batch["frames"].shape[:2], cfg.padded_vocab)
+    if tuple(logits.shape) != shape or \
+            not bool(torch.isfinite(logits.float()).all()):
+        raise AssertionError(f"{ENCODE_PATH}: logits {tuple(logits.shape)} "
+                             f"not finite or not {shape}")
+    line = {"phase": "families", "path": ENCODE_PATH, "arch": cfg.name,
+            "params": model.param_count(), "layers": cfg.n_layers,
+            "frames": list(batch["frames"].shape), "encode_s":
+            out["encode_s"][-1], "frames_per_s": shape[0] * shape[1]
+            / out["encode_s"][-1], "launches": launched,
+            "encode_peak_memory_gib": torch.cuda.max_memory_allocated()
+            / 2 ** 30}
+    del out, logits
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = model.init(torch.Generator("cuda").manual_seed(0))
+    start = {k: v.clone() for k, v in params.items()}
+    opt = adamw_init(params)
+    step = make_train_step(model, lr_schedule=TRAIN_LR)
+    losses, step_s, per_step = [], [], []
+    for _ in range(ENCODE_TRAIN_STEPS):
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        params, opt, metrics = step(params, opt, batch)
+        losses.append(metrics["loss"].item())
+        step_s.append(time.perf_counter() - t0)
+        per_step.append(kernels.launch_counts())
+    if any(n != want for n in per_step) or \
+            not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"{ENCODE_PATH} train: launches {per_step}, "
+                             f"losses {losses}")
+    still = [k for k, v in params.items() if torch.equal(v, start[k])]
+    if still:
+        raise AssertionError(f"{ENCODE_PATH} train: {still} did not move")
+    line.update(train_steps=ENCODE_TRAIN_STEPS, train_losses=losses,
+                train_step_s=step_s, train_launches_per_step=per_step[0],
+                train_peak_memory_gib=torch.cuda.max_memory_allocated()
+                / 2 ** 30)
+    del params, start, opt
+    torch.cuda.empty_cache()
+    emit(line)
+    return launched
+
+
+def family_card_vs_cpu(arch: str) -> dict:
+    """``arch`` at its published widths cut to 2 layers (hymba: layer 0
+    global, layer 1 windowed), one set of numpy weights (``numpy_params``)
+    on the card (kernels) and on the CPU (plain versions).  The fp32
+    forward over PARITY_TOKENS[arch] elementwise at rtol = atol = 1e-3;
+    the card's bf16 forward over (2, 64) against the CPU's fp32 forward at
+    rtol 3e-2 and, as atol, the CPU's own largest |bf16 - fp32| over the
+    rows (the card's bf16 may stray from the fp32 result no further than
+    the CPU's bf16 does; against the CPU's bf16, both sides err, and
+    hymba's card and CPU differed by 0.047 where the CPU's median row
+    error was 0.037 on an H100); the loss grads over (2, 64)
+    (``grads_on_both``) within 3e-2 relative Frobenius a parameter."""
+    cfg = dataclasses.replace(get_config(arch), n_layers=2)
+    model = get_model(cfg)
+    arrays = numpy_params(model, seed=7)
+    rng = np.random.default_rng(8)
+
+    def inputs(b, s):
+        if cfg.frontend == "frames":
+            return {"frames": torch.from_numpy(rng.standard_normal(
+                (b, s, cfg.d_model), dtype=np.float32)).bfloat16()}
+        return {"tokens": torch.from_numpy(rng.integers(
+            0, cfg.vocab_size, (b, s)))}
+
+    batches = {torch.float32: inputs(*PARITY_TOKENS[arch]),
+               torch.bfloat16: inputs(2, MODEL_PROMPT)}
+    logits = {}
+    for dev in ("cuda", "cpu"):
+        weights = model.bf16_copy(params_from_numpy(arrays, dev))
+        for act, batch in batches.items():
+            acts = (act,) if act == torch.float32 or dev == "cuda" else \
+                (torch.bfloat16, torch.float32)
+            for a in acts:
+                with act_dtype(a), torch.inference_mode():
+                    logits[dev, a, act] = model.forward(weights, {
+                        k: v.to(dev) for k, v in batch.items()}).float().cpu()
+        del weights
+    torch.cuda.empty_cache()
+    fp32 = close(f"{cfg.name} 2-layer fp32 forward, card against CPU",
+                 logits["cuda", torch.float32, torch.float32],
+                 logits["cpu", torch.float32, torch.float32], 1e-3, 1e-3)
+    want = logits["cpu", torch.float32, torch.bfloat16]
+    atol = float((logits["cpu", torch.bfloat16, torch.bfloat16]
+                  - want).abs().max())
+    card = logits["cuda", torch.bfloat16, torch.bfloat16]
+    bf16 = close(f"{cfg.name} 2-layer bf16 forward on the card against "
+                 f"the CPU's fp32", card, want, 3e-2, atol)
+    bf16_vs_bf16 = float((card - logits["cpu", torch.bfloat16,
+                                        torch.bfloat16]).abs().max())
+    grads = grads_on_both(cfg, 7, f"grads {cfg.name}")
+    rel = rel_frobenius(grads["grads"])
+    for name, r in rel.items():
+        if r > 3e-2:
+            raise AssertionError(f"grads {cfg.name}: {name} differs from "
+                                 f"the CPU's by {r} (relative Frobenius)")
+    return {"layers": cfg.n_layers, "fp32_tokens": list(
+        PARITY_TOKENS[arch]), "fp32_max_abs_err": fp32,
+        "bf16_tokens": [2, MODEL_PROMPT], "bf16_atol": atol,
+        "bf16_max_abs_err_vs_cpu_fp32": bf16,
+        "bf16_max_abs_err_vs_cpu_bf16": bf16_vs_bf16, "loss": grads["loss"],
+        "grad_launches": grads["launches"], "rel_frobenius_err": rel}
+
+
+def family_tenants() -> dict:
+    """The zoo's ssm and hybrid tenants at SERVE_SHAPES (mamba2-780m and
+    hymba-1.5b whole over a 1024-token chunk), warmed: one prefill slab and
+    one decode burst of each, every counter reset around each, launch
+    ``chunk_launches`` exactly and equal the model's own prefill and decode
+    step on the tenant's weights, tokens and cache (the same calls: rtol =
+    atol = 1e-2).  Then FAMILY_TRACE served through the two as one zoo
+    (``serve_run``: every chunk once, exact launches, PTT floors at
+    PTT_FLOOR of each chunk's device time alone).  Returns kernel ->
+    launches of the run."""
+    tenants = zoo.default_zoo({"steady": "ssm", "burst": "hybrid"})
+    zoo.warm_zoo(tenants)
+    floors, checked = {}, {}
+    for tenant in tenants.values():
+        model, weights, toks = tenant.model, tenant.weights, tenant.tokens
+        per = chunk_launches(tenant)
+        got = {}
+        for typ, fn in (("prefill", tenant.prefill_slab),
+                        ("decode", tenant.decode_burst)):
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            got[typ] = fn()
+            torch.cuda.synchronize()
+            n = kernels.launch_counts()
+            want = {name: per[typ].get(name, 0) for name in KERNELS}
+            if n != want:
+                raise AssertionError(f"{tenant.flavor} tenant {typ}: "
+                                     f"launches {n}, want {want}")
+        pre, cache = make_prefill_step(model)(weights, {"tokens": toks})
+        dec, _ = make_decode_step(model)(weights, toks[:, -1:], cache)
+        checked[tenant.flavor] = {
+            "model": model.cfg.name, "prefill_max_abs_err": close(
+                f"{tenant.flavor} tenant prefill", got["prefill"], pre,
+                1e-2, 1e-2),
+            "decode_max_abs_err": close(
+                f"{tenant.flavor} tenant decode", got["decode"], dec, 1e-2,
+                1e-2)}
+        floors[tenant.flavor] = {
+            "prefill": PTT_FLOOR * device_ms(tenant.prefill_slab) / 1e3,
+            "decode": PTT_FLOOR * device_ms(tenant.decode_burst) / 1e3}
+        del pre, cache, dec, got
+    torch.cuda.synchronize()
+    emit({"phase": "family_tenants", **checked})
+    trace = serve.bursty_serving_trace(**FAMILY_TRACE)
+    return serve_run(FAMILY_ZOO_PATH, tenants, trace, floors)
+
+
+def phase_families() -> dict:
+    """The families phase: mamba2-780m and hymba-1.5b served whole
+    (``serve_family_path``), hubert-xlarge's encode and train steps
+    (``encode_path``), the ssm and hybrid tenants (``family_tenants``),
+    then each family at full width and 2 layers on the card against the
+    CPU (``family_card_vs_cpu``).  Returns path -> kernel -> launches."""
+    launches = {path: serve_family_path(path) for path in FAMILY_RUNS}
+    launches[ENCODE_PATH] = encode_path()
+    launches[FAMILY_ZOO_PATH] = family_tenants()
+    for arch in PARITY_TOKENS:
+        emit({"phase": "family_card_vs_cpu", "arch": arch,
+              **family_card_vs_cpu(arch)})
+    return launches
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device")
+    t0 = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False  # plain fp32 = "highest"
     torch.backends.cudnn.allow_tf32 = False
     phase_card()
@@ -1809,6 +2284,7 @@ def main() -> None:
     launches[MODEL_PATH], ref_rms = phase_model()
     launches.update(phase_moe(ref_rms))
     phase_grads()
+    launches.update(phase_families())
     launches.update(phase_serve(times))
     launches[TRAIN_PATH] = phase_train()
     phase_train_vs_cpu()
@@ -1835,6 +2311,7 @@ def main() -> None:
             "times_by_shape": {key: {k: t[k] for k in (
                 "kernel_ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms", "l2")} for key, t in times[name].items()}})
+    emit({"phase": "wall", "seconds": time.perf_counter() - t0})
     emit({"kernels": entries})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

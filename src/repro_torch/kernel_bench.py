@@ -17,8 +17,13 @@ copy of 16896 x 1024 fp32 (a size at which the first copy kernel's
 grid-stride loop had no ragged tail on 132 SMs), the decoder's RMSNorm
 (bf16 x, fp32 w, d = 2048, L2 flushed) at its four row counts (256:
 serve:model's prefill; 1024: the zoo's prefill chunk; 4: a decode step;
-512: a training step) and the triad at 16384 x 1024 fp32.  Bytes and
-operations are those ``chip_smoke.py`` holds each kernel to.  Two more
+512: a training step) and the triad at 16384 x 1024 fp32; and the
+families' shapes: hubert-xlarge's bidirectional encode attention (q = k = v
+4 x 16 x 500 x 80) and the RMSNorms of mamba2-780m (4000 x 1536 and its
+gated 4000 x 3072), hymba-1.5b (4400 x 1600) and hubert (2000 x 1280).  A shape that a tree's kernel does not take
+(the parent's flash kernel at head dim 80) prints its error in place of
+times.  Bytes and operations are those ``chip_smoke.py`` holds each kernel
+to.  Two more
 lines: the floor, one empty kernel (``torch.cuda._sleep(0)``) timed the
 same way, with L2 flushed and warm, the least any kernel's time can read;
 and the host time
@@ -75,6 +80,15 @@ NORM_ROWS = {"serve:model": 256, "serve:zoo_prefill": 1024,
 # the decoder's attention in a training step of launch.train's defaults:
 # q (4, 32, 128, 64) over kv (4, 8, 128, 64), bf16, causal
 TRAIN_ATTENTION = (4, 32, 8, 128, 64)
+# hubert-xlarge's encode: q = k = v (4, 16, 500, 80), bf16, not causal
+HUBERT_ATTENTION = (4, 16, 16, 500, 80)
+# the families' norms (rows, width) at their serving prefills: mamba2-780m
+# over 4 x 1000 tokens at d_model and at d_inner (its gated norm),
+# hymba-1.5b over 4 x 1100 (all four of its norms at 1600), hubert-xlarge's
+# encode of 4 x 500 frames
+FAMILY_NORMS = {"serve:mamba2": (4000, 1536),
+                "serve:mamba2_gate": (4000, 3072),
+                "serve:hymba": (4400, 1600), "encode:hubert": (2000, 1280)}
 
 _flush_buf: torch.Tensor | None = None
 
@@ -145,15 +159,16 @@ def tensor(shape, dtype, seed: int) -> torch.Tensor:
     return torch.from_numpy(a).to(device="cuda", dtype=dtype)
 
 
-def sdpa(q, k, v, window: int | None = None):
+def sdpa(q, k, v, window: int | None = None, causal: bool = True):
     """``scaled_dot_product_attention`` over GQA heads, causal (top-left, as
-    the kernel's mask at S = Sk): the library yardstick, never called by the
-    port.  SDPA takes no window: with ``window`` the causal band is a
-    boolean mask, over k and v repeated to q's heads (built before the
-    call, outside its time), as a masked SDPA takes them."""
+    the kernel's mask at S = Sk) unless ``causal`` is False: the library
+    yardstick, never called by the port.  SDPA takes no window: with
+    ``window`` the causal band is a boolean mask, over k and v repeated to
+    q's heads (built before the call, outside its time), as a masked SDPA
+    takes them."""
     f = torch.nn.functional.scaled_dot_product_attention
     if window is None:
-        return lambda: f(q, k, v, is_causal=True, enable_gqa=True)
+        return lambda: f(q, k, v, is_causal=causal, enable_gqa=True)
     rows = torch.arange(q.shape[2], device=q.device)[:, None]
     cols = torch.arange(k.shape[2], device=q.device)[None, :]
     mask = (cols <= rows) & (cols > rows - window)
@@ -205,15 +220,17 @@ def cases() -> dict[str, Case]:
                     2 * x.shape[0] * y.shape[1] * x.shape[1], x.dtype,
                     [list(x.shape), list(y.shape)], cold)
 
-    def attn(b, hq, hkv, s, d, dtype, seed):
+    def attn(b, hq, hkv, s, d, dtype, seed, causal=True):
         q = tensor((b, hq, s, d), dtype, seed)
         kv = tensor((b, hkv, s, d), dtype, seed + 1)
         return Case("flash_attention",
-                    lambda: flash_attention.flash_attention(q, kv, kv),
-                    lambda: flash_attention.plain(q, kv, kv), sdpa(q, kv, kv),
+                    lambda: flash_attention.flash_attention(q, kv, kv,
+                                                            causal=causal),
+                    lambda: flash_attention.plain(q, kv, kv, causal=causal),
+                    sdpa(q, kv, kv, causal=causal),
                     2 * (q.numel() + kv.numel()) * q.element_size(),
-                    4 * d * b * hq * attention_pairs(s, s, True, None), dtype,
-                    [list(q.shape), list(kv.shape)], False)
+                    4 * d * b * hq * attention_pairs(s, s, causal, None),
+                    dtype, [list(q.shape), list(kv.shape)], False)
 
     def copy(x):
         return Case("copy", lambda: copy_stream.copy(x),
@@ -222,14 +239,14 @@ def cases() -> dict[str, Case]:
                     2 * x.numel() * x.element_size(), 0, x.dtype,
                     list(x.shape), False)
 
-    def norm(rows, seed):
+    def norm(rows, seed, width=NORM_WIDTH):
         # the decoder's operands: bf16 activations, fp32 weight, eps 1e-5;
         # four fp32 operations an element (square, sum, scale, weight)
-        x = tensor((rows, NORM_WIDTH), torch.bfloat16, seed)
-        w = tensor((NORM_WIDTH,), torch.float32, seed + 1)
+        x = tensor((rows, width), torch.bfloat16, seed)
+        w = tensor((width,), torch.float32, seed + 1)
         return Case("rmsnorm", lambda: rmsnorm.rmsnorm(x, w, eps=1e-5),
                     lambda: rmsnorm.plain(x, w, eps=1e-5),
-                    lambda: torch.nn.functional.rms_norm(x, (NORM_WIDTH,), w,
+                    lambda: torch.nn.functional.rms_norm(x, (width,), w,
                                                          1e-5),
                     2 * x.numel() * x.element_size()
                     + w.numel() * w.element_size(), 4 * x.numel(),
@@ -264,6 +281,11 @@ def cases() -> dict[str, Case]:
             xs.dtype, list(xs.shape), True),
         **{f"rmsnorm:{key}": norm(rows, 40 + i)
            for i, (key, rows) in enumerate(NORM_ROWS.items())},
+        # the families (slice 9): hubert-xlarge's encode, 4 clips of 500
+        # frames at 16 heads of 80, bidirectional; their norms
+        "encode:hubert": attn(*HUBERT_ATTENTION, sv.dtype, 24, causal=False),
+        **{f"rmsnorm:{key}": norm(rows, 60 + 2 * i, width)
+           for i, (key, (rows, width)) in enumerate(FAMILY_NORMS.items())},
         "triad:stream": Case(
             "triad", lambda: copy_stream.triad(-2.5, xt, yt),
             lambda: copy_stream.plain_triad(-2.5, xt, yt),
@@ -289,11 +311,16 @@ def measure(label: str, only=None) -> list[dict]:
             continue
         b_ms, b_by = bound(c.nbytes, c.nops, c.dtype)
         t = {"label": label, "at": key, "kernel": c.kernel, "shape": c.shape,
-             "card": card, "l2": "flushed" if c.cold else "warm",
-             "kernel_ms": device_ms(c.run, c.cold),
-             "plain_ms": device_ms(c.plain, c.cold),
-             "library_ms": device_ms(c.library, c.cold),
-             "bound_ms": b_ms, "bound_by": b_by}
+             "card": card, "l2": "flushed" if c.cold else "warm"}
+        try:
+            kernel_ms = device_ms(c.run, c.cold)
+        except ValueError as e:  # a shape this tree's kernel does not take
+            t["unsupported"] = str(e)
+            print(json.dumps(t), flush=True)
+            continue
+        t.update(kernel_ms=kernel_ms, plain_ms=device_ms(c.plain, c.cold),
+                 library_ms=device_ms(c.library, c.cold), bound_ms=b_ms,
+                 bound_by=b_by)
         t["share_of_bound"] = b_ms / t["kernel_ms"]
         rows.append(t)
         print(json.dumps(t), flush=True)
@@ -361,6 +388,9 @@ def main(argv=None) -> None:
             continue
         s = summary.setdefault(r["at"], {"shape": r["shape"],
                                          "l2": r["l2"]})
+        if "unsupported" in r:  # an older tree's kernel lacks the shape
+            s[f"{r['label']}_unsupported"] = r["unsupported"]
+            continue
         s.setdefault(f"{r['label']}_kernel_ms", []).append(r["kernel_ms"])
         for k in ("plain_ms", "library_ms"):
             s.setdefault(k, []).append(r[k])

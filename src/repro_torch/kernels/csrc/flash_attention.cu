@@ -1,7 +1,7 @@
 // Flash attention forward for Hopper (sm_90a): online-softmax attention with
 // grouped-query heads, a causal mask and a sliding window.
 // q (B, Hq, S, D), k and v (B, Hkv, Sk, D), out (B, Hq, S, D) in q's dtype;
-// fp32 or bf16, D in {32, 64, 128}.
+// fp32 or bf16, D in {32, 64, 80, 128}.
 //
 // Replaces: the Pallas `flash_attention` kernel,
 // src/repro/kernels/flash_attention.py (`_flash_kernel` :33-93, launched by
@@ -54,6 +54,12 @@
 //     tile (rows of D + 8, no bank conflicts).  K and V tiles are double-
 //     buffered: cp.async loads tile j + 1 (zero-filled past Sk) while tile j
 //     computes.
+//     D = 80 (hubert's 1280 / 16) is not a multiple of 32: q . k^T takes
+//     five 16-column steps, four in pairs from ldmatrix.x4 and the last from
+//     ldmatrix.x2; P . V steps over the output 16 columns at a time, as at
+//     every D.  Rows of 88 elements (176 bytes) stay 16-byte aligned, and
+//     ldmatrix's 8 rows fall on 8 distinct 4-bank groups (176 / 4 = 44
+//     words, 44 r mod 32 for r = 0..7).
 //     Numerics: the products of bf16 values are exact in fp32, so S matches
 //     the TPU's fp32 dot up to summation order.  The TPU kernel multiplies
 //     fp32 p by fp32 v; the tensor cores take p in bf16.  One bf16 p would
@@ -153,6 +159,12 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const bf16* p) {
       "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
       : "r"(smem_u32(p)));
+}
+__device__ __forceinline__ void ldmatrix_x2(uint32_t (&r)[2],
+                                            const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(smem_u32(p)));
 }
 __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
                                                   const bf16* p) {
@@ -274,11 +286,19 @@ flash_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     for (int n = 0; n < 8; ++n) {
       s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.0f;
 #pragma unroll
-      for (int kk = 0; kk < D / 16; kk += 2) {
+      for (int kk = 0; kk + 1 < D / 16; kk += 2) {
         uint32_t kf[4];
         ldmatrix_x4(kf, ks + (n * 8 + k_row) * ld + kk * 16 + k_col);
         mma_bf16(s[n], qf[kk], kf[0], kf[1]);
         mma_bf16(s[n], qf[kk + 1], kf[2], kf[3]);
+      }
+      if constexpr ((D / 16) % 2 == 1) {
+        // an odd count of 16-column steps (D = 80): the last step alone,
+        // from two 8 x 8 matrices that lanes 0-15 address
+        constexpr int kk = D / 16 - 1;
+        uint32_t kf[2];
+        ldmatrix_x2(kf, ks + (n * 8 + k_row) * ld + kk * 16 + (k_col & 8));
+        mma_bf16(s[n], qf[kk], kf[0], kf[1]);
       }
     }
 
@@ -591,6 +611,7 @@ extern "C" int repro_flash_attention(const void* q, const void* k,
   switch (head_dim) {
     case 32: return (int)launch_d<32>(dtype, a);
     case 64: return (int)launch_d<64>(dtype, a);
+    case 80: return (int)launch_d<80>(dtype, a);
     case 128: return (int)launch_d<128>(dtype, a);
     default: return (int)cudaErrorInvalidValue;
   }

@@ -26,7 +26,7 @@ from . import _build
 launches = _build.LaunchCounter()
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (32, 64, 128)  # the head sizes the kernel is compiled for
+HEAD_DIMS = (32, 64, 80, 128)  # the head sizes the kernel is compiled for
 
 
 def check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:

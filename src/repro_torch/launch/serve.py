@@ -4,8 +4,10 @@
 ``--arch``: batched prefill and greedy decode of one model of the port's zoo
 (the full config unless ``--smoke``), then with ``--orchestrate`` the same
 prefill and decode scheduled through ``ThreadedRuntime`` under
-``molding:weight``.  Every norm runs the RMSNorm kernel and every prefill
-attention the flash-attention kernel.
+``molding:weight``.  Every decoding family serves: the decoders, mamba2 and
+hymba; the encoder (hubert) has no decode step and exits, as in the
+reference.  Every norm runs the RMSNorm kernel and every prefill attention
+the flash-attention kernel.
 
 ``--zoo``: a bursty two-tenant request trace becomes tenant-labelled DAG
 arrivals on ``ThreadedRuntime`` behind a token-bucket admission gate and the
@@ -35,8 +37,9 @@ from ..core.serve_orchestrator import (ServeRequest, ServeStats,
                                        bursty_serving_trace,
                                        run_serving_threaded,
                                        run_serving_workload_threaded)
+from ..data import SyntheticFrames
 from ..models import (ModelConfig, get_model, make_decode_step,
-                      make_prefill_step)
+                      make_encode_step, make_prefill_step)
 from ..workers import ChunkLog, on_own_stream, resolve_device
 from .zoo import SERVE_SHAPES, ZOO_SHAPES, default_zoo, warm_zoo, zoo_binder
 
@@ -67,16 +70,59 @@ PATHS = {
 }
 
 
-# serving runs of the MoE and sliding-window decoders and the patch frontend
-# at their published widths: path -> (arch, layers kept or None for all,
-# batch, prompt, gen).  mixtral and moonshot are cut in depth to fit one card
-# (all 56 layers of mixtral hold 141 B parameters, 282 GB in bf16;
-# moonshot's 48 need 112 GB of fp32 masters); mixtral's prompt passes its
-# 4096-token window, so the cache rolls; internvl2 whole at --arch's
-# defaults.  chip_smoke.py checks them, trace_main_path.py profiles them.
+# serving runs of the MoE and sliding-window decoders, the patch frontend,
+# the ssm and the hybrid families at their published widths: path -> (arch,
+# layers kept or None for all, batch, prompt, gen).  mixtral and moonshot
+# are cut in depth to fit one card (all 56 layers of mixtral hold 141 B
+# parameters, 282 GB in bf16; moonshot's 48 need 112 GB of fp32 masters);
+# mixtral's prompt passes its 4096-token window, so the cache rolls;
+# internvl2 whole at --arch's defaults.  mamba2 and hymba whole: mamba2's
+# prompt of 1000 crosses three chunk boundaries of 256 and ends in a padded
+# chunk; hymba's 1100 passes its 1024-token window, so its 29 windowed
+# layers roll and its 3 global ones keep the positional cache.
+# chip_smoke.py checks them, trace_main_path.py profiles them.
 ARCH_RUNS = {"serve:mixtral": ("mixtral-8x22b", 2, 1, 4352, 32),
              "serve:moonshot": ("moonshot-v1-16b-a3b", 4, 4, 512, 32),
-             "serve:internvl2": ("internvl2-2b", None, 4, 64, 32)}
+             "serve:internvl2": ("internvl2-2b", None, 4, 64, 32),
+             "serve:mamba2": ("mamba2-780m", None, 4, 1000, 32),
+             "serve:hymba": ("hymba-1.5b", None, 4, 1100, 32)}
+
+
+# the encoder's serve step at its published size: path -> (arch, batch,
+# frames).  hubert-xlarge whole over 4 clips of 500 frames, 10 s of audio
+# at HuBERT's 50 frames a second.  The reference serves an encoder only
+# through ``make_encode_step`` (its ``serve --arch`` exits for one).
+ENCODE_RUNS = {"encode:hubert": ("hubert-xlarge", 4, 500)}
+ENCODE_SPAN = "serve.encode"  # profiler span around run_encode's encodes
+
+
+def run_encode(path: str = "encode:hubert", *, device="cuda",
+               config: ModelConfig | None = None, repeats: int = 1) -> dict:
+    """``ENCODE_RUNS[path]``: ``make_encode_step`` on the encoder (its
+    full config, or ``config``), random weights from seed 0 (``bf16_copy``
+    of the fp32 masters, which are dropped) and a ``SyntheticFrames(seed=0)``
+    batch, encoded ``repeats`` times, each timed to the end of the device's
+    work.  Returns the model, its weights, the batch, the last per-frame
+    ``logits`` (B, S, V) and ``encode_s`` (one a repeat)."""
+    arch, batch, frames = ENCODE_RUNS[path]
+    dev = resolve_device(device)
+    cfg = config or get_config(arch)
+    model = get_model(cfg)
+    weights = model.bf16_copy(model.init(torch.Generator(dev).manual_seed(0)))
+    data = SyntheticFrames(d_model=cfg.d_model, seq_len=frames,
+                           global_batch=batch, seed=0).batch(0, device=dev)
+    step = make_encode_step(model)
+    seconds = []
+    with torch.profiler.record_function(ENCODE_SPAN):
+        for _ in range(repeats):
+            t0 = time.perf_counter()
+            logits = step(weights, data)
+            _sync(dev)
+            seconds.append(time.perf_counter() - t0)
+    print(f"arch={cfg.name} batch={batch} frames={frames} encode: "
+          f"{seconds[-1]:.3f}s ({batch * frames / seconds[-1]:.0f} frames/s)")
+    return {"model": model, "weights": weights, "batch": data,
+            "logits": logits, "encode_s": seconds}
 
 
 def arch_run(path: str) -> dict:

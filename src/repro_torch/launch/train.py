@@ -10,7 +10,11 @@ RMSNorm kernel and every attention the flash-attention kernel, forward,
 through their autograd Functions; ``--device cpu`` runs the plain versions.
 
 As in the reference, ``--orchestrate`` updates at a constant ``--lr``
-without clipping and saves no checkpoint (ROADMAP.md, Queue 3).
+without clipping and saves no checkpoint (ROADMAP.md, Queue 3, fault 4),
+and an encoder on the ``frames`` frontend (hubert) cannot train here: the
+launcher feeds token batches, which carry no ``frames`` (fault 8).  The
+reference stops with ``KeyError: 'frames'`` at its first step; this one
+exits before it builds the model.
 
 Run:  PYTHONPATH=src python -m repro_torch.launch.train --arch llama3.2-1b
       PYTHONPATH=src python -m repro_torch.launch.train --arch llama3.2-1b \\
@@ -50,6 +54,11 @@ def run(arch: str, *, smoke: bool = False, steps: int = 20, batch: int = 4,
     with ``orchestrate`` the runtime's ``stats`` instead."""
     dev = resolve_device(device)
     cfg = get_smoke_config(arch) if smoke else get_config(arch)
+    if cfg.frontend == "frames":
+        raise SystemExit(
+            f"{cfg.name} reads batch['frames'] and the launcher feeds "
+            f"SyntheticLM token batches: it cannot train here, as in the "
+            f"reference (ROADMAP.md, Queue 3, fault 8)")
     model = get_model(cfg)
     print(f"arch={cfg.name} params={model.param_count():,}")
 

@@ -5,8 +5,9 @@ Each serving tenant runs one *flavor*: the ``transformer`` flavor serves the
 llama3.2-1b decoder of the port's model zoo through its ``prefill`` and
 ``decode_step``; the raw ``kernel`` flavor binds ``kernels.ops`` directly (a
 prefill slab of flash attention and a projection matmul, a decode burst of
-KV-slab copies and a one-row GEMV).  The ``ssm`` and ``hybrid`` flavors wait
-for their models (ROADMAP.md, Queue 1 item 3).  A :class:`ZooTenant` builds
+KV-slab copies and a one-row GEMV); the ``ssm`` flavor serves mamba2-780m
+and the ``hybrid`` flavor hymba-1.5b, each as the transformer flavor serves
+its decoder.  A :class:`ZooTenant` builds
 the kernels and runs its payloads once in ``warm()``; every payload shape is
 fixed, so no request ever builds on a worker thread.
 
@@ -17,14 +18,15 @@ its worker thread's own stream and returns once the stream has drained
 (``workers.on_own_stream``), so the PTT learns device time.
 
 Shapes.  ``ZOO_SHAPES`` are the JAX tenants' own (zoo.py:83-90, 126-128),
-which the tests use: the kernel flavor's small fp32 operands, and the
-transformer flavor's smoke config over 16 prompt tokens.  At those an H100
+which the tests use: the kernel flavor's small fp32 operands, and each
+model flavor's smoke config over 16 prompt tokens.  At those an H100
 does a few microseconds of work per launch, so the card runs
 ``SERVE_SHAPES``: the kernel flavor at the widths of llama3.2-1b (d_model
 2048, 32 query heads and 8 kv heads of 64; one chunk is the attention and
 output projection of 1024 prompt tokens, the decode slab the KV cache of a
-4096-token context), and the transformer flavor as the full llama3.2-1b over
-the 1024 prompt tokens that one chunk stands for.
+4096-token context), and each model flavor as its full model (llama3.2-1b,
+mamba2-780m, hymba-1.5b) over the 1024 prompt tokens that one chunk stands
+for.
 
 Use with the orchestrator's general threaded entry point::
 
@@ -57,7 +59,6 @@ FLAVOR_ARCHS = {
     "hybrid": "hymba-1.5b",
 }
 FLAVORS = ("kernel",) + tuple(FLAVOR_ARCHS)
-PORTED_FLAVORS = ("kernel", "transformer")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -160,10 +161,6 @@ class ZooTenant:
                  tokens: torch.Tensor | None = None):
         if flavor not in FLAVORS:
             raise ValueError(f"unknown flavor {flavor!r}; known: {FLAVORS}")
-        if flavor not in PORTED_FLAVORS:
-            raise NotImplementedError(
-                f"flavor {flavor!r} serves {FLAVOR_ARCHS[flavor]}, which is "
-                f"not ported yet (ROADMAP.md, Queue 1 item 3)")
         self.name = name
         self.flavor = flavor
         self.slab_tokens = max(1, int(slab_tokens))

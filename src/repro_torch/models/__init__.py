@@ -1,14 +1,16 @@
 """repro_torch.models -- the port's model zoo and its generic train and
-serve steps.  Twin of ``repro.models``; the port has the decoder family
-(dense, MoE with sliding windows, the patch frontend).  The encoder
-(hubert), ``ssm`` (mamba2) and ``hybrid`` (hymba) families wait for a later
-slice (ROADMAP.md, Queue 1 item 3)."""
+serve steps.  Twin of ``repro.models``: the decoder family (dense, MoE with
+sliding windows, the patch frontend) and the encoder (hubert, the frames
+frontend) in ``DecoderLM``, the ``ssm`` family (mamba2) in ``Mamba2LM`` and
+the ``hybrid`` family (hymba) in ``HymbaLM``."""
 from __future__ import annotations
 
 from typing import Callable
 
 import torch
 
+from .hybrid import HymbaLM
+from .mamba2 import Mamba2LM
 from .model_api import BaseModel, ModelConfig, ParamDef
 from .transformer import DecoderLM
 
@@ -16,10 +18,10 @@ from .transformer import DecoderLM
 def get_model(cfg: ModelConfig) -> BaseModel:
     if cfg.family in ("decoder", "encoder"):
         return DecoderLM(cfg)
-    if cfg.family in ("ssm", "hybrid"):
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family is not ported yet "
-            f"(ROADMAP.md, Queue 1 item 3)")
+    if cfg.family == "ssm":
+        return Mamba2LM(cfg)
+    if cfg.family == "hybrid":
+        return HymbaLM(cfg)
     raise ValueError(f"unknown family {cfg.family!r}")
 
 
@@ -30,11 +32,16 @@ def loss_and_grads(model: BaseModel, params: dict, batch: dict
     ``params``, detached metrics).  The grads are taken of detached copies
     that require grad, so ``params`` stay as they were.  Grad mode is per
     thread, so this turns it on itself (and inference mode off) for a
-    caller on any thread."""
+    caller on any thread.  A parameter that the loss does not read (the
+    token embedding of an encoder on frames) gets zeros, as ``jax.grad``
+    gives it."""
     with torch.inference_mode(False), torch.enable_grad():
         leaves = {k: p.detach().requires_grad_() for k, p in params.items()}
         loss, metrics = model.loss(leaves, batch)
-        grads = torch.autograd.grad(loss, list(leaves.values()))
+        grads = torch.autograd.grad(loss, list(leaves.values()),
+                                    allow_unused=True)
+    grads = [torch.zeros_like(p) if g is None else g
+             for p, g in zip(leaves.values(), grads)]
     return (dict(zip(leaves, grads)),
             {k: v.detach() for k, v in metrics.items()})
 
@@ -79,6 +86,16 @@ def make_decode_step(model: BaseModel):
     return decode_step
 
 
-__all__ = ["BaseModel", "ModelConfig", "ParamDef", "DecoderLM", "get_model",
-           "loss_and_grads", "make_train_step", "make_prefill_step",
-           "make_decode_step"]
+def make_encode_step(model: BaseModel):
+    """Encoder-only serve step, full forward -> per-frame logits
+    (``model.forward``), under ``torch.inference_mode()`` as
+    ``make_prefill_step``."""
+    def encode_step(params, batch):
+        with torch.inference_mode():
+            return model.forward(params, batch)
+    return encode_step
+
+
+__all__ = ["BaseModel", "ModelConfig", "ParamDef", "DecoderLM", "Mamba2LM",
+           "HymbaLM", "get_model", "loss_and_grads", "make_train_step",
+           "make_prefill_step", "make_decode_step", "make_encode_step"]

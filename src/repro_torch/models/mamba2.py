@@ -1,0 +1,362 @@
+"""Mamba-2 (SSD, state-space duality, arXiv:2405.21060) of the port.  Twin of
+``repro.models.mamba2``.
+
+Chunked dual form: the sequence is split into chunks of Q tokens; within a
+chunk the computation is a masked, decay-weighted, attention-like product,
+and across chunks a short recurrence over the (H, N, P) states, a loop over
+the chunks where JAX takes ``lax.associative_scan`` (the same sums up to
+fp32 summation order).  Decode is the O(1)-state recurrent step.
+
+Block layout, as the reference's: in_proj -> [z | x | B | C | dt],
+depthwise causal conv over (x, B, C), SSD, gated RMSNorm, out_proj.  Both
+norms of a layer and the final norm run the RMSNorm kernel; the scan, the
+conv and the gating are plain PyTorch, as the JAX package writes them in
+jnp (mamba2.py:28-131) and leaves them to XLA.  While a profiler records,
+the conv and the scan run in the spans ``ssm.conv`` and ``ssm.scan``, which
+``trace_main_path --families-only`` reads.
+
+Numerics follow JAX: activations are bf16 (the embedding gathered, then
+cast), the projections, the head and the conv weights are cast to the
+activations' dtype where they are used, the SSD runs in fp32 and returns in
+x's dtype, and ``a_log``, ``dt_bias``, ``d_skip`` and the norm weights are
+read in fp32.  ``bf16_copy`` casts what JAX casts, once, with identical
+values.
+
+The cache holds, a layer, the conv's last K - 1 inputs (bf16) and the SSD
+state (fp32), and ``pos``, a 0-dim int32 on the CPU.  ``prefill`` takes
+``max_len`` and ignores it: an SSM cache has nothing to pad.  The reference's
+``prefill`` takes no ``max_len``, so its ``serve --arch mamba2-780m`` stops
+with a TypeError (ROADMAP.md, Queue 3, fault 6).
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from .layers import _span, rmsnorm
+from .losses import lm_cross_entropy
+from .model_api import BaseModel, ParamDef, split_params, unbound
+
+ACT_DTYPE = torch.bfloat16
+# read in fp32 where used: the norm weights and the SSD's scalars a head
+_FP32 = ("final_norm.w", "layers.norm.w", "layers.gate_norm.w",
+         "layers.a_log", "layers.d_skip", "layers.dt_bias")
+
+
+# ---------------------------------------------------------------------------
+# SSD core
+# ---------------------------------------------------------------------------
+def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
+                b: torch.Tensor, c: torch.Tensor, d_skip: torch.Tensor,
+                chunk: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """SSD in the chunked dual form (mamba2.py:28-115).
+
+    x (B, L, H, P) inputs a head; dt (B, L, H) softplus'd step sizes; a_log
+    (H,), -A = exp(a_log) > 0; b, c (B, L, N) input and output projections
+    (one group, shared over the heads); d_skip (H,) the skip connection.
+    Returns y (B, L, H, P) in x's dtype and the final state (B, H, N, P) in
+    fp32.
+
+    A tail short of a chunk is zero-padded: dt = 0 there makes the decay
+    exp(0) = 1 and the contribution 0, so the outputs (sliced back) and the
+    final state are exact.  The intra-chunk decay exp(La_i - La_j) is taken
+    of -inf above the diagonal, where JAX takes ``where(causal, exp(diff),
+    0)``: the same values, and no inf * 0 in the backward where the masked
+    exponent overflows."""
+    bsz, L, H, P = x.shape
+    N = b.shape[-1]
+    L_orig = L
+    if L % chunk:
+        pad = chunk - L % chunk
+        x = F.pad(x, (0, 0, 0, 0, 0, pad))
+        dt = F.pad(dt, (0, 0, 0, pad))
+        b = F.pad(b, (0, 0, 0, pad))
+        c = F.pad(c, (0, 0, 0, pad))
+        L += pad
+    nc, q = L // chunk, chunk
+
+    A = -torch.exp(a_log.float())                        # (H,)
+    dt = dt.float()
+    xr = x.reshape(bsz, nc, q, H, P).float()
+    br = b.reshape(bsz, nc, q, N).float()
+    cr = c.reshape(bsz, nc, q, N).float()
+    dtr = dt.reshape(bsz, nc, q, H)
+    # cumulative log-decay within each chunk
+    La = torch.cumsum(dtr * A, dim=2)                    # (B, nc, q, H)
+
+    # ---- intra-chunk: y_i = sum_{j <= i} (C_i . B_j) decay(i<-j) dt_j x_j
+    Lh = La.transpose(2, 3)                              # (B, nc, H, q)
+    ii = torch.arange(q, device=x.device)
+    causal = ii[:, None] >= ii[None, :]
+    decay = torch.exp((Lh[..., :, None] - Lh[..., None, :]).masked_fill(
+        ~causal, float("-inf")))                         # (B, nc, H, i, j)
+    cb = torch.einsum("bcin,bcjn->bcij", cr, br)         # (B, nc, q, q)
+    w = cb[:, :, None] * decay * dtr.transpose(2, 3)[:, :, :, None, :]
+    y_intra = torch.matmul(w, xr.transpose(2, 3))        # (B, nc, H, q, P)
+
+    # ---- chunk states: S_c = sum_j exp(La_last - La_j) dt_j B_j x_j^T
+    last = La[:, :, -1:, :]                              # (B, nc, 1, H)
+    w_state = torch.exp(last - La) * dtr                 # (B, nc, q, H)
+    s_loc = torch.einsum("bcjn,bcjhp->bchnp", br,
+                         xr * w_state[..., None])        # (B, nc, H, N, P)
+
+    # ---- inter-chunk recurrence: S_k = g_k S_{k-1} + s_loc_k
+    g = torch.exp(last[:, :, 0, :])                      # (B, nc, H)
+    state = torch.zeros_like(s_loc[:, 0])
+    entering = []  # the state entering chunk k is S_{k-1}
+    for k in range(nc):
+        entering.append(state)
+        state = g[:, k, :, None, None] * state + s_loc[:, k]
+    s_prev = torch.stack(entering, dim=1)                # (B, nc, H, N, P)
+
+    # ---- inter-chunk output: y_i = exp(La_i) C_i . S_prev
+    y_inter = torch.einsum("bcin,bchnp->bchip", cr, s_prev) \
+        * torch.exp(Lh)[..., None]                       # (B, nc, H, q, P)
+
+    y = (y_intra + y_inter).transpose(2, 3).reshape(bsz, L, H, P)
+    y = y + d_skip.float()[None, None, :, None] * x.float()
+    return y[:, :L_orig].to(x.dtype), state
+
+
+def ssd_decode_step(state: torch.Tensor, x_t: torch.Tensor,
+                    dt_t: torch.Tensor, a_log: torch.Tensor,
+                    b_t: torch.Tensor, c_t: torch.Tensor,
+                    d_skip: torch.Tensor
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """One recurrent step (mamba2.py:118-128).  state (B, H, N, P) fp32;
+    x_t (B, H, P); dt_t (B, H); b_t, c_t (B, N).  Returns (y_t in x_t's
+    dtype, the new state)."""
+    A = -torch.exp(a_log.float())
+    dt = dt_t.float()
+    dA = torch.exp(dt * A[None, :])                      # (B, H)
+    xf = x_t.float()
+    upd = torch.einsum("bn,bh,bhp->bhnp", b_t.float(), dt, xf)
+    new_state = state * dA[..., None, None] + upd
+    y = torch.einsum("bn,bhnp->bhp", c_t.float(), new_state)
+    y = y + d_skip.float()[None, :, None] * xf
+    return y.to(x_t.dtype), new_state
+
+
+# ---------------------------------------------------------------------------
+# the SSM branch, shared with the hybrid
+# ---------------------------------------------------------------------------
+def split_proj(proj: torch.Tensor, d_inner: int, n: int):
+    """in_proj's output -> (z, x, B, C, dt) along the last dim."""
+    return (proj[..., :d_inner], proj[..., d_inner:2 * d_inner],
+            proj[..., 2 * d_inner:2 * d_inner + n],
+            proj[..., 2 * d_inner + n:2 * d_inner + 2 * n],
+            proj[..., 2 * d_inner + 2 * n:])
+
+
+def causal_conv(xbc: torch.Tensor, w: torch.Tensor, bias: torch.Tensor
+                ) -> torch.Tensor:
+    """silu(depthwise causal conv of xbc (B, S, C) by w (K, C) + bias), in
+    xbc's dtype, its K shifted products summed in order from the oldest, as
+    the reference's Python ``sum`` adds them (mamba2.py:186-189)."""
+    w = w.to(xbc.dtype)
+    K, S = w.shape[0], xbc.shape[1]
+    pad = F.pad(xbc, (0, 0, K - 1, 0))
+    conv = pad[:, :S] * w[0]
+    for i in range(1, K):
+        conv = conv + pad[:, i:i + S] * w[i]
+    return F.silu(conv + bias.to(conv.dtype))
+
+
+def ssm_branch_full(h: torch.Tensor, in_proj: torch.Tensor,
+                    conv_w: torch.Tensor, conv_b: torch.Tensor,
+                    a_log: torch.Tensor, dt_bias: torch.Tensor,
+                    d_skip: torch.Tensor, *, d_inner: int, n: int,
+                    head_dim: int, chunk: int):
+    """The SSM branch over a whole sequence, up to the gate: h (B, S, M)
+    -> (y * silu(z) (B, S, d_inner) in h's dtype, (conv state (B, K - 1,
+    conv_dim) in ``ACT_DTYPE``, SSD state (B, H, N, P) fp32)).
+    mamba2.py:180-198 and hybrid.py:85-107 are this function."""
+    bsz, S, _ = h.shape
+    H = d_inner // head_dim
+    proj = h @ in_proj.to(h.dtype)
+    z, xs, b, c, dt = split_proj(proj, d_inner, n)
+    xbc = torch.cat([xs, b, c], dim=-1)                   # (B, S, conv_dim)
+    with _span("ssm.conv"):
+        conv = causal_conv(xbc, conv_w, conv_b)
+    xs, b, c = (conv[..., :d_inner], conv[..., d_inner:d_inner + n],
+                conv[..., d_inner + n:])
+    dt = F.softplus(dt.float() + dt_bias.float())
+    with _span("ssm.scan"):
+        y, final = ssd_chunked(xs.reshape(bsz, S, H, head_dim), dt, a_log,
+                               b, c, d_skip, chunk=min(chunk, S))
+    y = y.reshape(bsz, S, d_inner) * F.silu(z.float()).to(y.dtype)
+    K = conv_w.shape[0]
+    return y, (xbc[:, -(K - 1):].to(ACT_DTYPE), final)
+
+
+def ssm_branch_step(h: torch.Tensor, conv_c: torch.Tensor,
+                    ssd_c: torch.Tensor, in_proj: torch.Tensor,
+                    conv_w: torch.Tensor, conv_b: torch.Tensor,
+                    a_log: torch.Tensor, dt_bias: torch.Tensor,
+                    d_skip: torch.Tensor, *, d_inner: int, n: int,
+                    head_dim: int):
+    """One decode step of the SSM branch, up to the gate: h (B, M) ->
+    (y * silu(z) (B, d_inner), (new conv state, new SSD state)).
+    mamba2.py:293-309 and hybrid.py:203-223 are this function."""
+    bsz = h.shape[0]
+    H = d_inner // head_dim
+    proj = h @ in_proj.to(h.dtype)                       # (B, d_in_proj)
+    z, xs, b, c, dt = split_proj(proj, d_inner, n)
+    xbc = torch.cat([xs, b, c], dim=-1)                   # (B, conv_dim)
+    hist = torch.cat([conv_c, xbc[:, None]], dim=1)       # (B, K, conv_dim)
+    with _span("ssm.conv"):
+        conv = torch.einsum("bkc,kc->bc", hist, conv_w.to(hist.dtype))
+        conv = F.silu(conv + conv_b.to(conv.dtype))
+    xs_c, b_c, c_c = (conv[:, :d_inner], conv[:, d_inner:d_inner + n],
+                      conv[:, d_inner + n:])
+    dt = F.softplus(dt.float() + dt_bias.float())
+    with _span("ssm.scan"):
+        y, new_ssd = ssd_decode_step(ssd_c, xs_c.reshape(bsz, H, head_dim),
+                                     dt, a_log, b_c, c_c, d_skip)
+    y = y.reshape(bsz, d_inner) * F.silu(z.float()).to(y.dtype)
+    return y, (hist[:, 1:].to(ACT_DTYPE), new_ssd)
+
+
+# ---------------------------------------------------------------------------
+# model
+# ---------------------------------------------------------------------------
+class Mamba2LM(BaseModel):
+    """The attention-free SSD language model (mamba2-780m)."""
+
+    def param_defs(self) -> dict:
+        cfg = self.cfg
+        L, M, V = cfg.n_layers, cfg.d_model, cfg.padded_vocab
+        DI, N, H = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
+        conv_dim = DI + 2 * N
+        d_in_proj = 2 * DI + 2 * N + H
+        return {
+            "embed.w": ParamDef((V, M), ("vocab", "embed")),
+            "final_norm.w": ParamDef((M,), (None,), init="ones"),
+            "head.w": ParamDef((M, V), ("embed", "vocab")),
+            "layers.norm.w": ParamDef((L, M), ("layers", None), init="ones"),
+            "layers.in_proj.w": ParamDef((L, M, d_in_proj),
+                                         ("layers", "embed", "ff")),
+            "layers.conv.w": ParamDef((L, cfg.ssm_conv, conv_dim),
+                                      ("layers", None, "ff")),
+            "layers.conv.b": ParamDef((L, conv_dim), ("layers", "ff"),
+                                      init="zeros"),
+            "layers.a_log": ParamDef((L, H), ("layers", None), init="ssm_a"),
+            "layers.d_skip": ParamDef((L, H), ("layers", None), init="ones"),
+            "layers.dt_bias": ParamDef((L, H), ("layers", None),
+                                       init="ssm_dt"),
+            "layers.gate_norm.w": ParamDef((L, DI), ("layers", "ff"),
+                                           init="ones"),
+            "layers.out_proj.w": ParamDef((L, DI, M),
+                                          ("layers", "ff", "embed")),
+        }
+
+    @staticmethod
+    def bf16_copy(params: dict) -> dict:
+        """``params`` with every weight that JAX casts to bf16 at use
+        (mamba2.py:181, 185, 189, 201, 212, 226) cast once; the norm
+        weights, ``a_log``, ``dt_bias`` and ``d_skip`` stay fp32."""
+        return {k: v if k in _FP32 else v.to(ACT_DTYPE)
+                for k, v in params.items()}
+
+    def _branch_kw(self) -> dict:
+        cfg = self.cfg
+        return dict(d_inner=cfg.d_inner, n=cfg.ssm_state,
+                    head_dim=cfg.ssm_head_dim)
+
+    # ------------------------------------------------------------- layer --
+    def _layer_full(self, p: dict, x: torch.Tensor):
+        """x + out_proj(gate_norm(ssm(norm(x)))) over the whole sequence;
+        returns (x, (conv state, SSD state))."""
+        cfg = self.cfg
+        h = rmsnorm(x, p["norm.w"], cfg.norm_eps)
+        y, state = ssm_branch_full(
+            h, p["in_proj.w"], p["conv.w"], p["conv.b"], p["a_log"],
+            p["dt_bias"], p["d_skip"], chunk=cfg.ssm_chunk,
+            **self._branch_kw())
+        y = rmsnorm(y, p["gate_norm.w"], cfg.norm_eps)
+        return x + y @ p["out_proj.w"].to(y.dtype), state
+
+    def _layers(self, params: dict, tokens: torch.Tensor):
+        """Backbone over ``tokens``: yields (x, state) after each layer."""
+        top, stacked = split_params(params)
+        x = top["embed.w"][tokens].to(ACT_DTYPE)
+        for p in unbound(stacked):
+            x, state = self._layer_full(p, x)
+            yield x, state
+
+    def _head(self, params: dict, x: torch.Tensor, last: bool = False
+              ) -> torch.Tensor:
+        """Final norm and LM head; ``last``: the head of the last position
+        alone (the norm runs over every position first, as in JAX)."""
+        x = rmsnorm(x, params["final_norm.w"], self.cfg.norm_eps)
+        if last:
+            x = x[:, -1:]
+        return x @ params["head.w"].to(x.dtype)
+
+    # ----------------------------------------------------------- forward --
+    def forward(self, params: dict, batch: dict) -> torch.Tensor:
+        """Full-sequence forward -> logits (B, S, V)."""
+        x = None
+        for x, _ in self._layers(params, batch["tokens"]):
+            pass
+        return self._head(params, x)
+
+    def loss(self, params: dict, batch: dict):
+        loss = lm_cross_entropy(self.forward(params, batch),
+                                batch["targets"], onehot=self.cfg.ce_onehot)
+        return loss, {"loss": loss}
+
+    # ------------------------------------------------------------- serve --
+    def init_cache(self, batch_size: int, max_len: int, device="cpu"
+                   ) -> dict:
+        """An empty cache (mamba2.py:236-255): ``conv`` (L, B, K - 1,
+        conv_dim) in ``ACT_DTYPE`` (bf16) and ``ssd`` (L, B, H, N, P) fp32
+        on ``device``, ``pos`` a 0-dim int32 on the CPU.  ``max_len`` does
+        not matter."""
+        cfg = self.cfg
+        conv_dim = cfg.d_inner + 2 * cfg.ssm_state
+        return {
+            "conv": torch.zeros((cfg.n_layers, batch_size, cfg.ssm_conv - 1,
+                                 conv_dim), dtype=ACT_DTYPE, device=device),
+            "ssd": torch.zeros((cfg.n_layers, batch_size, cfg.ssm_heads,
+                                cfg.ssm_state, cfg.ssm_head_dim),
+                               dtype=torch.float32, device=device),
+            "pos": torch.zeros((), dtype=torch.int32)}
+
+    def prefill(self, params: dict, batch: dict, max_len: int | None = None):
+        """Encode the prompt: (last-token logits (B, 1, V), the cache of
+        each layer's final conv and SSD states), ``pos`` the prompt length
+        (mamba2.py:257-279).  ``max_len`` is taken and ignored (fault 6 of
+        the reference, whose prefill does not take it)."""
+        tokens = batch["tokens"]
+        convs, ssds = [], []
+        x = None
+        for x, (conv, ssd) in self._layers(params, tokens):
+            convs.append(conv)
+            ssds.append(ssd)
+        logits = self._head(params, x, last=True)
+        return logits, {"conv": torch.stack(convs), "ssd": torch.stack(ssds),
+                        "pos": torch.tensor(tokens.shape[1],
+                                            dtype=torch.int32)}
+
+    def decode_step(self, params: dict, tokens: torch.Tensor, cache: dict):
+        """One-token recurrent step, tokens (B, 1) -> (logits (B, 1, V), a
+        new cache); ``cache`` is left as it was (mamba2.py:281-319)."""
+        cfg = self.cfg
+        top, stacked = split_params(params)
+        x = top["embed.w"][tokens[:, 0]].to(ACT_DTYPE)     # (B, M)
+        convs, ssds = [], []
+        for p, conv_c, ssd_c in zip(unbound(stacked), cache["conv"],
+                                    cache["ssd"]):
+            h = rmsnorm(x, p["norm.w"], cfg.norm_eps)
+            y, (conv, ssd) = ssm_branch_step(
+                h, conv_c, ssd_c, p["in_proj.w"], p["conv.w"], p["conv.b"],
+                p["a_log"], p["dt_bias"], p["d_skip"], **self._branch_kw())
+            y = rmsnorm(y, p["gate_norm.w"], cfg.norm_eps)
+            x = x + y @ p["out_proj.w"].to(y.dtype)
+            convs.append(conv)
+            ssds.append(ssd)
+        logits = self._head(top, x)[:, None, :]
+        return logits, {"conv": torch.stack(convs), "ssd": torch.stack(ssds),
+                        "pos": torch.tensor(int(cache["pos"]) + 1,
+                                            dtype=torch.int32)}

@@ -21,6 +21,7 @@ import dataclasses
 import math
 from typing import Any
 
+import numpy as np
 import torch
 
 
@@ -95,6 +96,20 @@ class ModelConfig:
     def is_moe(self) -> bool:
         return self.n_experts > 0
 
+    @property
+    def d_inner(self) -> int:
+        return self.ssm_expand * self.d_model
+
+    @property
+    def ssm_heads(self) -> int:
+        return self.d_inner // self.ssm_head_dim
+
+    @property
+    def d_inner_hybrid(self) -> int:
+        """Hybrid (hymba) SSM branch width == attention branch width, so the
+        normalized branch outputs fuse elementwise."""
+        return self.n_heads * self.hd
+
     def moe_capacity(self, group_tokens: int) -> int:
         """Slots an expert has for a group (one batch row) of
         ``group_tokens`` tokens: their share of the top-k assignments times
@@ -111,7 +126,7 @@ class ModelConfig:
 class ParamDef:
     shape: tuple
     names: tuple                 # logical axis names (for the parallel port)
-    init: str = "normal"         # normal | zeros | ones
+    init: str = "normal"         # normal | zeros | ones | ssm_a | ssm_dt
     scale: float = 0.02
     dtype: Any = torch.float32
 
@@ -128,8 +143,42 @@ def init_param(generator: torch.Generator, d: ParamDef) -> torch.Tensor:
     if d.init == "normal":
         return (torch.randn(d.shape, generator=generator, device=dev)
                 * d.scale).to(d.dtype)
-    # the ssm inits (ssm_a, ssm_dt) come with the ssm models
+    if d.init in SSM_INITS:
+        lo, hi = SSM_INITS[d.init]
+        u = torch.rand(d.shape, generator=generator, device=dev) \
+            * (hi - lo) + lo
+        return ssm_init(d.init, u).to(d.dtype)
     raise ValueError(f"unknown init {d.init!r}")
+
+
+# the ssm inits (model_api.py:147-152): a uniform draw on [lo, hi), mapped
+# to mamba's A_log = log(u) or its dt bias = softplus^-1(u)
+SSM_INITS = {"ssm_a": (1.0, 16.0), "ssm_dt": (1e-3, 1e-1)}
+
+
+def ssm_init(init: str, u):
+    """``init``'s map of uniform draws ``u`` (a tensor or a numpy array)."""
+    lib = torch if isinstance(u, torch.Tensor) else np
+    return lib.log(u) if init == "ssm_a" else lib.log(lib.expm1(u))
+
+
+def split_params(params: dict) -> tuple[dict, dict]:
+    """(top-level params, stacked layer params without their ``layers.``
+    prefix)."""
+    stacked = {k[len("layers."):]: v for k, v in params.items()
+               if k.startswith("layers.")}
+    top = {k: v for k, v in params.items() if not k.startswith("layers.")}
+    return top, stacked
+
+
+def unbound(stacked: dict):
+    """Each layer's parameters of a stacked dict, in order.  Each stacked
+    parameter is unbound once, not indexed (``v[i]``) a layer: where a graph
+    is recorded, the backward of L indexings writes L zeroed (L, ...)
+    tensors and sums them into the grad, where unbind's backward stacks the
+    L slices once."""
+    for vals in zip(*(v.unbind(0) for v in stacked.values())):
+        yield dict(zip(stacked, vals))
 
 
 class BaseModel:

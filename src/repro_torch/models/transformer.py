@@ -1,6 +1,7 @@
 """Decoder-only transformer LM of the port: the dense, MoE and VLM-backbone
 decoders of the JAX package's zoo (llama3/3.2, chatglm3, minicpm, mixtral,
-moonshot, internvl2's InternLM2).  Twin of ``repro.models.transformer``.
+moonshot, internvl2's InternLM2), and the encoder (hubert) through
+``causal=False``.  Twin of ``repro.models.transformer``.
 
 Structure per layer (pre-norm):
     x += attn(rmsnorm(x))          # GQA + RoPE (+ optional SWA, qkv bias)
@@ -24,10 +25,12 @@ reaches the window keeps a rolling W-slot cache (shifted each step, or a
 ring buffer under ``swa_ring_buffer``); any other cache is padded to
 ``max_len`` and written at ``pos``.  A windowed model on that positional
 cache decodes with full attention past the window, as the reference does
-(ROADMAP.md, Queue 3, fault 5).
+(ROADMAP.md, Queue 3, fault 5), and a positional cache padded to exactly W
+slots is decoded as a rolling one, as the reference does too (fault 7).
 
-Scope: the ``frames`` frontend and bidirectional attention (hubert) raise
-``NotImplementedError`` (ROADMAP.md, Queue 1 item 3).
+Frontends: ``patch`` (internvl2) splices ``patch_embeds`` over the first
+positions; ``frames`` (hubert's audio stub) takes the batch's precomputed
+``frames`` (B, S, M) in place of token embeddings.
 """
 from __future__ import annotations
 
@@ -36,7 +39,7 @@ import torch
 from .layers import (apply_rope, attention, decode_attention, moe_ffn,
                      rmsnorm, swiglu)
 from .losses import lm_cross_entropy
-from .model_api import BaseModel, ModelConfig, ParamDef
+from .model_api import BaseModel, ParamDef, split_params, unbound
 
 ACT_DTYPE = torch.bfloat16
 # read in fp32 where used: the norm weights, and the router (layers.py:227)
@@ -44,25 +47,8 @@ _FP32 = ("final_norm.w", "layers.attn_norm.w", "layers.mlp_norm.w",
          "layers.moe.router")
 
 
-def _unsupported(cfg: ModelConfig) -> str | None:
-    if cfg.frontend == "frames":
-        return "the 'frames' frontend"
-    if not cfg.causal:
-        return "bidirectional (encoder) attention"
-    return None
-
-
 class DecoderLM(BaseModel):
-    """Dense / MoE / VLM-backbone decoder."""
-
-    def __init__(self, cfg: ModelConfig):
-        what = _unsupported(cfg)
-        if what is not None:
-            raise NotImplementedError(
-                f"{cfg.name}: {what} is not ported yet (ROADMAP.md, Queue 1 "
-                f"item 3: hubert's frames, causal=False and a flash "
-                f"instantiation at its head dim 80)")
-        super().__init__(cfg)
+    """Dense / MoE / VLM-backbone decoder (and bidirectional encoder)."""
 
     # ------------------------------------------------------------- params --
     def param_defs(self) -> dict:
@@ -163,20 +149,16 @@ class DecoderLM(BaseModel):
         x = x + (o @ p["attn.wo"].to(o.dtype))
         return self._mlp(p, x, S), (kT, vT)
 
-    @staticmethod
-    def _split_params(params: dict) -> tuple[dict, dict]:
-        stacked = {k[len("layers."):]: v for k, v in params.items()
-                   if k.startswith("layers.")}
-        top = {k: v for k, v in params.items() if not k.startswith("layers.")}
-        return top, stacked
-
     def _head(self, top: dict) -> torch.Tensor:
         return top["embed.w"].T if self.cfg.tie_embeddings else top["head.w"]
 
     def _embed_inputs(self, top: dict, batch: dict) -> torch.Tensor:
         """bf16 token embeddings (B, S, M); under the ``patch`` frontend the
         batch's ``patch_embeds`` (B, P, M), where given, replace the first P
-        positions (transformer.py:138-148)."""
+        positions; under ``frames`` the batch's ``frames`` (B, S, M) are the
+        inputs (transformer.py:138-148)."""
+        if self.cfg.frontend == "frames":
+            return batch["frames"].to(ACT_DTYPE)
         x = top["embed.w"][batch["tokens"]].to(ACT_DTYPE)
         if self.cfg.frontend == "patch" and "patch_embeds" in batch:
             pe = batch["patch_embeds"].to(ACT_DTYPE)
@@ -186,17 +168,12 @@ class DecoderLM(BaseModel):
     def _layers(self, params: dict, batch: dict):
         """Backbone over ``batch``'s inputs: yields (x, (k, v)) after each
         layer; ``x`` enters as ``_embed_inputs``."""
-        top, stacked = self._split_params(params)
+        top, stacked = split_params(params)
         x = self._embed_inputs(top, batch)
         positions = torch.arange(x.shape[1], dtype=torch.int32,
                                  device=x.device)
-        # each stacked parameter is unbound once, not indexed (``v[i]``) a
-        # layer: where a graph is recorded, the backward of L indexings
-        # writes L zeroed (L, ...) tensors and sums them into the grad,
-        # where unbind's backward stacks the L slices once
-        for vals in zip(*(v.unbind(0) for v in stacked.values())):
-            x, kv = self._layer(dict(zip(stacked, vals)), x,
-                                positions=positions)
+        for p in unbound(stacked):
+            x, kv = self._layer(p, x, positions=positions)
             yield x, kv
 
     def _hidden(self, params: dict, batch: dict):
@@ -204,7 +181,7 @@ class DecoderLM(BaseModel):
         x = None
         for x, _ in self._layers(params, batch):
             pass
-        top, _ = self._split_params(params)
+        top, _ = split_params(params)
         return rmsnorm(x, top["final_norm.w"], self.cfg.norm_eps), \
             self._head(top)
 
@@ -279,7 +256,7 @@ class DecoderLM(BaseModel):
                     v = torch.roll(v, S % W, dims=2)
             cache["k"][i, :, :, :k.shape[2]] = k
             cache["v"][i, :, :, :v.shape[2]] = v
-        top, _ = self._split_params(params)
+        top, _ = split_params(params)
         x = rmsnorm(x, top["final_norm.w"], cfg.norm_eps)
         logits = x[:, -1:] @ self._head(top).to(x.dtype)
         cache["pos"] = torch.tensor(S, dtype=torch.int32)
@@ -317,7 +294,7 @@ class DecoderLM(BaseModel):
         raises where it has no room (JAX clamps the write onto the last slot
         instead: fault 3)."""
         cfg = self.cfg
-        top, stacked = self._split_params(params)
+        top, stacked = split_params(params)
         pos = int(cache["pos"])
         eff = cache["k"].shape[3]
         rolling = cfg.window is not None and eff == cfg.window

@@ -34,6 +34,17 @@ the kernels launched in each of ``moe_ffn``'s stage spans (router, sort,
 dispatch, experts, combine), summed over the layers, and the host ms of a
 decode step with those spans opened and without (``span_cost``).
 
+State-space, hybrid and encoder families (slice 9, ``--families-only``).
+``REPEATS`` runs of ``serve:mamba2`` and ``serve:hymba`` (``run_arch``
+orchestrated on mamba2-780m and hymba-1.5b whole) and of ``encode:hubert``
+(``run_encode`` on hubert-xlarge whole, 4 clips of 500 frames), each once
+under the profiler as below; then one prefill and one decode step of each
+decoding family (the encode step for hubert) alone under the profiler: the
+card's busy ms and the device ms by op class, the SSD scan and the conv
+(the kernels launched in the ``ssm.scan`` and ``ssm.conv`` spans), the
+norms and flash attention (the port's kernels), the products (cuBLAS's
+GEMM and GEMV kernels) and the rest.
+
 Last it runs each mixed-mode policy, ``serve --arch``, each zoo path and
 both training runs once under ``torch.profiler`` and prints one JSON line
 each with the card's busy time (the union of all kernel intervals inside the
@@ -44,7 +55,8 @@ It prints the card's name and power limit first.
 Run on a card:  PYTHONPATH=src python -m repro_torch.trace_main_path
 ``--serve-only`` leaves out the mixed-mode DAG and training: the serving
 paths alone; ``--train-only`` runs the training paths alone;
-``--moe-only`` the slice-8 serving runs alone.
+``--moe-only`` the slice-8 serving runs alone; ``--families-only`` the
+slice-9 runs alone.
 """
 from __future__ import annotations
 
@@ -63,7 +75,8 @@ from torch.profiler import ProfilerActivity, profile, record_function
 from . import mixed_mode
 from .core import random_dag
 from .launch import serve, train, zoo
-from .models import get_model, layers, make_decode_step, make_prefill_step
+from .models import (get_model, layers, make_decode_step, make_encode_step,
+                     make_prefill_step)
 
 N_TASKS = 3000  # the main path's size (mixed_mode.run's default)
 REPEATS = 5     # runs of each policy without and with a ChunkLog
@@ -349,6 +362,9 @@ def main(argv=None) -> None:
     legs.add_argument("--moe-only", action="store_true",
                       help="the MoE, sliding-window and patch decoders' "
                            "serving runs alone")
+    legs.add_argument("--families-only", action="store_true",
+                      help="the ssm, hybrid and encoder families' runs "
+                           "alone")
     args = ap.parse_args(argv)
     mixed_mode.resolve_device("cuda")
     print(json.dumps({"card": subprocess.run(
@@ -360,6 +376,9 @@ def main(argv=None) -> None:
         return
     if args.moe_only:
         trace_moe()
+        return
+    if args.families_only:
+        trace_families()
         return
     policies = () if args.serve_only else mixed_mode.POLICIES
     if policies:
@@ -388,10 +407,14 @@ def main(argv=None) -> None:
         trace_training()
 
 
+MOE_PATHS = ("serve:mixtral", "serve:moonshot", "serve:internvl2")
+FAMILY_PATHS = ("serve:mamba2", "serve:hymba")
+
+
 def trace_moe() -> None:
-    """Each of ``serve.ARCH_RUNS``: its spread, one traced run, and for the
-    MoE decoders the stage times of a prefill and a decode step."""
-    for path in serve.ARCH_RUNS:
+    """Each of ``MOE_PATHS``: its spread, one traced run, and for the MoE
+    decoders the stage times of a prefill and a decode step."""
+    for path in MOE_PATHS:
         run = serve.arch_run(path)
         print(json.dumps(arch_spread(path, **run)), flush=True)
         print(json.dumps(traced(path, serve.ARCH_SPAN,
@@ -399,6 +422,133 @@ def trace_moe() -> None:
         torch.cuda.empty_cache()
         if run["config"].is_moe:
             print(json.dumps(moe_ops(path)), flush=True)
+
+
+def op_class(name: str) -> str:
+    """The op class of a kernel outside the ssm spans, by its name."""
+    low = name.lower()
+    if "rmsnorm" in low:
+        return "rmsnorm"
+    if "flash" in low:
+        return "flash_attention"
+    if any(k in low for k in ("gemm", "gemv", "cutlass", "xmma", "sm90",
+                              "nvjet")):
+        return "products"
+    return "other"
+
+
+def op_device_ms(events: list) -> dict:
+    """Device ms of every kernel in ``events`` by op class: ``ssd_scan`` or
+    ``conv`` for a kernel launched inside an ``ssm.scan`` or ``ssm.conv``
+    span (its launch call on the same thread inside the span, as
+    ``span_device_ms`` matches them), else ``op_class`` of its name."""
+    spans = [e for e in events if e.get("cat") == "user_annotation"
+             and e.get("name", "") in ("ssm.scan", "ssm.conv")]
+    launch = {e["args"]["correlation"]: e for e in events
+              if e.get("cat") in ("cuda_runtime", "cuda_driver")
+              and "correlation" in e.get("args", {})}
+    out = collections.defaultdict(float)
+    for k in (e for e in events if e.get("cat") == "kernel"):
+        call = launch.get(k.get("args", {}).get("correlation"))
+        cls = op_class(k["name"])
+        for sp in spans if call is not None else ():
+            if sp["tid"] == call["tid"] and \
+                    sp["ts"] <= call["ts"] <= sp["ts"] + sp["dur"]:
+                cls = {"ssm.scan": "ssd_scan", "ssm.conv": "conv"}[sp["name"]]
+                break
+        out[cls] += k["dur"] / 1e3
+    return {"device_ms_total": sum(out.values()),
+            "by_op": dict(sorted(out.items()))}
+
+
+def family_ops(path: str) -> dict:
+    """One prefill and one decode step of ``serve.ARCH_RUNS[path]`` (or
+    the encode step of ``serve.ENCODE_RUNS[path]``), warm, each alone under
+    the profiler: the card's busy ms, the kernels launched and the device
+    ms by op class (``op_device_ms``)."""
+    if path in serve.ENCODE_RUNS:
+        out = serve.run_encode(path)
+        model, weights, batch = out["model"], out["weights"], out["batch"]
+        del out
+        step = make_encode_step(model)
+        calls = (("encode", lambda: step(weights, batch)),)
+        cfg = model.cfg
+    else:
+        run = serve.arch_run(path)
+        cfg = run["config"]
+        model = get_model(cfg)
+        weights = model.bf16_copy(model.init(
+            torch.Generator("cuda").manual_seed(0)))
+        toks = torch.randint(0, cfg.vocab_size,
+                             (run["batch"], run["prompt_len"]),
+                             device="cuda",
+                             generator=torch.Generator("cuda").manual_seed(1))
+        prefill, decode = make_prefill_step(model), make_decode_step(model)
+        logits, cache = prefill(weights, {"tokens": toks})
+        nxt = logits.argmax(-1)
+        calls = (("prefill", lambda: prefill(weights, {"tokens": toks})),
+                 ("decode_step", lambda: decode(weights, nxt, cache)))
+    for _, fn in calls:
+        fn()
+    torch.cuda.synchronize()
+    row = {"path": path, "arch": cfg.name, "layers": cfg.n_layers}
+    for name, fn in calls:
+        events = trace_events(fn)
+        kernels = [e for e in events if e.get("cat") == "kernel"]
+        row[name] = {
+            "device_busy_ms": _union_us((e["ts"], e["ts"] + e["dur"])
+                                        for e in kernels) / 1e3,
+            "kernels": len(kernels), **op_device_ms(events)}
+        walls = []
+        for _ in range(20):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        row[name]["wall_ms_median"] = statistics.median(walls)
+    row["peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    del weights, calls
+    torch.cuda.empty_cache()
+    return row
+
+
+def encode_spread(path: str) -> dict:
+    """``REPEATS`` runs of ``serve.run_encode(path)``, each encoding its
+    batch twice (the first warms): the second encode's time."""
+    runs = []
+    for _ in range(REPEATS):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        out = serve.run_encode(path, repeats=2)
+        runs.append({"encode_s": out["encode_s"],
+                     "peak_memory_gib": torch.cuda.max_memory_allocated()
+                     / 2 ** 30})
+        del out
+    warm = [r["encode_s"][-1] for r in runs]
+    return {"path": path, "runs": runs,
+            "encode_s_median": statistics.median(warm),
+            "encode_s_min": min(warm), "encode_s_max": max(warm)}
+
+
+def trace_families() -> None:
+    """serve:mamba2 and serve:hymba (spread and one traced run each),
+    encode:hubert likewise, then each path's op breakdown
+    (``family_ops``)."""
+    for path in FAMILY_PATHS:
+        run = serve.arch_run(path)
+        print(json.dumps(arch_spread(path, **run)), flush=True)
+        print(json.dumps(traced(path, serve.ARCH_SPAN,
+                                lambda: serve.run_arch(**run))), flush=True)
+        torch.cuda.empty_cache()
+    for path in serve.ENCODE_RUNS:
+        print(json.dumps(encode_spread(path)), flush=True)
+        print(json.dumps(traced(path, serve.ENCODE_SPAN,
+                                lambda: serve.run_encode(path, repeats=2))),
+              flush=True)
+        torch.cuda.empty_cache()
+    for path in FAMILY_PATHS + tuple(serve.ENCODE_RUNS):
+        torch.cuda.reset_peak_memory_stats()
+        print(json.dumps(family_ops(path)), flush=True)
 
 
 def trace_training() -> None:

@@ -48,6 +48,7 @@ def test_importing_the_port_loads_no_jax_and_no_repro():
         "import repro_torch.launch.train, repro_torch.train_orchestrator\n"
         "import repro_torch.data, repro_torch.optimizer\n"
         "import repro_torch.checkpointing, repro_torch.configs.minicpm_2b\n"
+        "import repro_torch.models.mamba2, repro_torch.models.hybrid\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro', 'ml_dtypes')]\n"
         "print(json.dumps(bad))\n")

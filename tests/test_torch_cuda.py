@@ -28,7 +28,7 @@ import torch
 
 from repro_torch import mixed_mode
 from repro_torch.configs import get_smoke_config
-from repro_torch.models import get_model, transformer
+from repro_torch.models import get_model, hybrid, mamba2, transformer
 from repro_torch.models.convert import numpy_params, params_from_numpy
 from repro_torch.models.layers import moe_ffn
 from repro_torch.core.serve_orchestrator import bursty_serving_trace
@@ -667,6 +667,128 @@ def test_flash_kernel_at_mixtrals_windowed_prefill(card):
     want = flash_attention.plain(q, k, v, window=4096)
     torch.testing.assert_close(got.float(), want.float(), rtol=1e-2,
                                atol=2e-3)
+
+
+@pytest.mark.parametrize("dtype,rtol,atol", [(torch.float32, 2e-4, 2e-4),
+                                            (torch.bfloat16, 1e-2, 2e-3)])
+@pytest.mark.parametrize("hkv,causal", [(16, False), (4, False), (4, True)])
+def test_flash_kernel_at_huberts_encode(card, hkv, causal, dtype, rtol,
+                                        atol):
+    """hubert-xlarge's encode attention at head dim 80: 4 clips of 500
+    frames (not a multiple of the 64-row tile), 16 heads, not causal, as
+    the encoder calls it (bq = bk = S); and over 4 kv heads, causal and
+    not; each one launch, against the plain version."""
+    q = _t((4, 16, 500, 80), dtype, 44, card)
+    k = _t((4, hkv, 500, 80), dtype, 45, card)
+    v = _t((4, hkv, 500, 80), dtype, 46, card)
+    before = launch_counts()["flash_attention"]
+    got = ops.flash_attention(q, k, v, causal=causal, bq=500, bk=500)
+    assert launch_counts()["flash_attention"] == before + 1
+    want = flash_attention.plain(q, k, v, causal=causal)
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                               atol=atol)
+
+
+@pytest.mark.parametrize("x_dtype,w_dtype,tol", [
+    (torch.float32, torch.float32, 2e-5),
+    (torch.bfloat16, torch.bfloat16, 2e-2),
+    (torch.bfloat16, torch.float32, 2e-2)])
+@pytest.mark.parametrize("d", [1280, 1536, 1600, 3072])
+def test_rmsnorm_kernel_at_the_families_widths(card, d, x_dtype, w_dtype,
+                                               tol):
+    """hubert's d_model (1280), mamba2's d_model and d_inner (1536, 3072)
+    and hymba's d_model and fused width (1600), at every row count around
+    a step of the launch's geometry."""
+    w = _t((d,), w_dtype, 50, card)
+    for rows in rmsnorm.EDGE_ROWS:
+        x = _t((rows, d), x_dtype, rows + 51, card)
+        torch.testing.assert_close(
+            rmsnorm.rmsnorm(x, w, eps=1e-5).float(),
+            rmsnorm.plain(x, w, eps=1e-5).float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("arch", ["mamba2-780m", "hymba-1.5b",
+                                  "hubert-xlarge"])
+def test_ssm_hybrid_and_encoder_families_on_the_card_match_the_cpu(
+        card, monkeypatch, arch):
+    """The smoke mamba2 (chunk 16), hymba (window 32, layer 0 global; at
+    head_dim 32, a size the flash kernel takes) and hubert (at head_dim
+    80), one set of numpy weights on the card and the CPU, in fp32
+    activations.  forward over 41 tokens (frames for hubert): mamba2's
+    three chunks and a padded tail, hymba past its window; prefill of 40
+    and 4 decode steps (hymba's windowed layer rolling, its global one
+    positional) agree at rtol = atol = 1e-3, each call launching its
+    kernels exactly; the loss grads within 1e-3 relative Frobenius a
+    parameter."""
+    for mod in (transformer, mamba2, hybrid):
+        monkeypatch.setattr(mod, "ACT_DTYPE", torch.float32)
+    cfg = get_smoke_config(arch)
+    if cfg.family != "ssm":
+        cfg = dataclasses.replace(cfg, head_dim=80 if arch ==
+                                  "hubert-xlarge" else 32)
+    model = get_model(cfg)
+    arrays = numpy_params(model, seed=4)
+    rng = np.random.default_rng(5)
+    if cfg.frontend == "frames":
+        batch = {"frames": torch.from_numpy(rng.standard_normal(
+            (2, 41, cfg.d_model), dtype=np.float32))}
+    else:
+        batch = {"tokens": torch.from_numpy(rng.integers(
+            0, cfg.vocab_size, (2, 44)))}
+    batch["targets"] = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                                     (2, 41)))
+    L = cfg.n_layers
+    norms = (4 if cfg.family == "hybrid" else 2) * L + 1
+    flash = 0 if cfg.family == "ssm" else L
+
+    def counted(fn, n_flash):
+        before = launch_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        after = launch_counts()
+        assert {k: after[k] - before[k] for k in after} == {
+            "matmul": 0, "copy": 0, "triad": 0, "sort_rows": 0,
+            "rmsnorm": norms, "flash_attention": n_flash}
+        return out
+
+    def close(got, want):
+        torch.testing.assert_close(got.float().cpu(), want.float(),
+                                   rtol=1e-3, atol=1e-3)
+
+    def on(dev, n=41):
+        return {k: (v[:, :n] if k != "targets" else v).to(dev)
+                for k, v in batch.items()}
+
+    cpu = params_from_numpy(arrays, "cpu")
+    gpu = params_from_numpy(arrays, card)
+    with torch.inference_mode():
+        close(counted(lambda: model.forward(gpu, on(card)), flash),
+              model.forward(cpu, on("cpu")))
+    if cfg.frontend != "frames":
+        pre_g, cache_g = counted(lambda: model.prefill(gpu, on(card, 40)),
+                                 flash)
+        pre_c, cache_c = model.prefill(cpu, on("cpu", 40))
+        close(pre_g, pre_c)
+        for i in range(40, 44):
+            tok = batch["tokens"][:, i:i + 1]
+            dec_g, cache_g = counted(lambda: model.decode_step(
+                gpu, tok.to(card), cache_g), 0)
+            dec_c, cache_c = model.decode_step(cpu, tok, cache_c)
+            close(dec_g, dec_c)
+            close(cache_g["ssd"], cache_c["ssd"])
+        if cfg.family == "hybrid":
+            assert [k.shape[2] for k in cache_g["k"]] == [104, 32]
+    grads = {}
+    for dev, params in (("cuda", gpu), ("cpu", cpu)):
+        leaves = {k: v.detach().requires_grad_() for k, v in params.items()}
+        loss, _ = model.loss(leaves, on(dev))
+        loss.backward()
+        grads[dev] = {k: v.grad for k, v in leaves.items()
+                      if v.grad is not None}
+    assert set(grads["cuda"]) == set(grads["cpu"])
+    for name, want in grads["cpu"].items():
+        got = grads["cuda"][name].float().cpu()
+        assert float((got - want).norm() / want.norm()) <= 1e-3, name
 
 
 def test_transformer_tenant_on_the_card_launches_every_chunk(card):

@@ -16,6 +16,8 @@ import numpy as np
 import pytest
 import torch
 
+import repro.models.hybrid as jax_hybrid
+import repro.models.mamba2 as jax_mamba2
 import repro.models.transformer as jax_transformer
 from repro.configs import get_smoke_config as jax_smoke_config
 from repro.core import hikey960 as jax_hikey960
@@ -33,8 +35,8 @@ from repro_torch.configs import get_smoke_config
 from repro_torch.core import hikey960, make_policy
 from repro_torch.data import SyntheticLM
 from repro_torch.launch import train
-from repro_torch.models import (get_model, loss_and_grads, make_train_step,
-                                transformer)
+from repro_torch.models import (get_model, hybrid, loss_and_grads,
+                                make_train_step, mamba2, transformer)
 from repro_torch.models.convert import params_from_numpy
 from repro_torch.models.losses import lm_cross_entropy
 from repro_torch.optimizer import adamw_init, adamw_update, cosine_schedule
@@ -50,13 +52,24 @@ STEPS = 3
 _JAX_RUNS: dict = {}  # (arch, activations) -> JAX's trajectory
 
 
-def _batches(vocab: int) -> list:
+def _batches(vocab: int, frames: int = 0) -> list:
+    """STEPS batches of 2 x 16 tokens, or with ``frames`` (a d_model) of
+    2 x 16 frames (fp32 draws that each package casts to bf16) and
+    targets."""
     rng = np.random.default_rng(21)
     out = []
     for _ in range(STEPS):
         t = rng.integers(0, vocab, (2, 17)).astype(np.int32)
         out.append({"tokens": t[:, :-1], "targets": t[:, 1:]})
+        if frames:
+            out[-1]["frames"] = rng.standard_normal(
+                (2, 16, frames)).astype(np.float32)
+            del out[-1]["tokens"]
     return out
+
+
+def _frames_width(cfg) -> int:
+    return cfg.d_model if cfg.frontend == "frames" else 0
 
 
 def _jax_run(activations: str, arch: str = ARCH) -> dict:
@@ -69,9 +82,10 @@ def _jax_run(activations: str, arch: str = ARCH) -> dict:
         step = jax.jit(jax_make_train_step(jm, jax_cosine_schedule(
             1e-3, warmup_steps=2, total_steps=STEPS)))
         metrics, states = [], []
-        for b in _batches(jm.cfg.vocab_size):
-            params, opt, m = step(params, opt,
-                                  {k: jnp.asarray(v) for k, v in b.items()})
+        for b in _batches(jm.cfg.vocab_size, _frames_width(jm.cfg)):
+            params, opt, m = step(params, opt, {
+                k: jnp.asarray(v, jnp.bfloat16 if k == "frames" else None)
+                for k, v in b.items()})
             metrics.append({k: float(m[k])
                             for k in ("loss", "grad_norm", "lr")})
             states.append({name: {k: np.asarray(v) for k, v in tree.items()}
@@ -117,6 +131,26 @@ def test_make_train_step_matches_jax_on_the_moe_decoders(
                           activations)
     else:
         _check_masked_moe_train_steps(launches, monkeypatch, arch)
+
+
+@pytest.mark.parametrize("activations", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", ["mamba2-780m", "hymba-1.5b",
+                                  "hubert-xlarge"])
+def test_make_train_step_matches_jax_on_the_ssm_hybrid_and_encoder(
+        launches, monkeypatch, arch, activations):
+    """mamba2-smoke, hymba-smoke and hubert-smoke (on 2 x 16 frames),
+    through the kernels' Functions.  In fp32 every step's metrics, params
+    and moments at rtol 1e-4 / atol 1e-5.  In bf16 every step's loss and
+    grad norm at 3e-2, and the first step's moments (the grads of the same
+    weights) at 3e-2 relative Frobenius.  The params are left out in bf16:
+    AdamW's first step moves an element by lr * sign(grad), and an element
+    whose grad lies within the two packages' bf16 noise of 0 steps the
+    other way (one of mamba2-smoke's 320 zero-initialised conv biases:
+    0.113 relative on that parameter), and the later steps' grads follow
+    the params apart.  hubert's token embedding, which frames skip, gets
+    zero grads in both packages and moves by the weight decay alone."""
+    _check_train_step(launches, monkeypatch, arch, "functions", activations,
+                      bf16_state_steps=1)
 
 
 class _MaskedLoss:
@@ -229,12 +263,17 @@ def _check_masked_moe_train_steps(launches, monkeypatch, arch):
     assert min(kept) >= 0.5, kept
 
 
-def _check_train_step(launches, monkeypatch, arch, route, activations):
+def _check_train_step(launches, monkeypatch, arch, route, activations,
+                      bf16_state_steps: int = STEPS):
     """``route``'s make_train_step for STEPS steps against JAX's: each
-    step's metrics, params and moments."""
+    step's metrics, params and moments; in bf16 the params and moments of
+    the first ``bf16_state_steps`` steps only, and with that below STEPS
+    the moments alone."""
     if activations == "float32":
-        monkeypatch.setattr(jax_transformer, "jnp", _Float32Jnp())
-        monkeypatch.setattr(transformer, "ACT_DTYPE", torch.float32)
+        for mod in (jax_transformer, jax_mamba2, jax_hybrid):
+            monkeypatch.setattr(mod, "jnp", _Float32Jnp())
+        for mod in (transformer, mamba2, hybrid):
+            monkeypatch.setattr(mod, "ACT_DTYPE", torch.float32)
     want = _jax_run(activations, arch)
     if route == "functions":
         _as_if_on_the_card(monkeypatch)
@@ -243,18 +282,24 @@ def _check_train_step(launches, monkeypatch, arch, route, activations):
     opt = adamw_init(params)
     step = make_train_step(model, cosine_schedule(1e-3, warmup_steps=2,
                                                   total_steps=STEPS))
-    for b, jm, ref in zip(_batches(model.cfg.vocab_size), want["metrics"],
-                          want["states"]):
-        params, opt, m = step(params, opt, {k: torch.from_numpy(v)
-                                            for k, v in b.items()})
-        assert set(m) == {"loss", "ppl_proxy", "grad_norm", "lr"}
+    decoder = model.cfg.family in ("decoder", "encoder")
+    for i, (b, jm, ref) in enumerate(zip(_batches(
+            model.cfg.vocab_size, _frames_width(model.cfg)),
+            want["metrics"], want["states"])):
+        params, opt, m = step(params, opt, {
+            k: torch.from_numpy(v).to(torch.bfloat16 if k == "frames"
+                                      else None) for k, v in b.items()})
+        assert set(m) == {"loss", "grad_norm", "lr"} | (
+            {"ppl_proxy"} if decoder else set())
         assert not any(v.requires_grad for v in m.values())
         rtol = 1e-4 if activations == "float32" else 3e-2
         for k in ("loss", "grad_norm", "lr"):
             np.testing.assert_allclose(m[k].item(), jm[k], rtol=rtol,
                                        err_msg=k)
-        for part, tree in (("params", params), ("mu", opt.mu),
-                           ("nu", opt.nu)):
+        held = (("params", params), ("mu", opt.mu), ("nu", opt.nu))
+        if activations == "bfloat16" and bf16_state_steps < STEPS:
+            held = held[1:] if i < bf16_state_steps else ()
+        for part, tree in held:
             assert set(tree) == set(ref[part])
             for name, got in tree.items():
                 assert got.dtype == torch.float32
@@ -265,9 +310,14 @@ def _check_train_step(launches, monkeypatch, arch, route, activations):
                 else:
                     assert _rel(got, ref[part][name]) <= 3e-2, name
     layers = model.cfg.n_layers
-    assert dict(launches) == ({"rmsnorm": STEPS * (2 * layers + 1),
-                               "flash_attention": STEPS * layers}
-                              if route == "functions" else {})
+    per_step = {"decoder": {"rmsnorm": 2 * layers + 1,
+                            "flash_attention": layers},
+                "ssm": {"rmsnorm": 2 * layers + 1},
+                "hybrid": {"rmsnorm": 4 * layers + 1,
+                           "flash_attention": layers}}
+    per_step["encoder"] = per_step["decoder"]
+    assert dict(launches) == ({k: STEPS * n for k, n in per_step[
+        model.cfg.family].items()} if route == "functions" else {})
     assert int(opt.step) == want["step"] == STEPS
 
 

@@ -207,12 +207,10 @@ def test_serve_shapes_are_llama_widths():
 
 
 def test_model_flavors_and_the_default_device_raise():
-    for flavor in ("ssm", "hybrid"):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-            zoo.ZooTenant("t", flavor=flavor, device="cpu")
-        with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-            zoo.default_zoo({"steady": flavor}, device="cpu",
-                            shapes=zoo.ZOO_SHAPES)
+    assert zoo.FLAVORS == jzoo.FLAVORS
+    for flavor in zoo.FLAVORS:  # every flavor builds
+        assert zoo.ZooTenant("t", flavor=flavor, device="cpu",
+                             shapes=zoo.ZOO_SHAPES).flavor == flavor
     with pytest.raises(ValueError, match="unknown flavor"):
         zoo.ZooTenant("t", flavor="moe", device="cpu")
     if torch.cuda.is_available():
