@@ -38,7 +38,17 @@ that run it, and drives every ported path at full size:
   ``SyntheticLM(seed=0)``, AdamW under the cosine schedule, clipping) at
   the full published size (``phase_train``), then ``--orchestrate
   --microbatches 2`` for 4 steps, against a sequential run of the same
-  grads and updates (``phase_train_orchestrated``).
+  grads and updates (``phase_train_orchestrated``);
+* slice 10: the zoo's kernel tenants with both implementations bound as
+  TAO variants, "ref" (the plain versions) and "cuda", serving the
+  100-request backlog (``phase_multi_impl``); the paper's mixed-mode DAG
+  under a chaos plan that degrades one worker and kills another, with PTT
+  straggler detection, an elastic fleet's heartbeats and re-mesh, and a
+  second DAG on the re-meshed fleet (``phase_fleet``); one loss-and-grads of the full
+  llama3.2-1b and three rounds of int8 gradient sync with error feedback
+  over a one-rank NCCL mesh, held against the CPU (``phase_grad_sync``);
+  the ``serve_lm`` and ``train_lm`` example twins at their defaults
+  (``phase_examples``).
 
 Besides, it holds the RMSNorm kernel against its plain version at every
 edge of its geometry (``check_rmsnorm_edges``), and the decoder's loss
@@ -68,22 +78,27 @@ from __future__ import annotations
 import collections
 import contextlib
 import dataclasses
+import gc
 import json
 import math
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 from types import SimpleNamespace
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 # the port from this checkout; in a directory without it the import fails
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 from repro_torch import kernels, mixed_mode  # noqa: E402
-from repro_torch.core import random_dag  # noqa: E402
+from repro_torch.core import (LITTLE, ChaosPlan,  # noqa: E402
+                              ThreadedRuntime, Workload, hikey960,
+                              make_policy, random_dag)
 from repro_torch.core.serve_orchestrator import DECODE_UNIT  # noqa: E402
 from repro_torch.checkpointing import (CheckpointManager,  # noqa: E402
                                       Template)
@@ -107,6 +122,13 @@ from repro_torch.models.convert import (numpy_params,  # noqa: E402
 from repro_torch.optimizer import (adamw_init, adamw_update,  # noqa: E402
                                    cosine_schedule)
 from repro_torch.workers import ChunkLog  # noqa: E402
+from repro_torch.examples import serve_lm, train_lm  # noqa: E402
+from repro_torch.launch.mesh import make_debug_mesh  # noqa: E402
+from repro_torch.parallel import use_sharding  # noqa: E402
+from repro_torch.parallel.collectives import (grad_sync_tree,  # noqa: E402
+                                              quantize_int8)
+from repro_torch.runtime_ft import (ElasticFleet,  # noqa: E402
+                                    StragglerDetector)
 
 N_TASKS, DEGREE, SEED = 3000, 3.03, 1
 PTT_FLOOR = 0.8  # a PTT time must cover this share of its kernel's time
@@ -168,16 +190,37 @@ TF_DECODE = {"serve:mixtral": 8, "serve:moonshot": 4}
 MOVED_SHARE = 4 / 128
 # internvl2's loss with patch_embeds: 2 rows of its 256 patches and 64 tokens
 PATCH_BATCH, PATCH_SEQ = 2, 320
+# slice 10's paths: the zoo's kernel tenants with both impls bound
+# (multi_impl), the mixed-mode DAG under chaos with straggler detection and
+# an elastic re-mesh (fleet), the grad sync of the full llama3.2-1b
+# (grad_sync), and the serve_lm and train_lm twins at their defaults
+MULTI_IMPL_PATH, FLEET_PATH = "multi_impl", "fleet"
+# the policies explore an untried (leader, width) cell's variants in
+# declared order, "ref" first: over serve:entry's 24 requests most cells
+# are visited once, and "cuda" ran as few as 5 of 48 prefill chunks on an
+# NVIDIA H100 80GB HBM3 (1 of 48 in runs on the CPU), so a kernel could go
+# unlaunched; the backlog's 100 requests revisit the cells
+MULTI_IMPL_TRACE = "serve:backlog"
+GRAD_SYNC_PATH, EXAMPLES_PATH = "grad_sync", "examples"
+# fleet: worker 5 (BIG) runs at 0.3 of its speed from the start, worker 2
+# (LITTLE) is killed 1 s in; the second DAG runs on the re-meshed fleet
+FLEET_SLOW, FLEET_SPEED, FLEET_KILLED, FLEET_KILL_AT = 5, 0.3, 2, 1.0
+FLEET_SECOND = 300
+GRAD_SYNC_ROUNDS = 3
 # kernel -> the paths whose main run must launch it.  triad has no caller
 # in either package: it is checked and timed, and no path runs it.
-KERNEL_PATHS = {"matmul": MIXED_PATHS + SERVE_PATHS,
-                "copy": MIXED_PATHS + SERVE_PATHS,
+KERNEL_PATHS = {"matmul": MIXED_PATHS + SERVE_PATHS
+                + (MULTI_IMPL_PATH, FLEET_PATH),
+                "copy": MIXED_PATHS + SERVE_PATHS
+                + (MULTI_IMPL_PATH, FLEET_PATH),
                 "triad": (),
-                "sort_rows": MIXED_PATHS,
+                "sort_rows": MIXED_PATHS + (FLEET_PATH,),
                 "rmsnorm": (MODEL_PATH,) + SERVE_PATHS + TRAIN_PATHS
-                + MOE_PATHS + FAMILY_PATHS,
+                + MOE_PATHS + FAMILY_PATHS + (GRAD_SYNC_PATH, EXAMPLES_PATH),
                 "flash_attention": (MODEL_PATH,) + SERVE_PATHS + TRAIN_PATHS
-                + MOE_PATHS + ("serve:hymba", ENCODE_PATH, FAMILY_ZOO_PATH)}
+                + MOE_PATHS + ("serve:hymba", ENCODE_PATH, FAMILY_ZOO_PATH,
+                               MULTI_IMPL_PATH, GRAD_SYNC_PATH,
+                               EXAMPLES_PATH)}
 # kernel -> the shape (a key of phase_times's result) its top-level numbers
 # in the kernels line are taken at: the path that brought it into the port
 MAIN_SHAPE = {"matmul": "mixed_mode", "copy": "mixed_mode",
@@ -333,7 +376,7 @@ def phase_kernels() -> dict:
             ((torch.float32, 2e-5),) if cfg.is_moe else ())
         norm_cases += [(r, cfg.d_model, r, xd, torch.float32, cfg.norm_eps,
                         tol) for r in sorted(rows) for xd, tol in acts]
-    norm_cases += family_norm_cases()
+    norm_cases += family_norm_cases() + example_norm_cases()
     for i, (rows, d, block, xd, wd, eps, tol) in enumerate(norm_cases):
         x, w = tensor((rows, d), xd, 70 + i), tensor((d,), wd, 90 + i)
         got = ops.rmsnorm(x, w, eps=eps, block_rows=block).float()
@@ -404,6 +447,19 @@ def family_norm_cases() -> list:
     out.append((p_b * p_s, cfg.d_model, p_b * p_s, torch.float32,
                 torch.float32, cfg.norm_eps, 2e-5))
     return out
+
+
+def example_norm_cases() -> list:
+    """rmsnorm cases (rows, d, block, x dtype, w dtype, eps, tol) at the
+    examples phase's shapes: serve_lm's prefill over its prompt and its
+    decode step at ``demo_config()``'s width, and a train_lm step's forward
+    over its batch at ``config_100m()``'s; bf16 x, fp32 w, all rows in one
+    block as ``layers.rmsnorm`` launches them."""
+    s_cfg, t_cfg = serve_lm.demo_config(), train_lm.config_100m()
+    return [(r, cfg.d_model, r, torch.bfloat16, torch.float32, cfg.norm_eps,
+             2e-2) for cfg, rows in ((s_cfg, (serve_lm.PROMPT_LEN, 1)),
+                                     (t_cfg, (train_lm.BATCH * train_lm.SEQ,)))
+            for r in rows]
 
 
 def check_sort_edges() -> int:
@@ -566,7 +622,7 @@ def check_flash() -> tuple[int, float, float]:
     cfg = get_config("internvl2-2b")
     cases.append(((PATCH_BATCH, cfg.n_heads, cfg.n_kv_heads, PATCH_SEQ,
                    PATCH_SEQ, cfg.hd), torch.bfloat16, True, None, PATCH_SEQ))
-    cases += family_flash_cases()
+    cases += family_flash_cases() + example_flash_cases()
     worst = main = 0.0
     for i, case in enumerate(cases):
         (b, hq, hkv, sq, sk, d), dtype, causal, window, tile = case
@@ -622,6 +678,20 @@ def family_flash_cases() -> list:
                            (2, MODEL_PROMPT, (torch.bfloat16,))):
         out += [((bb, hy.n_heads, hy.n_kv_heads, sq, sq, hy.hd), dt, True,
                  win, sq) for dt in dtypes for win in (hy.window, None)]
+    return out
+
+
+def example_flash_cases() -> list:
+    """flash cases at the examples phase's shapes, with the tiles
+    ``layers.attention`` passes (bq = bk = S): serve_lm's prefill over its
+    prompt (batch 1) and a train_lm step's forward over its batch, causal
+    in bf16."""
+    out = []
+    for cfg, b, sq in ((serve_lm.demo_config(), 1, serve_lm.PROMPT_LEN),
+                       (train_lm.config_100m(), train_lm.BATCH,
+                        train_lm.SEQ)):
+        out.append(((b, cfg.n_heads, cfg.n_kv_heads, sq, sq, cfg.hd),
+                    torch.bfloat16, True, cfg.window, sq))
     return out
 
 
@@ -2270,6 +2340,463 @@ def phase_families() -> dict:
     return launches
 
 
+# ------------------------------------------------------ slice 10's phases
+def phase_multi_impl() -> dict:
+    """multi_impl: two kernel tenants at SERVE_SHAPES, each binding the
+    plain versions ("ref") and the kernels ("cuda") as TAO variants, serve
+    MULTI_IMPL_TRACE under molding:weight.
+    Every admitted request completes and each chunk runs once; a TAO's
+    chunks all run one impl (a continuation keeps its TAO's); the kernels
+    launch exactly as the "cuda" chunks call them (a prefill chunk one
+    flash attention and one projection, a decode step one copy and one
+    GEMV) and the "ref" chunks launch none.  Reports chunks per impl and
+    the PTT's fastest time per (class, impl, width); whether the scheduler
+    learns to avoid "ref" is reported, not held.  Returns kernel ->
+    launches."""
+    tenants = zoo.default_zoo({"steady": "kernel", "burst": "kernel"},
+                              multi_impl=True)
+    for name, t in tenants.items():
+        if tuple(t._impl_payloads) != ("ref", "cuda"):
+            raise AssertionError(f"multi_impl: {name} binds "
+                                 f"{tuple(t._impl_payloads)}")
+    zoo.warm_zoo(tenants)
+    trace, controls = serve.PATHS[MULTI_IMPL_TRACE]
+    requests = trace()
+    log = ChunkLog()
+    kernels.reset_launch_counts()
+    stats = serve.run_zoo(requests, tenants, log=log, timeout_s=300.0,
+                          **controls())
+    launched = kernels.launch_counts()
+    res = stats.result
+    by_name = {f"req{r.id}": r for r in requests}
+    admitted = [by_name[st.name] for st in res.admitted_dags()]
+    undone = [st.name for st in res.admitted_dags() if not st.done]
+    if not admitted or undone:
+        raise AssertionError(f"multi_impl: {len(admitted)} admitted, not "
+                             f"done: {undone}")
+    n_chunks = sum(tenants[r.tenant].prefill_chunks(r)
+                   + math.ceil(r.gen_len / DECODE_UNIT) for r in admitted)
+    if len(log.runs) != n_chunks or set(log.runs.values()) != {1}:
+        raise AssertionError("multi_impl: chunks not each run once")
+    impls, types = collections.defaultdict(set), {}
+    for rec in res.trace:
+        impls[rec.dag_id, rec.tao_id].add(rec.impl)
+        types[rec.dag_id, rec.tao_id] = rec.type
+    mixed = {k: v for k, v in impls.items() if len(v) != 1}
+    if mixed:
+        raise AssertionError(f"multi_impl: TAOs ran several impls: {mixed}")
+    chunks = collections.Counter()
+    for dag_id, tao_id, _ in log.runs:
+        (impl,) = impls[dag_id, tao_id]
+        chunks[impl, types[dag_id, tao_id]] += 1
+    steps = {t.decode_steps for t in tenants.values()}.pop()
+    pre, dec = chunks["cuda", "prefill"], chunks["cuda", "decode"] * steps
+    want = {name: 0 for name in KERNELS}
+    want.update(flash_attention=pre, matmul=pre + dec, copy=dec)
+    if launched != want:
+        raise AssertionError(f"multi_impl: launches {launched}, want {want} "
+                             f"from chunks {dict(chunks)}")
+    fastest = {}
+    for typ, cells in stats.ptt_profiles.items():
+        for (leader, width, *impl), t in cells.items():
+            key = f"{typ},{impl[0] if impl else 'default'},w{width}"
+            fastest[key] = min(t * 1e3, fastest.get(key, math.inf))
+    # the share of TAOs that ran "ref", in the first and the second half of
+    # the run by start time
+    recs = sorted((r for r in res.trace if not r.preempted),
+                  key=lambda r: r.start)
+    half = len(recs) // 2
+    ref_share = [sum(r.impl == "ref" for r in part) / max(len(part), 1)
+                 for part in (recs[:half], recs[half:])]
+    emit({"phase": "multi_impl", "path": MULTI_IMPL_PATH,
+          "trace": MULTI_IMPL_TRACE, "requests": len(requests),
+          "admitted": len(admitted),
+          "completed_taos": res.completed, "makespan_s": stats.makespan,
+          "tokens_per_s": stats.tokens_per_s,
+          "chunks_by_impl": {f"{i}:{t}": n for (i, t), n in
+                             sorted(chunks.items())},
+          "ref_taos_share_first_half": ref_share[0],
+          "ref_taos_share_second_half": ref_share[1],
+          "ptt_fastest_ms": dict(sorted(fastest.items())),
+          "preemptions": res.n_preemptions, "launches": launched})
+    return launched
+
+
+def phase_fleet() -> dict:
+    """fleet: the paper's mixed-mode DAG on ThreadedRuntime under
+    ``homogeneous`` (every TAO at width 1) with a ChaosPlan that degrades
+    worker FLEET_SLOW to FLEET_SPEED from the start and kills worker
+    FLEET_KILLED at FLEET_KILL_AT s.  Every chunk runs once and every TAO
+    commits, each kernel launched once a chunk; ``StragglerDetector`` on
+    the run's PTT flags the degraded worker on most classes and no other
+    worker on most; an ``ElasticFleet`` fed each worker's trace records as
+    heartbeats marks the killed worker DEAD at the run's end and no other,
+    and demotes the straggler to LITTLE; a second DAG of FLEET_SECOND TAOs
+    completes on ``fleet.cluster_spec()``.  The vote over classes relaxes
+    "flags the degraded worker and no other": the detector's raw reports on
+    healthy workers are emitted as ``false_positives``, and ``StallLog``
+    splits each PTT update of the run to show what lifted their cells.
+    Returns kernel -> launches of the first DAG."""
+    operands = mixed_mode.operands_from_numpy(mixed_mode.make_arrays(),
+                                              "cuda")
+    torch.cuda.synchronize()
+    spec = hikey960()
+    plan = (ChaosPlan.builder().degrade(0.0, [FLEET_SLOW], FLEET_SPEED)
+            .kill(FLEET_KILL_AT, [FLEET_KILLED]).build())
+
+    def run(dag, spec, policy, chaos=None):
+        log = StallLog()
+        mixed_mode.bind_real_work(dag, operands, device="cuda", log=log)
+        rt = ThreadedRuntime(spec, make_policy(policy), seed=0)
+        log.watch(rt.core)
+        with log.gc_pauses():
+            res = rt.run_workload(Workload.from_trace([(0.0, dag, "fleet")]),
+                                  timeout_s=300.0, chaos=chaos)
+        if res.completed != len(dag) or \
+                len(log.runs) != len(dag) * mixed_mode.N_CHUNKS or \
+                set(log.runs.values()) != {1}:
+            raise AssertionError(f"fleet: {res.completed} of {len(dag)} "
+                                 f"TAOs, chunks not each run once")
+        return rt, res, log
+
+    kernels.reset_launch_counts()
+    rt, res, log = run(random_dag(n_tasks=N_TASKS, target_degree=DEGREE,
+                                  seed=SEED), spec, "homogeneous", plan)
+    launched = kernels.launch_counts()
+    want = {name: N_TASKS // 3 * mixed_mode.N_CHUNKS if cls else 0
+            for name, (_, _, cls) in KERNELS.items()}
+    if launched != want:
+        raise AssertionError(f"fleet: launches {launched}, want {want}")
+    if {r.width for r in res.trace} != {1}:
+        raise AssertionError("fleet: homogeneous ran a TAO wider than 1")
+    det = StragglerDetector(rt.core.ptt, ratio_threshold=2.0)
+    reports = det.scan(width=1)
+    classes = rt.core.ptt.types()
+    by_class = {typ: sorted({r.worker for r in reports if r.tao_type == typ})
+                for typ in classes}
+    # a straggler is flagged on most classes: the degraded worker sleeps on
+    # every chunk, where a healthy worker's cell can be lifted on one class
+    # by one late update caught in a stall of several threads inside their
+    # CUDA calls (``StallLog``); the raw reports on healthy workers are
+    # emitted as false positives
+    votes = collections.Counter(w for ws in by_class.values() for w in ws)
+    flagged = sorted(w for w, n in votes.items() if 2 * n > len(classes))
+    ptt_ms = {typ: (rt.core.ptt.table(typ).snapshot()[:, 0] * 1e3).tolist()
+              for typ in classes}
+    if flagged != [FLEET_SLOW]:
+        raise AssertionError(f"fleet: flagged {flagged} ({by_class}), want "
+                             f"[{FLEET_SLOW}]; PTT ms at width 1 {ptt_ms}")
+    beats = collections.defaultdict(list)
+    for rec in res.trace:
+        for w in rec.participants:
+            beats[w].append(rec.end)
+    last_killed = max(beats[FLEET_KILLED], default=0.0)
+    # DEAD after half the time the run went on past the kill's last beat
+    grace = (res.makespan - last_killed) / 2
+    fleet = ElasticFleet(n_groups=spec.n_workers, model_parallel=1,
+                         grace=grace)
+    for w in range(spec.n_workers):
+        fleet.observe(w, 0.0)
+    for t, w in sorted((t, w) for w, ts in beats.items() for t in ts):
+        fleet.observe(w, t)
+    dead = fleet.tick(res.makespan)
+    if dead != [FLEET_KILLED]:
+        raise AssertionError(f"fleet: DEAD {dead}, want [{FLEET_KILLED}] "
+                             f"(grace {grace} s, last beats "
+                             f"{ {w: max(ts) for w, ts in beats.items()} })")
+    for w in flagged:
+        fleet.demote(w)
+    alive = fleet.alive_groups()
+    spec2 = fleet.cluster_spec(base_classes=spec.classes)
+    if spec2.classes[alive.index(FLEET_SLOW)] != LITTLE or \
+            spec2.n_workers != spec.n_workers - 1:
+        raise AssertionError(f"fleet: cluster spec {spec2.classes}")
+    _, res2, _ = run(random_dag(n_tasks=FLEET_SECOND, target_degree=DEGREE,
+                             seed=SEED + 1), spec2, "molding:weight")
+    emit({"phase": "fleet", "path": FLEET_PATH, "tasks": N_TASKS,
+          "policy": "homogeneous", "degraded": [FLEET_SLOW, FLEET_SPEED],
+          "killed": [FLEET_KILLED, FLEET_KILL_AT],
+          "makespan_s": res.makespan, "taos_per_s": res.throughput,
+          "requeued_on_kill": sum(st.requeued_by_failure
+                                  for st in res.per_dag.values()),
+          "flagged_by_class": by_class, "stragglers": flagged,
+          "reports": [vars(r) for r in reports],
+          "false_positives": [vars(r) for r in reports
+                              if r.worker != FLEET_SLOW],
+          "stalls": log.stalls(FLEET_SLOW, sorted(
+              {(r.worker, r.tao_type) for r in reports})),
+          "ptt_ms_w1": ptt_ms,
+          "dead": dead, "grace_s": grace,
+          "cluster_spec": list(spec2.classes),
+          "second_dag": {"tasks": FLEET_SECOND, "policy": "molding:weight",
+                         "makespan_s": res2.makespan,
+                         "completed": res2.completed},
+          "launches": launched})
+    return launched
+
+
+class StallLog(ChunkLog):
+    """A ``ChunkLog`` that also splits every PTT update of a width-1 run:
+    its ``elapsed``, the wall its leader's thread spent inside the chunk
+    calls (launch, kernel, stream synchronise) since its last update, and
+    the update's time on ``time.perf_counter``; and the run's garbage
+    collector pauses (``gc_pauses``)."""
+
+    def __init__(self) -> None:
+        super().__init__()
+        self.updates: list[tuple] = []  # (cls, leader, elapsed, inside, end)
+        self.pauses: list[tuple] = []   # (start, end, generation)
+        self._inside = threading.local()
+
+    def wrap(self, chunk_fn, tao):
+        logged = super().wrap(chunk_fn, tao)
+
+        def timed(i):
+            t = time.perf_counter()
+            try:
+                return logged(i)
+            finally:
+                self._inside.s = getattr(self._inside, "s", 0.0) \
+                    + time.perf_counter() - t
+        return timed
+
+    def watch(self, core) -> None:
+        super().watch(core)
+        record_time = core.record_time
+
+        def record(tao, leader, width, elapsed):
+            inside, self._inside.s = getattr(self._inside, "s", 0.0), 0.0
+            self.updates.append((tao.type, leader, elapsed, inside,
+                                 time.perf_counter()))
+            return record_time(tao, leader, width, elapsed)
+        core.record_time = record
+
+    @contextlib.contextmanager
+    def gc_pauses(self):
+        started = {}
+
+        def note(phase, info):
+            if phase == "start":
+                started["t"] = time.perf_counter()
+            elif "t" in started:
+                self.pauses.append((started.pop("t"), time.perf_counter(),
+                                    info["generation"]))
+        gc.callbacks.append(note)
+        try:
+            yield
+        finally:
+            gc.callbacks.remove(note)
+
+    def stalls(self, slow: int, cells=(), factor: float = 5.0,
+               shown: int = 40) -> dict:
+        """The healthy workers' PTT updates over ``factor`` x their class's
+        median: how many, the first ``shown`` with the part of their
+        elapsed spent inside the chunk calls (the rest is claims and waits
+        between chunks), how many overlap a garbage collector pause and how
+        many overlap another worker's such update; and the last 8 updates
+        (ms, ms inside chunk calls) of each (worker, class) in ``cells``,
+        which set its EWMA cell."""
+        med = {c: float(np.median([e for cls, w, e, _, _ in self.updates
+                                   if cls == c and w != slow]))
+               for c in {u[0] for u in self.updates}}
+        out = [u for u in self.updates
+               if u[1] != slow and u[2] > factor * med[u[0]]]
+
+        def overlaps(a0, a1, b0, b1):
+            return a0 < b1 and b0 < a1
+        return {
+            "median_ms": {c: m * 1e3 for c, m in med.items()},
+            "updates": len(self.updates), "factor": factor,
+            "n_outliers": len(out),
+            "outliers": [{"cls": c, "worker": w, "ms": e * 1e3,
+                          "inside_chunks_ms": i * 1e3,
+                          "at_s": t - self.updates[0][4]}
+                         for c, w, e, i, t in out[:shown]],
+            "outliers_in_gc_pause": sum(
+                any(overlaps(t - e, t, p0, p1) for p0, p1, _ in self.pauses)
+                for _, _, e, _, t in out),
+            "outliers_overlapping_another_worker": sum(
+                any(w2 != w and overlaps(t - e, t, t2 - e2, t2)
+                    for _, w2, e2, _, t2 in out)
+                for _, w, e, _, t in out),
+            "gc_pauses": len(self.pauses),
+            "gc_pause_ms_max": max((b - a for a, b, _ in self.pauses),
+                                   default=0.0) * 1e3,
+            "last_updates": {f"{w}:{c}": [
+                (e * 1e3, i * 1e3) for cls, ww, e, i, _ in self.updates
+                if (ww, cls) == (w, c)][-8:] for w, c in cells}}
+
+
+def phase_grad_sync() -> dict:
+    """grad_sync: one ``loss_and_grads`` of llama3.2-1b at full size on the
+    train path's batch (4 x 128), then GRAD_SYNC_ROUNDS rounds of
+    ``grad_sync_tree`` over a world-size-1 NCCL mesh from
+    ``make_debug_mesh``, carrying the error feedback.  Each round each
+    leaf's residual is within half a quantization step plus one bf16
+    rounding of the transmitted value; after the rounds
+    sum(reduced) + error == sum(grads) within fp32 rounding; the first
+    round equals, bit for bit, the same functions on the CPU over a gloo
+    group; ``compress=False`` returns the grads unchanged.  At world size 1
+    NCCL's all_reduce only copies: the card shows the quantize and
+    error-feedback arithmetic at full width and the NCCL binding, and the
+    CPU tests hold the reduction across ranks.  Returns kernel ->
+    launches of the loss and the rounds."""
+    cfg = get_config(ARCH)
+    model = get_model(cfg)
+    params = model.init(torch.Generator("cuda").manual_seed(0))
+    batch = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                        global_batch=TRAIN_BATCH).batch(0, device="cuda")
+    kernels.reset_launch_counts()
+    grads, metrics = loss_and_grads(model, params, batch)
+    del params
+    torch.cuda.empty_cache()
+    mesh = make_debug_mesh()
+    try:
+        cpu_group = dist.new_group(backend="gloo")
+        with use_sharding(mesh):
+            out = sync_rounds(grads, cpu_group)
+            torch.cuda.synchronize()
+            launched = kernels.launch_counts()
+            if launched != train_launches(1):
+                raise AssertionError(f"grad_sync: launches {launched}, "
+                                     f"want {train_launches(1)}")
+            plain, zero = grad_sync_tree(grads, "data", compress=False)
+        if not all(torch.equal(plain[k], grads[k]) and not zero[k].any()
+                   for k in grads):
+            raise AssertionError("grad_sync: compress=False changed grads")
+        del plain, zero
+    finally:
+        dist.destroy_process_group()
+    numel = sum(g.numel() for g in grads.values())
+    emit({"phase": "grad_sync", "path": GRAD_SYNC_PATH, "arch": ARCH,
+          "params": numel, "loss": metrics["loss"].item(),
+          "rounds": GRAD_SYNC_ROUNDS, "world_size": 1,
+          "backend": "nccl", "ms_per_sync": out["ms"],
+          "wire_bytes_bf16": 2 * numel, "all_reduce_bytes_fp32": 4 * numel,
+          "max_residual_over_half_step": out["residual"],
+          "max_feedback_invariant_err_over_bound": out["invariant"],
+          "cpu_bit_equal_first_round": True, "launches": launched})
+    del grads, out
+    torch.cuda.empty_cache()
+    return launched
+
+
+def bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """``a`` and ``b`` (fp32) hold the same bits, -0.0 and NaNs included."""
+    return torch.equal(a.cpu().view(torch.int32), b.cpu().view(torch.int32))
+
+
+def sync_rounds(grads: dict, cpu_group) -> dict:
+    """GRAD_SYNC_ROUNDS rounds of ``grad_sync_tree(grads, "data", error)``
+    under the current mesh, each checked leaf by leaf: the new residual
+    ``x - wire`` (x = grads + the previous error) within half the round's
+    step (``quantize_int8``'s scale of x) plus one bf16 rounding of the
+    wire (2^-8 of it) and fp32's of x and of the grid; after the rounds
+    sum(reduced) + error == rounds x grads within 8 fp32 roundings of the
+    summed magnitudes.  The
+    first round equals, bit for bit, ``grad_sync_tree`` of the grads on
+    the CPU over ``cpu_group``.  Returns each round's ms and the largest
+    residual and invariant error over their bounds."""
+    eps = 2.0 ** -24
+    errors, total, mags = None, {}, {}
+    ms, residual = [], 0.0
+    for r in range(GRAD_SYNC_ROUNDS):
+        prev = errors
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        red, errors = grad_sync_tree(grads, "data", prev)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        if r == 0:
+            cpu_red, cpu_err = grad_sync_tree(
+                {k: g.cpu() for k, g in grads.items()}, cpu_group)
+            differ = [k for k in grads
+                      if not (bits_equal(red[k], cpu_red[k])
+                              and bits_equal(errors[k], cpu_err[k]))]
+            del cpu_red, cpu_err
+            if differ:
+                raise AssertionError(f"grad_sync: card and CPU differ on "
+                                     f"{differ}")
+        for k, g in grads.items():
+            xk = g if prev is None else g + prev[k]
+            step = quantize_int8(xk)[1]
+            bound = step * (0.5 + 4 * eps) \
+                + 2.0 ** -8 * (1 + 2.0 ** -7) * red[k].abs() \
+                + 2 * eps * (xk.abs() + red[k].abs())
+            residual = max(residual, (errors[k].abs() / bound).max().item())
+            total[k] = red[k] if r == 0 else total[k] + red[k]
+            mags[k] = red[k].abs() if r == 0 else mags[k] + red[k].abs()
+        del prev, red, xk
+    if residual > 1.0:
+        raise AssertionError(f"grad_sync: a residual is {residual} of its "
+                             f"bound")
+    invariant = 0.0
+    n = GRAD_SYNC_ROUNDS
+    for k, g in grads.items():
+        bound = 8 * eps * (mags[k] + errors[k].abs() + n * g.abs()) + 1e-30
+        err = (total[k] + errors[k] - n * g).abs()
+        invariant = max(invariant, (err / bound).max().item())
+    if invariant > 1.0:
+        raise AssertionError(f"grad_sync: sum(reduced) + error misses "
+                             f"sum(grads) by {invariant} of the bound")
+    return {"ms": ms, "residual": residual, "invariant": invariant}
+
+
+def phase_examples() -> dict:
+    """examples: ``python -m repro_torch.examples.serve_lm`` and
+    ``train_lm`` at their defaults on the card, every counter reset just
+    before and read just after both.  serve_lm: every TAO of its 8
+    requests completes; train_lm (200 steps of 8 x 256, checkpoints to a
+    temporary ``--ckpt``): every loss finite, the mean of the last 10
+    under the first, and the final checkpoint restores bit for bit.  The
+    kernels launch as their calls: 2L + 1 norms a prefill, decode step or
+    train step's forward, L flash attentions a prefill or forward.
+    Returns kernel -> launches."""
+    kernels.reset_launch_counts()
+    served = serve_lm.main(["--device", "cuda"])["served"]
+    with tempfile.TemporaryDirectory() as ckpt:
+        trained = train_lm.main(["--ckpt", ckpt])
+        torch.cuda.synchronize()
+        launched = kernels.launch_counts()
+        step, restored = trained["mgr"].restore(
+            {"params": trained["params"], "opt": trained["opt"]})
+        same = step == len(trained["losses"]) and all(
+            torch.equal(restored["params"][k], v)
+            for k, v in trained["params"].items()) and all(
+            torch.equal(getattr(restored["opt"], f)[k], v)
+            for f in ("mu", "nu") for k, v in
+            getattr(trained["opt"], f).items())
+    if not same:
+        raise AssertionError("examples: train_lm's final checkpoint does not "
+                             "restore")
+    n_req = 8
+    types = collections.Counter(r.type for r in served.result.trace)
+    if served.result.completed != types["prefill"] + types["decode"] or \
+            types["prefill"] != n_req:
+        raise AssertionError(f"examples: serve_lm ran {dict(types)}")
+    losses = trained["losses"]
+    if not np.isfinite(losses).all() or not np.mean(losses[-10:]) < losses[0]:
+        raise AssertionError(f"examples: train_lm losses {losses}")
+    s_norms, s_flash = call_launches(serve_lm.demo_config())
+    t_norms, t_flash = call_launches(train_lm.config_100m())
+    calls = 1 + types["prefill"], 1 + types["decode"]  # and one warm each
+    want = {name: 0 for name in KERNELS}
+    want.update(rmsnorm=s_norms * sum(calls) + t_norms * len(losses),
+                flash_attention=s_flash * calls[0] + t_flash * len(losses))
+    if launched != want:
+        raise AssertionError(f"examples: launches {launched}, want {want}")
+    emit({"phase": "examples", "path": EXAMPLES_PATH,
+          "serve_lm": {"taos": served.result.completed,
+                       "makespan_s": served.makespan,
+                       "tokens_per_s": served.tokens_per_s},
+          "train_lm": {"params": trained["model"].param_count(),
+                       "steps": len(losses), "first_loss": losses[0],
+                       "last_loss": losses[-1], "seconds":
+                       trained["seconds"], "checkpoint_step": step},
+          "launches": launched})
+    return launched
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device")
@@ -2290,6 +2817,14 @@ def main() -> None:
     phase_train_vs_cpu()
     launches[ORCH_TRAIN_PATH] = phase_train_orchestrated()
     phase_checkpoint()
+    for path, phase in ((MULTI_IMPL_PATH, phase_multi_impl),
+                        (FLEET_PATH, phase_fleet),
+                        (GRAD_SYNC_PATH, phase_grad_sync),
+                        (EXAMPLES_PATH, phase_examples)):
+        t_phase = time.perf_counter()
+        launches[path] = phase()
+        emit({"phase": "seconds", "path": path,
+              "seconds": time.perf_counter() - t_phase})
     entries = []
     for name, (src, replaces, _) in KERNELS.items():
         on_path = {p: launches[p][name] for p in KERNEL_PATHS[name]}

@@ -1,6 +1,5 @@
 """repro_torch.data -- the deterministic synthetic token pipeline with host
-sharding.  Twin of ``repro.data``; ``make_batch_specs``, the dry run's
-stand-in, waits for the dry run's port (ROADMAP.md, Queue 1 item 7)."""
-from .pipeline import SyntheticFrames, SyntheticLM
+sharding, and the meta mirror of a batch.  Twin of ``repro.data``."""
+from .pipeline import SyntheticFrames, SyntheticLM, make_batch_specs
 
-__all__ = ["SyntheticLM", "SyntheticFrames"]
+__all__ = ["SyntheticLM", "SyntheticFrames", "make_batch_specs"]

@@ -13,6 +13,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..parallel.sharding import abstract_tensor
 from ..workers import resolve_device
 
 
@@ -78,3 +79,13 @@ class SyntheticFrames:
             size=(self.global_batch, self.seq_len)).astype(np.int32)
         return {"frames": torch.from_numpy(feats).to(dev, torch.bfloat16),
                 "targets": torch.from_numpy(labels).to(dev)}
+
+
+def make_batch_specs(batch: dict, shardings: dict | None = None) -> dict:
+    """Meta mirror of a batch (the dry run's stand-in): each tensor's shape
+    and dtype, a DTensor where ``shardings`` gives its key a
+    ``(mesh, placements)`` (``parallel.sharding.logical_sharding``'s)."""
+    return {k: abstract_tensor(v.shape, v.dtype,
+                               None if shardings is None else
+                               shardings.get(k))
+            for k, v in batch.items()}

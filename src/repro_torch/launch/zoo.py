@@ -167,19 +167,13 @@ class ZooTenant:
         self.decode_steps = max(1, int(decode_steps))
         self.device = resolve_device(device)
         # multi_impl: bind every host-available kernel implementation
-        # (ops.available_impls()) as TAO variants, so the scheduler picks
-        # the impl jointly with (leader, width).  Kernel flavor only, as in
-        # JAX: the model flavors run whole-model payloads with no variant
-        # axis.  Off by default.  On the card the registry holds "ref", the
-        # plain versions, which the card's path may not run; whether it
-        # belongs there is open (ROADMAP.md, Queue 1 item 2), so only the
-        # CPU takes it.
-        multi_impl = bool(multi_impl) and flavor == "kernel"
-        if multi_impl and self.device.type == "cuda":
-            raise NotImplementedError(
-                "multi_impl on the card would schedule the plain versions "
-                "(ROADMAP.md, Queue 1 item 2)")
-        self.multi_impl = multi_impl
+        # (ops.available_impls(): "ref" everywhere, as JAX's registry offers
+        # it on every host, and "cuda" on the card) as TAO variants, so the
+        # scheduler picks the impl jointly with (leader, width) and the PTT
+        # learns each under its own key.  Kernel flavor only, as in JAX: the
+        # model flavors run whole-model payloads with no variant axis.  Off
+        # by default.
+        self.multi_impl = bool(multi_impl) and flavor == "kernel"
         self._impl_payloads: dict = {}
         # the JAX formula (zoo.py:160-169): the kernel flavor's decode slab
         # over the slab_tokens it stands for; model flavors share the figure
@@ -224,26 +218,28 @@ class ZooTenant:
                 return mm_op(attn.reshape(s, hq * d), w)
             return prefill_slab
 
-        def make_decode(copy_op) -> Callable[[], tuple]:
-            # a variant swaps only the copy kernel (the class-defining op),
-            # as in the JAX tenant.  The GEMV is one row: bm=1 passes the
-            # tiling check (the Pallas matmul cannot tile m = 1), and the
-            # matmul kernel takes m <= 16 to its streaming path, which reads
-            # w once in one launch.
+        def make_decode(copy_op, mm_op) -> Callable[[], tuple]:
+            # The GEMV is one row: bm=1 passes the tiling check (the Pallas
+            # matmul cannot tile m = 1), and the matmul kernel takes m <= 16
+            # to its streaming path, which reads w once in one launch.
             def decode_burst() -> tuple:
                 for _ in range(self.decode_steps):
                     moved = copy_op(self.cache_slab)
-                    y = ops.matmul(x1, w, bm=1)
+                    y = mm_op(x1, w, bm=1)
                 return moved, y
             return decode_burst
 
         self.prefill_slab = make_prefill(ops.flash_attention, ops.matmul)
-        self.decode_burst = make_decode(ops.copy)
+        self.decode_burst = make_decode(ops.copy, ops.matmul)
         if self.multi_impl:
+            # JAX's variant swaps only the copy kernel and leaves the GEMV
+            # on auto dispatch, since its Pallas matmul cannot tile one row.
+            # The port's GEMV is a kernel launch, so a variant pins it too:
+            # a "ref" chunk runs the plain versions alone.
             for im in ops.available_impls():
                 self._impl_payloads[im.name] = (
                     make_prefill(im.op("flash_attention"), im.op("matmul")),
-                    make_decode(im.op("copy")))
+                    make_decode(im.op("copy"), im.op("matmul")))
 
     def _build_model_payloads(self, cfg: ModelConfig, seed: int,
                               params: dict | None,

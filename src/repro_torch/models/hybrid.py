@@ -34,7 +34,8 @@ import torch
 from .layers import apply_rope, attention, decode_attention, rmsnorm, swiglu
 from .losses import lm_cross_entropy
 from .mamba2 import ssm_branch_full, ssm_branch_step
-from .model_api import BaseModel, ParamDef, split_params, unbound
+from .model_api import (BaseModel, ParamDef, cache_pos, cache_tensor,
+                        split_params, unbound)
 
 ACT_DTYPE = torch.bfloat16
 # read in fp32 where used: the norm weights and the SSD's scalars a head
@@ -195,28 +196,32 @@ class HymbaLM(BaseModel):
         return loss, {"loss": loss}
 
     # ------------------------------------------------------------- serve --
-    def init_cache(self, batch_size: int, max_len: int, device="cpu"
+    def init_cache(self, batch_size: int, max_len: int, *, device
                    ) -> dict:
-        """An empty cache (hybrid.py:168-196): ``k``, ``v`` tuples of
+        """An empty cache (hybrid.py:168-203): ``k``, ``v`` tuples of
         (B, Hkv, eff, HD) bf16 a layer, eff = max_len for a global layer
         and min(max_len, W) for a windowed one; ``conv`` and ``ssd`` as
-        mamba2's; ``pos`` a 0-dim int32 on the CPU."""
+        mamba2's; ``pos`` a 0-dim int32 on the CPU.  On ``"meta"`` an
+        abstract cache, sharded by JAX's names."""
         cfg = self.cfg
         DI, N, P = cfg.d_inner_hybrid, cfg.ssm_state, cfg.ssm_head_dim
         ks, vs = [], []
+        names = ("batch", "kv_heads", "kv_seq", None)
         for i in range(cfg.n_layers):
             win = self.window(i)
             eff = max_len if win is None else min(max_len, win)
             shape = (batch_size, cfg.n_kv_heads, eff, cfg.hd)
-            ks.append(torch.zeros(shape, dtype=ACT_DTYPE, device=device))
-            vs.append(torch.zeros(shape, dtype=ACT_DTYPE, device=device))
+            ks.append(cache_tensor(shape, names, ACT_DTYPE, device))
+            vs.append(cache_tensor(shape, names, ACT_DTYPE, device))
         return {
             "k": tuple(ks), "v": tuple(vs),
-            "conv": torch.zeros((cfg.n_layers, batch_size, cfg.ssm_conv - 1,
-                                 DI + 2 * N), dtype=ACT_DTYPE, device=device),
-            "ssd": torch.zeros((cfg.n_layers, batch_size, DI // P, N, P),
-                               dtype=torch.float32, device=device),
-            "pos": torch.zeros((), dtype=torch.int32)}
+            "conv": cache_tensor(
+                (cfg.n_layers, batch_size, cfg.ssm_conv - 1, DI + 2 * N),
+                ("layers", "batch", None, "ff"), ACT_DTYPE, device),
+            "ssd": cache_tensor((cfg.n_layers, batch_size, DI // P, N, P),
+                                ("layers", "batch", None, None, None),
+                                torch.float32, device),
+            "pos": cache_pos(device)}
 
     def prefill(self, params: dict, batch: dict, max_len: int | None = None):
         """(last-token logits (B, 1, V), cache), ``pos`` the prompt length S

@@ -35,7 +35,8 @@ import torch.nn.functional as F
 
 from .layers import _span, rmsnorm
 from .losses import lm_cross_entropy
-from .model_api import BaseModel, ParamDef, split_params, unbound
+from .model_api import (BaseModel, ParamDef, cache_pos, cache_tensor,
+                        split_params, unbound)
 
 ACT_DTYPE = torch.bfloat16
 # read in fp32 where used: the norm weights and the SSD's scalars a head
@@ -307,21 +308,25 @@ class Mamba2LM(BaseModel):
         return loss, {"loss": loss}
 
     # ------------------------------------------------------------- serve --
-    def init_cache(self, batch_size: int, max_len: int, device="cpu"
+    def init_cache(self, batch_size: int, max_len: int, *, device
                    ) -> dict:
         """An empty cache (mamba2.py:236-255): ``conv`` (L, B, K - 1,
         conv_dim) in ``ACT_DTYPE`` (bf16) and ``ssd`` (L, B, H, N, P) fp32
-        on ``device``, ``pos`` a 0-dim int32 on the CPU.  ``max_len`` does
-        not matter."""
+        on ``device``, ``pos`` a 0-dim int32 on the CPU; on ``"meta"`` an
+        abstract cache, sharded by JAX's names.  ``max_len`` does not
+        matter."""
         cfg = self.cfg
         conv_dim = cfg.d_inner + 2 * cfg.ssm_state
         return {
-            "conv": torch.zeros((cfg.n_layers, batch_size, cfg.ssm_conv - 1,
-                                 conv_dim), dtype=ACT_DTYPE, device=device),
-            "ssd": torch.zeros((cfg.n_layers, batch_size, cfg.ssm_heads,
-                                cfg.ssm_state, cfg.ssm_head_dim),
-                               dtype=torch.float32, device=device),
-            "pos": torch.zeros((), dtype=torch.int32)}
+            "conv": cache_tensor(
+                (cfg.n_layers, batch_size, cfg.ssm_conv - 1, conv_dim),
+                ("layers", "batch", None, "ff"), ACT_DTYPE, device),
+            "ssd": cache_tensor(
+                (cfg.n_layers, batch_size, cfg.ssm_heads, cfg.ssm_state,
+                 cfg.ssm_head_dim),
+                ("layers", "batch", None, None, None), torch.float32,
+                device),
+            "pos": cache_pos(device)}
 
     def prefill(self, params: dict, batch: dict, max_len: int | None = None):
         """Encode the prompt: (last-token logits (B, 1, V), the cache of

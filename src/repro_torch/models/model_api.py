@@ -4,16 +4,17 @@ machinery.  Twin of ``repro.models.model_api``.
 Every model exposes:
   * ``param_defs()``      -- {name: ParamDef(shape, logical names, init)}
   * ``init(generator)``   -- concrete fp32 params on the generator's device
+  * ``abstract_params()`` -- meta tensors, DTensors with the placements of
+                             their logical names under a mesh context
   * ``loss(params, batch)``              -- scalar loss + metrics
   * ``prefill(params, batch)``           -- logits + populated cache
   * ``decode_step(params, tokens, cache)`` -- one-token serve step
-  * ``init_cache``                       -- decode cache
+  * ``init_cache(..., device=)``         -- decode cache (``"meta"``:
+                                            abstract, as ``abstract_params``)
 
 Parameters are a plain dict keyed by the JAX names, with layer parameters
 stacked along a leading "layers" dim, so a dict carried across from the JAX
-package (``convert.params_from_numpy``) is the port's own.  The logical axis
-names of each ``ParamDef`` are kept for the ``parallel`` port;
-``abstract_params`` waits for it (ROADMAP.md, Queue 1 item 6).
+package (``convert.params_from_numpy``) is the port's own.
 """
 from __future__ import annotations
 
@@ -24,10 +25,8 @@ from typing import Any
 import numpy as np
 import torch
 
-
-def pad_to_multiple(n: int, multiple: int) -> int:
-    """Round up (vocab padding), as ``repro.parallel.sharding`` does."""
-    return int(math.ceil(n / multiple) * multiple)
+from ..parallel.sharding import (abstract_tensor, logical_sharding,
+                                 pad_to_multiple)
 
 
 # ---------------------------------------------------------------------------
@@ -125,7 +124,7 @@ class ModelConfig:
 @dataclasses.dataclass(frozen=True)
 class ParamDef:
     shape: tuple
-    names: tuple                 # logical axis names (for the parallel port)
+    names: tuple                 # logical axis names (see parallel.sharding)
     init: str = "normal"         # normal | zeros | ones | ssm_a | ssm_dt
     scale: float = 0.02
     dtype: Any = torch.float32
@@ -160,6 +159,25 @@ def ssm_init(init: str, u):
     """``init``'s map of uniform draws ``u`` (a tensor or a numpy array)."""
     lib = torch if isinstance(u, torch.Tensor) else np
     return lib.log(u) if init == "ssm_a" else lib.log(lib.expm1(u))
+
+
+def cache_tensor(shape: tuple, names: tuple, dtype: torch.dtype,
+                 device) -> torch.Tensor:
+    """One decode-cache tensor: zeros on ``device``, or on ``"meta"`` an
+    abstract one carrying ``logical_sharding(shape, names)``, as JAX's
+    abstract caches do."""
+    if torch.device(device).type == "meta":
+        return abstract_tensor(shape, dtype, logical_sharding(shape, names))
+    return torch.zeros(shape, dtype=dtype, device=device)
+
+
+def cache_pos(device) -> torch.Tensor:
+    """A cache's ``pos``, the next position to write: a 0-dim int32 on the
+    CPU (the host reads it to index, so keeping it there spares a device
+    sync per step), or on the meta device for an abstract cache."""
+    meta = torch.device(device).type == "meta"
+    return torch.zeros((), dtype=torch.int32,
+                       device="meta" if meta else "cpu")
 
 
 def split_params(params: dict) -> tuple[dict, dict]:
@@ -199,6 +217,15 @@ class BaseModel:
         """Every parameter, in sorted name order, drawn in turn from
         ``generator`` (seed it for a deterministic init)."""
         return {name: init_param(generator, d)
+                for name, d in sorted(self.param_defs().items())}
+
+    def abstract_params(self) -> dict:
+        """Every parameter, in sorted name order, as a meta tensor of its
+        ``ParamDef``'s shape and dtype; under a mesh context a DTensor with
+        the placements of its logical names, whose ``.to_local()`` has one
+        device's shape."""
+        return {name: abstract_tensor(d.shape, d.dtype,
+                                      logical_sharding(d.shape, d.names))
                 for name, d in sorted(self.param_defs().items())}
 
     def param_count(self) -> int:

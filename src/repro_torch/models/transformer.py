@@ -39,7 +39,8 @@ import torch
 from .layers import (apply_rope, attention, decode_attention, moe_ffn,
                      rmsnorm, swiglu)
 from .losses import lm_cross_entropy
-from .model_api import BaseModel, ParamDef, split_params, unbound
+from .model_api import (BaseModel, ParamDef, cache_pos, cache_tensor,
+                        split_params, unbound)
 
 ACT_DTYPE = torch.bfloat16
 # read in fp32 where used: the norm weights, and the router (layers.py:227)
@@ -265,16 +266,17 @@ class DecoderLM(BaseModel):
     def _empty_cache(self, batch_size: int, length: int, device) -> dict:
         cfg = self.cfg
         shape = (cfg.n_layers, batch_size, cfg.n_kv_heads, length, cfg.hd)
-        return {"k": torch.zeros(shape, dtype=ACT_DTYPE, device=device),
-                "v": torch.zeros(shape, dtype=ACT_DTYPE, device=device),
-                "pos": torch.zeros((), dtype=torch.int32)}
+        names = ("layers", "batch", "kv_heads",
+                 "kv_seq" if cfg.shard_kv_seq else None, None)
+        return {"k": cache_tensor(shape, names, ACT_DTYPE, device),
+                "v": cache_tensor(shape, names, ACT_DTYPE, device),
+                "pos": cache_pos(device)}
 
-    def init_cache(self, batch_size: int, max_len: int, device="cpu") -> dict:
+    def init_cache(self, batch_size: int, max_len: int, *, device) -> dict:
         """An empty cache: ``k``, ``v`` (L, B, Hkv, eff, HD) bf16 on
-        ``device``, eff = min(max_len, window) (transformer.py:279);
-        ``pos``, the next position to write, a 0-dim int32 on the CPU (the
-        host reads it to index, so keeping it there spares a device sync
-        per step)."""
+        ``device``, eff = min(max_len, window) (transformer.py:276-290);
+        ``pos`` a 0-dim int32 on the CPU (``cache_pos``).  On ``"meta"`` an
+        abstract cache, sharded by the names of JAX's abstract one."""
         W = self.cfg.window
         eff = min(max_len, W) if W else max_len
         return self._empty_cache(batch_size, eff, device)

@@ -1,0 +1,254 @@
+"""Logical-axis sharding rules (MaxText-style) with divisibility fallback, on
+``torch.distributed``'s DeviceMesh and DTensor.  Twin of
+``repro.parallel.sharding``.
+
+Model code names tensor dimensions with *logical* axes ("batch", "embed",
+"heads", ...).  A rule table maps logical axes to mesh axes; `logical_spec`
+resolves a shape + names into a `PartitionSpec`, dropping mesh axes that do
+not divide the dimension, by the reference's rules.  A mesh is a
+``DeviceMesh`` whose ``mesh_dim_names`` are the JAX axis names ("pod",
+"data", "model"); anything with a ``.shape`` mapping axis names to sizes
+serves as a fake mesh for resolving specs.  `placements` turns a spec into
+DTensor placements over a mesh, in JAX's major-to-minor chunk order.
+
+The context (mesh + rules) is stored in a contextvar, so model code can call
+``constrain(x, "batch", "seq", "embed")`` without threading a mesh handle
+through every function.  Outside a context ``constrain`` is a no-op, as in
+JAX.  Under a mesh it redistributes a DTensor and returns a plain tensor
+unchanged: eager PyTorch has no compiler to take an annotation.
+
+``torch.distributed`` is imported inside the functions that need it, so
+importing this module (or `pad_to_multiple` and `operand_footprint` from it)
+costs a user of ``repro_torch.core`` nothing.
+"""
+from __future__ import annotations
+
+import contextlib
+import contextvars
+import dataclasses
+import math
+from typing import Any, Sequence
+
+import torch
+
+# logical axis -> tuple of mesh axes (in sharding-priority order)
+LOGICAL_RULES: dict[str, tuple[str, ...]] = {
+    # activations
+    "batch": ("pod", "data"),      # global batch over pods x data
+    "seq": (),                     # sequence unsharded by default (SP opt-in)
+    "seq_shard": ("model",),       # opt-in sequence parallelism
+    "kv_seq": ("data", "model"),   # long-context KV/state sharding (batch=1)
+    "act_embed": (),               # activation d_model dim
+    "act_heads": ("model",),       # activation heads dim
+    "act_ff": ("model",),          # activation FFN hidden dim
+    "act_expert": ("model",),      # activation expert dim
+    # weights
+    "embed": ("data",),            # FSDP/ZeRO-3 dim of weight matrices
+    "heads": ("model",),           # TP: q heads
+    "kv_heads": ("model",),        # TP: kv heads
+    "ff": ("model",),              # TP: FFN hidden
+    "vocab": ("model",),           # TP: embedding/LM-head vocab dim
+    "expert": ("model",),          # EP: expert dim of MoE weights
+    "layers": (),                  # scanned layer dim: replicated
+    "conv": (),                    # small conv / misc dims
+    "state": (),                   # SSM state dim
+    "head_dim": (),
+}
+
+
+class PartitionSpec(tuple):
+    """JAX's ``PartitionSpec``: one entry per tensor dim, each ``None``, a
+    mesh axis name, or a tuple of names (major to minor)."""
+
+    def __new__(cls, *parts):
+        return super().__new__(cls, parts)
+
+    def __repr__(self) -> str:
+        return f"PartitionSpec{tuple.__repr__(self)}"
+
+
+P = PartitionSpec
+
+
+def mesh_axis_sizes(mesh) -> dict[str, int]:
+    """axis name -> size of a DeviceMesh, or of a fake mesh's ``.shape``."""
+    if mesh is None:
+        return {}
+    names = getattr(mesh, "mesh_dim_names", None)
+    if names is not None:
+        return dict(zip(names, mesh.shape))
+    return dict(mesh.shape)
+
+
+@dataclasses.dataclass
+class ShardingCtx:
+    mesh: Any
+    rules: dict[str, tuple[str, ...]]
+
+    def axis_size(self, axis: str) -> int:
+        return mesh_axis_sizes(self.mesh).get(axis, 1)
+
+
+_CTX: contextvars.ContextVar[ShardingCtx | None] = contextvars.ContextVar(
+    "repro_torch_sharding_ctx", default=None)
+
+
+def current_ctx() -> ShardingCtx | None:
+    return _CTX.get()
+
+
+@contextlib.contextmanager
+def use_sharding(mesh, rules: dict[str, tuple[str, ...]] | None = None):
+    """Install a sharding context for model code."""
+    ctx = ShardingCtx(mesh=mesh, rules=dict(rules or LOGICAL_RULES))
+    token = _CTX.set(ctx)
+    try:
+        yield ctx
+    finally:
+        _CTX.reset(token)
+
+
+def set_rules(overrides: dict[str, tuple[str, ...]]) -> None:
+    """Mutate the *current* context's rules (hillclimb knob)."""
+    ctx = current_ctx()
+    if ctx is None:
+        raise RuntimeError("no active sharding context")
+    ctx.rules.update(overrides)
+
+
+def logical_spec(shape: Sequence[int], names: Sequence[str | None],
+                 ctx: ShardingCtx | None = None) -> PartitionSpec:
+    """Resolve logical names to a PartitionSpec, enforcing divisibility.
+
+    A dim gets the *largest prefix* of its rule's mesh axes whose product
+    divides the dim size; mesh axes already used by another dim are skipped
+    (an axis shards at most one dim), and so are axes of size 1.
+    """
+    ctx = ctx or current_ctx()
+    if ctx is None or ctx.mesh is None:
+        return P()
+    if len(shape) != len(names):
+        raise ValueError(f"shape {shape} vs names {names} length mismatch")
+    used: set[str] = set()
+    out: list = []
+    for dim, name in zip(shape, names):
+        if name is None:
+            out.append(None)
+            continue
+        axes = ctx.rules.get(name, ())
+        chosen: list[str] = []
+        prod = 1
+        for ax in axes:
+            size = ctx.axis_size(ax)
+            if size <= 1 or ax in used:
+                continue
+            if dim % (prod * size) == 0:
+                chosen.append(ax)
+                prod *= size
+            else:
+                break  # keep prefix-order semantics (pod before data, etc.)
+        used.update(chosen)
+        if not chosen:
+            out.append(None)
+        elif len(chosen) == 1:
+            out.append(chosen[0])
+        else:
+            out.append(tuple(chosen))
+    while out and out[-1] is None:
+        out.pop()
+    return P(*out)
+
+
+def placements(spec: PartitionSpec, mesh) -> list:
+    """DTensor placements of ``spec`` on ``mesh``: a shard of tensor dim d
+    on every mesh dim that d's entry names, ``Replicate()`` elsewhere.
+
+    JAX splits a dim over a tuple of axes major to minor in the tuple's
+    order; DTensor splits in mesh-dim order.  Where the tuple puts a later
+    mesh dim first (``("model", "data")`` on a ``(data, model)`` mesh), the
+    earlier mesh dim takes a ``_StridedShard`` whose split factor is the
+    size of the axes ahead of it, which gives coordinate (d, m) JAX's chunk
+    m * D + d."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.placement_types import _StridedShard
+
+    names = list(mesh.mesh_dim_names)
+    sizes = mesh_axis_sizes(mesh)
+    out: list = [Replicate()] * len(names)
+    for dim, entry in enumerate(spec):
+        if entry is None:
+            continue
+        axes = (entry,) if isinstance(entry, str) else tuple(entry)
+        for j, ax in enumerate(axes):
+            i = names.index(ax)
+            split = math.prod(sizes[a] for a in axes[:j]
+                              if names.index(a) > i)
+            out[i] = Shard(dim) if split == 1 else \
+                _StridedShard(dim, split_factor=split)
+    return out
+
+
+def logical_sharding(shape: Sequence[int], names: Sequence[str | None],
+                     ctx: ShardingCtx | None = None):
+    """``(mesh, placements)`` of the named dims under the context's mesh,
+    or None outside one."""
+    ctx = ctx or current_ctx()
+    if ctx is None or ctx.mesh is None:
+        return None
+    return ctx.mesh, placements(logical_spec(shape, names, ctx), ctx.mesh)
+
+
+def abstract_tensor(shape: Sequence[int], dtype: torch.dtype, sharding=None
+                    ) -> torch.Tensor:
+    """The port's ``jax.ShapeDtypeStruct``: a meta tensor of ``shape`` and
+    ``dtype``; with a ``sharding`` (``logical_sharding``'s) a DTensor on its
+    mesh whose local shard, on the meta device, has this rank's shape."""
+    if sharding is None:
+        return torch.empty(tuple(shape), dtype=dtype, device="meta")
+    from torch.distributed.tensor import DTensor, Shard
+    from torch.distributed.tensor.placement_types import _StridedShard
+
+    mesh, pls = sharding
+    local = list(shape)
+    for i, pl in enumerate(pls):
+        if isinstance(pl, (Shard, _StridedShard)):
+            local[pl.dim] //= mesh.size(i)
+    stride = [math.prod(shape[d + 1:]) for d in range(len(shape))]
+    return DTensor.from_local(
+        torch.empty(local, dtype=dtype, device="meta"), mesh, pls,
+        run_check=False, shape=torch.Size(shape), stride=tuple(stride))
+
+
+def constrain(x: torch.Tensor, *names: str | None) -> torch.Tensor:
+    """A DTensor redistributed to the named placements under a mesh; any
+    other tensor, or any tensor outside a mesh, unchanged."""
+    ctx = current_ctx()
+    if ctx is None or ctx.mesh is None:
+        return x
+    from torch.distributed.tensor import DTensor
+
+    if not isinstance(x, DTensor):
+        return x
+    spec = logical_spec(x.shape, names, ctx)
+    return x.redistribute(ctx.mesh, placements(spec, ctx.mesh))
+
+
+def pad_to_multiple(n: int, multiple: int) -> int:
+    """Round up (used for vocab padding so TP divides: paper-of-record
+    practice for odd vocab sizes like 92553)."""
+    return int(math.ceil(n / multiple) * multiple)
+
+
+def operand_footprint(nbytes: float, shard_index: int, n_clusters: int,
+                      sticky: bool = False):
+    """Training-side :class:`~repro_torch.core.dag.DataFootprint` for a
+    shard-local operand: shard ``i`` of an FSDP/TP layout lives on cluster
+    ``i % n_clusters`` (``home``, so residency survives
+    ``reset_execution_state``).  ``sticky=False`` by default: optimizer
+    re-sharding may migrate an operand, unlike a serving KV cache."""
+    from ..core.dag import DataFootprint
+
+    if n_clusters <= 0:
+        raise ValueError(f"n_clusters must be positive, got {n_clusters}")
+    return DataFootprint(nbytes=nbytes, sticky=sticky,
+                         home=shard_index % n_clusters)

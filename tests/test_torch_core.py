@@ -19,6 +19,7 @@ CORE_FILES = (
     "preemption.py", "ptt.py", "runtime.py", "scheduler.py",
     "serve_orchestrator.py", "shard.py", "simulator.py", "workload.py",
 )
+RUNTIME_FT_FILES = ("__init__.py", "elastic.py", "straggler.py")
 
 
 @pytest.mark.parametrize("name", CORE_FILES)
@@ -30,6 +31,17 @@ def test_core_copy_is_byte_identical(name):
 def test_core_copy_holds_only_the_neutral_modules():
     assert sorted(p.name for p in (PORT / "core").glob("*.py")) == \
         sorted(CORE_FILES)
+
+
+@pytest.mark.parametrize("name", RUNTIME_FT_FILES)
+def test_runtime_ft_copy_is_byte_identical(name):
+    assert (PORT / "runtime_ft" / name).read_bytes() == \
+        (SRC / "repro" / "runtime_ft" / name).read_bytes()
+
+
+def test_runtime_ft_copy_holds_only_these_modules():
+    assert sorted(p.name for p in (PORT / "runtime_ft").glob("*.py")) == \
+        sorted(RUNTIME_FT_FILES)
 
 
 @pytest.mark.parametrize("sim_kwargs", [{}, {"n_shards": 1}],
@@ -49,6 +61,14 @@ def test_importing_the_port_loads_no_jax_and_no_repro():
         "import repro_torch.data, repro_torch.optimizer\n"
         "import repro_torch.checkpointing, repro_torch.configs.minicpm_2b\n"
         "import repro_torch.models.mamba2, repro_torch.models.hybrid\n"
+        "import repro_torch.runtime_ft, repro_torch.parallel\n"
+        "import repro_torch.parallel.collectives, repro_torch.launch.mesh\n"
+        "import repro_torch.configs, repro_torch.data.pipeline\n"
+        "import repro_torch.examples.quickstart\n"
+        "import repro_torch.examples.multi_tenant\n"
+        "import repro_torch.examples.mixed_mode_dag\n"
+        "import repro_torch.examples.serve_lm\n"
+        "import repro_torch.examples.train_lm\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro', 'ml_dtypes')]\n"
         "print(json.dumps(bad))\n")

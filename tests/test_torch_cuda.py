@@ -335,11 +335,34 @@ def test_serving_on_the_card_launches_every_chunk(card):
                                "flash_attention": prefill}
 
 
-def test_multi_impl_on_the_card_raises(card):
-    """The card's registry holds the plain versions ("ref"), which the
-    card's path may not schedule."""
-    with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
-        zoo.ZooTenant("t", multi_impl=True, shapes=zoo.ZOO_SHAPES)
+def test_multi_impl_on_the_card_binds_ref_and_cuda_and_they_agree(card):
+    """The card's tenant binds the plain versions ("ref") and the kernels
+    ("cuda") as variants, as JAX's registry offers "ref" on every host.  At
+    the serving shapes one prefill slab and one decode burst of each agree:
+    flash at the bf16 tolerance, the projection and the GEMV at the bf16
+    matmul's (2e-2, 10x), the copy bit-exact; "ref" launches no kernel."""
+    operands = zoo.kernel_operands_from_numpy(
+        zoo.kernel_arrays(zoo.SERVE_SHAPES, seed=5), card)
+    tenant = zoo.ZooTenant("t", multi_impl=True, operands=operands)
+    assert tuple(tenant._impl_payloads) == ("ref", "cuda")
+    q, kv = operands["q"], operands["kv"]
+    out, launched = {}, {}
+    for name, (pf, df) in tenant._impl_payloads.items():
+        im = ops.get_impl(name)
+        torch.cuda.synchronize()
+        before = launch_counts()
+        out[name] = (im.op("flash_attention")(q, kv, kv), pf(), *df())
+        torch.cuda.synchronize()
+        launched[name] = {k: v - before[k] for k, v in launch_counts().items()
+                          if v != before[k]}
+    assert launched == {"ref": {}, "cuda": {"flash_attention": 2,
+                                            "matmul": 2, "copy": 1}}
+    (attn, slab, moved, y), want = out["cuda"], out["ref"]
+    torch.testing.assert_close(attn, want[0], rtol=1e-2, atol=2e-3)
+    torch.testing.assert_close(slab, want[1], rtol=2e-2, atol=0.2)
+    assert torch.equal(moved, want[2])
+    assert torch.equal(moved, tenant.cache_slab)
+    torch.testing.assert_close(y, want[3], rtol=2e-2, atol=0.2)
 
 
 # --------------------------------------------------------------- rmsnorm --

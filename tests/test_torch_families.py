@@ -419,7 +419,7 @@ def test_init_caches_have_the_reference_shapes():
         jm, _, tm, _ = _both(arch)
         for max_len in (8, 32, 50):
             jc = jax_get_model(jm.cfg).init_cache(2, max_len)
-            tc = tm.init_cache(2, max_len)
+            tc = tm.init_cache(2, max_len, device="cpu")
             assert set(tc) == set(jc)
             for k, v in jc.items():
                 got = tc[k] if isinstance(v, tuple) else [tc[k]]
