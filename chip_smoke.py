@@ -48,7 +48,12 @@ that run it, and drives every ported path at full size:
   llama3.2-1b and three rounds of int8 gradient sync with error feedback
   over a one-rank NCCL mesh, held against the CPU (``phase_grad_sync``);
   the ``serve_lm`` and ``train_lm`` example twins at their defaults
-  (``phase_examples``).
+  (``phase_examples``);
+* slice 11: ``python -m repro_torch.launch.dryrun`` in subprocesses on
+  llama3.2-1b's cells of the 16x16 and 2x16x16 meshes, all on the meta
+  device of a fake world, never touching CUDA (``phase_dryrun``); and in
+  ``phase_train`` the parameters and AdamW state the card allocates for
+  llama3.2-1b against the dry run's bytes of them.
 
 Besides, it holds the RMSNorm kernel against its plain version at every
 edge of its geometry (``check_rmsnorm_edges``), and the decoder's loss
@@ -81,6 +86,7 @@ import dataclasses
 import gc
 import json
 import math
+import os
 import subprocess
 import sys
 import tempfile
@@ -110,7 +116,7 @@ from repro_torch.kernel_bench import (FAMILY_NORMS,  # noqa: E402
 from repro_torch.kernels import (_build, copy_stream,  # noqa: E402
                                  flash_attention, ops, ref, rmsnorm)
 from repro_torch.configs import get_config  # noqa: E402
-from repro_torch.launch import serve, train, zoo  # noqa: E402
+from repro_torch.launch import dryrun, serve, train, zoo  # noqa: E402
 from repro_torch.models import (get_model, hybrid,  # noqa: E402
                                 loss_and_grads, make_decode_step,
                                 make_prefill_step, make_train_step, mamba2,
@@ -202,6 +208,16 @@ MULTI_IMPL_PATH, FLEET_PATH = "multi_impl", "fleet"
 # unlaunched; the backlog's 100 requests revisit the cells
 MULTI_IMPL_TRACE = "serve:backlog"
 GRAD_SYNC_PATH, EXAMPLES_PATH = "grad_sync", "examples"
+# slice 11: python -m repro_torch.launch.dryrun on llama3.2-1b's four cells
+# of the 16x16 mesh and its decode on the 2x16x16 one, each status the
+# reference's (cell_skip_reason); launches no kernel
+DRYRUN_PATH = "dryrun"
+DRYRUN_CELLS = {("single_pod", "train_4k"): "ok",
+                ("single_pod", "prefill_32k"): "ok",
+                ("single_pod", "decode_32k"): "ok",
+                ("single_pod", "long_500k"): "skip",
+                ("multi_pod", "decode_32k"): "ok"}
+DRYRUN_TIMEOUT_S = 600
 # fleet: worker 5 (BIG) runs at 0.3 of its speed from the start, worker 2
 # (LITTLE) is killed 1 s in; the second DAG runs on the re-meshed fleet
 FLEET_SLOW, FLEET_SPEED, FLEET_KILLED, FLEET_KILL_AT = 5, 0.3, 2, 1.0
@@ -1458,6 +1474,7 @@ def phase_train() -> dict:
                              f"{moved}")
     del params, init
     torch.cuda.empty_cache()
+    state = check_state_bytes(model)
     warm_s = sum(step_s[1:])
     tokens = TRAIN_BATCH * TRAIN_SEQ
     emit({"phase": "train", "path": TRAIN_PATH, "arch": ARCH,
@@ -1469,8 +1486,33 @@ def phase_train() -> dict:
           "tokens_per_s": tokens * (TRAIN_STEPS - 1) / warm_s,
           "tokens_per_s_with_first_step": tokens * TRAIN_STEPS / sum(step_s),
           "share_of_elements_moved_least": min(moved.values()),
-          "launches": launched, "peak_memory_gib": peak / 2 ** 30})
+          "launches": launched, "peak_memory_gib": peak / 2 ** 30,
+          "state_bytes": state})
     return launched
+
+
+def check_state_bytes(model) -> dict:
+    """The bytes that the card allocates for ``model``'s parameters and
+    AdamW state (``init`` and ``adamw_init``, the delta of
+    ``memory_allocated``) against the dry run's count of them on one device
+    (``dryrun.state_bytes`` at no mesh), within 1% for the allocator's
+    rounding of each block."""
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    params = model.init(torch.Generator("cuda").manual_seed(0))
+    opt = adamw_init(params)
+    torch.cuda.synchronize()
+    allocated = torch.cuda.memory_allocated() - before
+    del params, opt
+    torch.cuda.empty_cache()
+    counted = dryrun.state_bytes(model.cfg)
+    want = counted["params"] + counted["opt_state"]
+    if abs(allocated - want) > 0.01 * want:
+        raise AssertionError(f"{TRAIN_PATH}: the card allocates {allocated} "
+                             f"bytes of parameters and AdamW state, the dry "
+                             f"run counts {counted}")
+    return {"allocated": allocated, "dry_run": counted,
+            "rel_err": (allocated - want) / want}
 
 
 def phase_train_vs_cpu() -> None:
@@ -1739,11 +1781,11 @@ def routing_log():
     Instrumentation of the checks: the main runs go without it."""
     calls, inner = [], transformer.moe_ffn
 
-    def logged(x, router_w, *weights, n_experts, top_k, capacity):
+    def logged(x, router_w, *weights, n_experts, top_k, capacity, **kw):
         calls.append((torch.einsum("bsm,me->bse", x.float(),
                                    router_w.float()), top_k, capacity))
         return inner(x, router_w, *weights, n_experts=n_experts,
-                     top_k=top_k, capacity=capacity)
+                     top_k=top_k, capacity=capacity, **kw)
 
     transformer.moe_ffn = logged
     try:
@@ -2742,6 +2784,75 @@ def sync_rounds(grads: dict, cpu_group) -> dict:
     return {"ms": ms, "residual": residual, "invariant": invariant}
 
 
+def prefill_matmul_flops(cfg, batch: int, seq: int) -> int:
+    """World matmul FLOPs of a dense decoder's prefill from its config: the
+    layer weights on every token, dense attention over every key (4 B H
+    S^2 hd a layer), and the LM head on the last token."""
+    L, M, H, KV, hd, F = (cfg.n_layers, cfg.d_model, cfg.n_heads,
+                          cfg.n_kv_heads, cfg.hd, cfg.d_ff)
+    layer_weights = L * (2 * M * H * hd + 2 * M * KV * hd + 3 * M * F)
+    return (2 * layer_weights * batch * seq + 4 * batch * H * seq * seq * hd
+            * L + 2 * batch * M * cfg.padded_vocab)
+
+
+def phase_dryrun() -> dict:
+    """dryrun: ``python -m repro_torch.launch.dryrun`` on DRYRUN_CELLS, one
+    subprocess a cell, all at once, into a temporary ``--out``: a fake
+    world of 256 or 512 ranks cannot share this process with grad_sync's
+    NCCL group.  Every cell's status is the reference's, the prefill's
+    world matmul FLOPs equal the closed form of llama3.2-1b's config, and
+    no subprocess initialised CUDA.  Launches no kernel in this process.
+    Returns kernel -> launches."""
+    from repro_torch.configs import SHAPES
+
+    kernels.reset_launch_counts()
+    env = {**os.environ, "PYTHONPATH": str(
+        Path(__file__).resolve().parent / "src")}
+    with tempfile.TemporaryDirectory() as out:
+        runs = {cell: subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             ARCH, "--shape", cell[1], "--" + cell[0].replace("_", "-"),
+             "--out", out], env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True) for cell in DRYRUN_CELLS}
+        cells = {}
+        try:
+            for (mesh, shape), run in runs.items():
+                stdout, stderr = run.communicate(timeout=DRYRUN_TIMEOUT_S)
+                if run.returncode != 0 or \
+                        "cuda_initialized=False" not in stdout:
+                    raise AssertionError(
+                        f"dryrun: {mesh} {shape} exited {run.returncode}: "
+                        f"{stdout[-2000:]} {stderr[-2000:]}")
+                res = json.loads((Path(out) / mesh / f"{ARCH}__{shape}.json"
+                                  ).read_text())
+                if res["status"] != DRYRUN_CELLS[(mesh, shape)]:
+                    raise AssertionError(f"dryrun: {mesh} {shape}: {res}")
+                cells[f"{mesh}:{shape}"] = res
+        finally:
+            for run in runs.values():
+                if run.poll() is None:
+                    run.kill()
+                    run.communicate()
+    launched = kernels.launch_counts()
+    prefill = SHAPES["prefill_32k"]
+    want = prefill_matmul_flops(get_config(ARCH), prefill.global_batch,
+                                prefill.seq_len)
+    got = cells["single_pod:prefill_32k"]["matmul_flops"]
+    if got != want:
+        raise AssertionError(f"dryrun: prefill_32k matmul FLOPs {got}, the "
+                             f"closed form {want}")
+    emit({"phase": "dryrun", "path": DRYRUN_PATH, "arch": ARCH,
+          "prefill_closed_form_flops": want, "cuda_initialized": False,
+          "cells": {k: {f: r.get(f) for f in (
+              "status", "reason", "chips", "matmul_flops",
+              "matmul_flops_per_device", "collectives", "trace_s",
+              "decode_pos")} | {"argument_size_bytes": r.get(
+                  "memory", {}).get("argument_size_bytes")}
+              for k, r in cells.items()},
+          "launches": launched})
+    return launched
+
+
 def phase_examples() -> dict:
     """examples: ``python -m repro_torch.examples.serve_lm`` and
     ``train_lm`` at their defaults on the card, every counter reset just
@@ -2820,7 +2931,8 @@ def main() -> None:
     for path, phase in ((MULTI_IMPL_PATH, phase_multi_impl),
                         (FLEET_PATH, phase_fleet),
                         (GRAD_SYNC_PATH, phase_grad_sync),
-                        (EXAMPLES_PATH, phase_examples)):
+                        (EXAMPLES_PATH, phase_examples),
+                        (DRYRUN_PATH, phase_dryrun)):
         t_phase = time.perf_counter()
         launches[path] = phase()
         emit({"phase": "seconds", "path": path,

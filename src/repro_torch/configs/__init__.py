@@ -108,6 +108,12 @@ def valid_cells(archs: Iterable[str] = ARCH_IDS,
 # ---------------------------------------------------------------------------
 # input specs (the dry run's stand-ins; no allocation)
 # ---------------------------------------------------------------------------
+def decode_pos(shape: ShapeSpec) -> int:
+    """The position a decode cell's stand-in cache is at: its last slot,
+    the step that fills a cache of ``seq_len``."""
+    return shape.seq_len - 1
+
+
 def input_specs(cfg: ModelConfig, shape: ShapeSpec) -> dict:
     """Meta tensors for every model input of this (arch, shape) cell.
 
@@ -115,7 +121,12 @@ def input_specs(cfg: ModelConfig, shape: ShapeSpec) -> dict:
     ``prefill`` -> the request batch (full prompt)
     ``decode``  -> one-token batch + a KV/state cache of seq_len
     Under a mesh context each is a DTensor with the placements of its
-    logical names (batch over pod x data)."""
+    logical names (batch over pod x data).  The one concrete input is a
+    decode cache's ``pos``, a 0-dim int32 on the CPU as every cache of the
+    port holds it (``model_api.cache_pos``), set to ``decode_pos(shape)``:
+    the decode steps index the cache with it on the host, where JAX traces
+    an abstract ``pos`` into the program.  A step attends over every slot
+    under a mask, so its work does not depend on the value."""
     B, S = shape.global_batch, shape.seq_len
 
     def sds(shp, dtype, names):
@@ -137,6 +148,7 @@ def input_specs(cfg: ModelConfig, shape: ShapeSpec) -> dict:
 
     if shape.kind == "decode":
         cache = get_model(cfg).init_cache(B, S, device="meta")
+        cache["pos"] = torch.tensor(decode_pos(shape), dtype=torch.int32)
         tokens = sds((B, 1), torch.int32, ("batch", None))
         return {"tokens": tokens, "cache": cache}
 
@@ -146,4 +158,5 @@ def input_specs(cfg: ModelConfig, shape: ShapeSpec) -> dict:
 __all__ = [
     "ARCH_IDS", "SHAPES", "SHAPE_NAMES", "ShapeSpec", "get_config",
     "get_smoke_config", "cell_skip_reason", "valid_cells", "input_specs",
+    "decode_pos",
 ]

@@ -52,13 +52,12 @@ def plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     kr = _build.wide(k.repeat_interleave(group, dim=1))
     vr = _build.wide(v.repeat_interleave(group, dim=1))
     scores = torch.einsum("bhqd,bhkd->bhqk", _build.wide(q), kr) * scale
-    rows = torch.arange(s, device=q.device)[:, None]
-    cols = torch.arange(sk, device=q.device)[None, :]
-    mask = torch.ones((s, sk), dtype=torch.bool, device=q.device)
+    # (s, sk) made from the scores, so a DTensor's mask is one on its mesh
+    mask = scores.new_ones((s, sk), dtype=torch.bool)
     if causal:
-        mask &= cols <= rows
+        mask = mask.tril()                   # col <= row
     if window is not None:
-        mask &= cols > rows - window
+        mask = mask.triu(1 - window)         # col > row - window
     scores = torch.where(mask, scores, torch.full_like(scores, -1e30))
     p = torch.softmax(scores, dim=-1)
     out = torch.einsum("bhqk,bhkd->bhqd", p, vr)

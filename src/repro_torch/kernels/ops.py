@@ -3,7 +3,9 @@
 Each op launches its CUDA kernel for a tensor on the card and takes the plain
 PyTorch version for a tensor on the CPU.  ``force="ref"`` takes the plain
 version on either device, and ``force="cuda"`` insists on the kernel (a CPU
-tensor then raises).  Where autograd records (grad mode on and an input
+tensor then raises).  A DTensor on the card raises too: the kernels take
+local tensors, and the plain version does not run in their place.  Where
+autograd records (grad mode on and an input
 that requires grad), ``matmul``, ``rmsnorm`` and ``flash_attention`` launch
 through their ``autograd.Function``, whose backward is plain PyTorch;
 elsewhere, as under ``inference_mode``, they launch bare, at no host cost
@@ -40,7 +42,15 @@ def _use_kernel(x: torch.Tensor, force: str | None) -> bool:
     if force == "cuda" and x.device.type != "cuda":
         raise ValueError(f"force='cuda' needs a CUDA tensor, got one on "
                          f"{x.device}")
-    return force != "ref" and x.device.type == "cuda"
+    kernel = force != "ref" and x.device.type == "cuda"
+    if kernel and type(x) is not torch.Tensor:
+        from torch.distributed.tensor import DTensor
+
+        if isinstance(x, DTensor):
+            raise NotImplementedError(
+                "a DTensor on the card: the kernels take local tensors, and "
+                "the plain version is not run in their place")
+    return kernel
 
 
 def _records(*tensors: torch.Tensor) -> bool:

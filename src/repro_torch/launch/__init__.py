@@ -1,1 +1,3 @@
-"""Entry points of the port: the serving launcher and its tenant zoo."""
+"""Entry points of the port: serving (``serve`` and its tenant ``zoo``),
+training (``train``), meshes (``mesh``) and the multi-pod dry run
+(``dryrun``)."""

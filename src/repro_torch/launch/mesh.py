@@ -7,6 +7,7 @@ no process group: each function does what it needs when it is called.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
@@ -27,6 +28,26 @@ def _start_world_of_one(device_type: str) -> None:
         torch.cuda.set_device(0)
     dist.init_process_group("nccl" if device_type == "cuda" else "gloo",
                             store=dist.HashStore(), rank=0, world_size=1)
+
+
+@contextlib.contextmanager
+def fake_world(world_size: int):
+    """A world of ``world_size`` ranks in this one process, as rank 0, on
+    torch's ``fake`` backend (``torch.testing._internal.distributed.
+    fake_pg``): its collectives return at once and move no data, so the
+    production meshes build on a host with no card, as JAX builds them on
+    512 fake host devices.  The group is destroyed on exit, error or not;
+    a running group is refused."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    if dist.is_initialized():
+        raise RuntimeError("a process group is running already")
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=world_size)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
 
 
 def make_production_mesh(*, multi_pod: bool = False,

@@ -9,6 +9,7 @@ from typing import Callable
 
 import torch
 
+from ..parallel.sharding import is_sharded
 from .hybrid import HymbaLM
 from .mamba2 import Mamba2LM
 from .model_api import BaseModel, ModelConfig, ParamDef
@@ -67,31 +68,40 @@ def make_train_step(model: BaseModel, lr_schedule: Callable | float = 3e-4,
     return train_step
 
 
+def _serve_mode(params: dict):
+    """``torch.inference_mode()``, or ``torch.no_grad()`` where the
+    parameters are DTensors (``abstract_params`` under a mesh): DTensor
+    slices (``unbound``) set a version counter, which an inference tensor
+    refuses."""
+    if is_sharded(next(iter(params.values()))):
+        return torch.no_grad()
+    return torch.inference_mode()
+
+
 def make_prefill_step(model: BaseModel):
-    """``model.prefill`` under ``torch.inference_mode()``.  Grad mode is per
-    thread, so a payload on a worker thread takes the step, not the bare
-    method.  ``max_len`` passes through."""
+    """``model.prefill`` under ``_serve_mode``.  Grad mode is per thread, so
+    a payload on a worker thread takes the step, not the bare method.
+    ``max_len`` passes through."""
     def prefill_step(params, batch, **kw):
-        with torch.inference_mode():
+        with _serve_mode(params):
             return model.prefill(params, batch, **kw)
     return prefill_step
 
 
 def make_decode_step(model: BaseModel):
-    """``model.decode_step`` under ``torch.inference_mode()``, as
+    """``model.decode_step`` under ``_serve_mode``, as
     ``make_prefill_step``."""
     def decode_step(params, tokens, cache):
-        with torch.inference_mode():
+        with _serve_mode(params):
             return model.decode_step(params, tokens, cache)
     return decode_step
 
 
 def make_encode_step(model: BaseModel):
     """Encoder-only serve step, full forward -> per-frame logits
-    (``model.forward``), under ``torch.inference_mode()`` as
-    ``make_prefill_step``."""
+    (``model.forward``), under ``_serve_mode`` as ``make_prefill_step``."""
     def encode_step(params, batch):
-        with torch.inference_mode():
+        with _serve_mode(params):
             return model.forward(params, batch)
     return encode_step
 

@@ -31,7 +31,9 @@ from __future__ import annotations
 
 import torch
 
-from .layers import apply_rope, attention, decode_attention, rmsnorm, swiglu
+from ..parallel.sharding import constrain, replicate_as
+from .layers import (apply_rope, attention, decode_attention, embed,
+                     merge_heads, rmsnorm, split_heads, swiglu)
 from .losses import lm_cross_entropy
 from .mamba2 import ssm_branch_full, ssm_branch_step
 from .model_api import (BaseModel, ParamDef, cache_pos, cache_tensor,
@@ -117,12 +119,9 @@ class HymbaLM(BaseModel):
     def _qkv(self, p: dict, h: torch.Tensor, positions: torch.Tensor):
         """q (B, Hq, S, HD), k and v (B, Hkv, S, HD), RoPE'd."""
         cfg = self.cfg
-        B, S, _ = h.shape
-        q = (h @ p["attn.wq"].to(h.dtype)).reshape(B, S, cfg.n_heads, cfg.hd)
-        k = (h @ p["attn.wk"].to(h.dtype)).reshape(B, S, cfg.n_kv_heads,
-                                                   cfg.hd)
-        v = (h @ p["attn.wv"].to(h.dtype)).reshape(B, S, cfg.n_kv_heads,
-                                                   cfg.hd)
+        q = split_heads(h @ p["attn.wq"].to(h.dtype), cfg.n_heads)
+        k = split_heads(h @ p["attn.wk"].to(h.dtype), cfg.n_kv_heads)
+        v = split_heads(h @ p["attn.wv"].to(h.dtype), cfg.n_kv_heads)
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
         return q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
@@ -137,7 +136,8 @@ class HymbaLM(BaseModel):
         a = a * p["fuse.beta_attn"].to(a.dtype)
         s = s * p["fuse.beta_ssm"].to(s.dtype)
         fused = 0.5 * (a + s)
-        x = x + fused @ p["attn.wo"].to(fused.dtype)
+        x = constrain(x + fused @ p["attn.wo"].to(fused.dtype),
+                      "batch", "seq", "act_embed")
         h2 = rmsnorm(x, p["mlp_norm.w"], cfg.norm_eps)
         return x + swiglu(h2, p["mlp.w1"].to(h2.dtype),
                           p["mlp.w3"].to(h2.dtype), p["mlp.w2"].to(h2.dtype))
@@ -153,22 +153,24 @@ class HymbaLM(BaseModel):
         """One layer over the whole sequence: (x, ((k, v), (conv state,
         SSD state)))."""
         cfg = self.cfg
-        B, S, _ = x.shape
         h = rmsnorm(x, p["norm.w"], cfg.norm_eps)
         qT, kT, vT = self._qkv(p, h, positions)
         o = attention(qT, kT, vT, causal=True, window=window)
-        attn_out = o.transpose(1, 2).reshape(B, S, cfg.n_heads * cfg.hd)
+        attn_out = merge_heads(o.transpose(1, 2))
         ssm_out, state = ssm_branch_full(h, chunk=cfg.ssm_chunk,
+                                         shard_acts=cfg.ssd_shard_acts,
                                          **self._ssm_kw(p))
-        return self._fuse_out(p, x, attn_out, ssm_out), ((kT, vT), state)
+        x = constrain(self._fuse_out(p, x, attn_out, ssm_out),
+                      "batch", "seq", "act_embed")
+        return x, ((kT, vT), state)
 
     def _layers(self, params: dict, tokens: torch.Tensor):
         """Backbone over ``tokens``: yields (layer, x, (kv, state)) after
         each layer."""
         top, stacked = split_params(params)
-        x = top["embed.w"][tokens].to(ACT_DTYPE)
-        positions = torch.arange(x.shape[1], dtype=torch.int32,
-                                 device=x.device)
+        x = embed(top["embed.w"], tokens).to(ACT_DTYPE)
+        positions = replicate_as(torch.arange(
+            x.shape[1], dtype=torch.int32, device=x.device), x)
         for i, p in enumerate(unbound(stacked)):
             x, kv_state = self._layer_full(p, x, positions, self.window(i))
             yield i, x, kv_state
@@ -188,7 +190,7 @@ class HymbaLM(BaseModel):
         x = None
         for _, x, _ in self._layers(params, batch["tokens"]):
             pass
-        return self._head(params, x)
+        return constrain(self._head(params, x), "batch", "seq", "vocab")
 
     def loss(self, params: dict, batch: dict):
         loss = lm_cross_entropy(self.forward(params, batch),
@@ -263,9 +265,9 @@ class HymbaLM(BaseModel):
         cfg = self.cfg
         top, stacked = split_params(params)
         pos = int(cache["pos"])
-        B = tokens.shape[0]
-        x = top["embed.w"][tokens].to(ACT_DTYPE)             # (B, 1, M)
-        positions = torch.full((1,), pos, dtype=torch.int32, device=x.device)
+        x = embed(top["embed.w"], tokens).to(ACT_DTYPE)     # (B, 1, M)
+        positions = replicate_as(
+            torch.full((1,), pos, dtype=torch.int32, device=x.device), x)
         new_k, new_v, convs, ssds = [], [], [], []
         for i, p in enumerate(unbound(stacked)):
             win = self.window(i)
@@ -273,7 +275,7 @@ class HymbaLM(BaseModel):
             qT, kT, vT = self._qkv(p, h, positions)
             k_c, v_c = cache["k"][i], cache["v"][i]
             eff = k_c.shape[2]
-            slots = torch.arange(eff, device=x.device)
+            slots = replicate_as(torch.arange(eff, device=x.device), x)
             if win is not None and eff == win:
                 k_c = torch.cat([k_c[:, :, 1:], kT], dim=2)
                 v_c = torch.cat([v_c[:, :, 1:], vT], dim=2)
@@ -287,7 +289,7 @@ class HymbaLM(BaseModel):
                 v_c[:, :, pos] = vT[:, :, 0]
                 valid = slots <= pos
             o = decode_attention(qT, k_c, v_c, valid_mask=valid)
-            attn_out = o.transpose(1, 2).reshape(B, 1, -1)
+            attn_out = merge_heads(o.transpose(1, 2))
             y, (conv, ssd) = ssm_branch_step(h[:, 0], cache["conv"][i],
                                              cache["ssd"][i],
                                              **self._ssm_kw(p))

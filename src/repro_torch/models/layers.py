@@ -23,6 +23,7 @@ import torch.nn.functional as F
 from torch.profiler import record_function
 
 from ..kernels import ops
+from ..parallel.sharding import constrain, is_sharded, replicate_as
 
 NEG_INF = -1e30
 
@@ -35,11 +36,35 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
     activations, as the models pass them).  All rows go to one kernel call:
     ``block_rows=rows`` keeps the Pallas path's tiling check satisfiable at a
     decode step's 1-4 rows (the JAX models never called the Pallas kernel,
-    so there is no reference tiling)."""
+    so there is no reference tiling).  A DTensor off the card (the dry
+    run's meta stand-ins) takes the plain version whole, as any tensor off
+    the card takes it: the rows' flatten of a batch sharded over more ranks
+    than it has rows (256 over 512) does not come back in DTensor's
+    backward.  A DTensor on the card raises in ``ops`` (the kernel takes
+    local tensors)."""
+    if is_sharded(x):
+        return ops.rmsnorm(x, w, eps=eps,
+                           force=None if x.device.type == "cuda" else "ref")
     d = x.shape[-1]
     x2 = x.reshape(-1, d)
     out = ops.rmsnorm(x2, w, eps=eps, block_rows=max(1, x2.shape[0]))
     return out.reshape(x.shape)
+
+
+def embed(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """``table[tokens]``.  On a DTensor table the token ids are replicated
+    first (4 bytes a token): torch 2.11's DTensor rules take no dim sharded
+    over two mesh axes, as the batch is over (pod, data) on the 2x16x16
+    mesh.  Where a graph is recorded the lookup is ``F.embedding``, whose
+    backward DTensor shards (2.11's rule for the indexing's backward,
+    ``index_put``, raises); without one it is the indexing, as 2.11's
+    ``embedding`` rule fails on the 3-D mesh."""
+    if not is_sharded(table):
+        return table[tokens]
+    ids = constrain(tokens, *(None,) * tokens.dim())
+    if torch.is_grad_enabled():
+        return F.embedding(ids, table)
+    return table[ids]
 
 
 # ---------------------------------------------------------------------------
@@ -61,7 +86,7 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
     split-half layout).  ``fraction < 1`` rotates only the leading sub-dim
     (ChatGLM-style partial RoPE)."""
     b, s, h, d = x.shape
-    inv = rope_freqs(d, theta, fraction, device=x.device)
+    inv = replicate_as(rope_freqs(d, theta, fraction, device=x.device), x)
     rot = inv.shape[0] * 2
     if positions.dim() == 1:
         positions = positions[None, :]
@@ -79,6 +104,42 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
 # ---------------------------------------------------------------------------
 # attention
 # ---------------------------------------------------------------------------
+def _heads_names(lead: tuple) -> tuple:
+    """Logical names of (B, [S,] heads): the batch, a sequence, the heads."""
+    return ("batch",) + ("seq",) * (len(lead) - 1) + ("act_heads",)
+
+
+def split_heads(x: torch.Tensor, heads: int) -> torch.Tensor:
+    """x (B, [S,] heads * D) -> (B, [S,] heads, D).  Under a mesh the last
+    dim is first sharded as the heads alone can be ("act_heads"): DTensor
+    cannot split a shard across a head boundary (8 kv heads on 16 ranks),
+    where GSPMD reshards by itself."""
+    lead = tuple(x.shape[:-1])
+    x = constrain(x, *_heads_names(lead), shape=lead + (heads,))
+    return x.reshape(*lead, heads, -1)
+
+
+def merge_heads(o: torch.Tensor) -> torch.Tensor:
+    """o (B, [S,] H, D) -> (B, [S,] H * D), the inverse of
+    ``split_heads``.  Under a mesh the merged dim is constrained, grad
+    included, to a sharding the heads alone can take, so that the split
+    keeps to shard edges (25 heads on 16 ranks) in the backward too."""
+    lead, (h, d) = tuple(o.shape[:-2]), o.shape[-2:]
+    return constrain(o.reshape(*lead, h * d), *_heads_names(lead),
+                     shape=lead + (h,))
+
+
+def batch_only(*ts: torch.Tensor, slots: str | None = None) -> tuple:
+    """(B, H, S, D) tensors constrained to shard over the batch (and the S
+    dim over ``slots``' axes), their heads replicated: the plain
+    attention's ``einsum`` flattens (B, H) into one batch dim of ``bmm``,
+    which DTensor can do only with the outer dim sharded (torch 2.11
+    refuses it; 2.13 gathers the heads for want of a ``bmm`` rule on the
+    flattened shard).  GSPMD keeps heads sharded; the port runs each model
+    rank's attention over all heads of its batch shard."""
+    return tuple(constrain(t, "batch", None, slots, None) for t in ts)
+
+
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               causal: bool = True, window: int | None = None) -> torch.Tensor:
     """GQA attention over a whole sequence, causal and within ``window``
@@ -88,11 +149,13 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     layer's mask on positions; every row sees at least itself, so the JAX
     bias fill of -1e30 and the kernel agree.  ``bq = bk = S`` satisfy the
     TPU kernel's tiling check at any length; the CUDA kernel tiles by
-    itself."""
+    itself.  Under a mesh q, k, v and the output (its grad too) are sharded
+    over the batch alone (``batch_only``)."""
     s = q.shape[2]
-    return ops.flash_attention(q.contiguous(), k.contiguous(),
-                               v.contiguous(), causal=causal, window=window,
-                               bq=s, bk=s)
+    q, k, v = batch_only(q, k, v)
+    o = ops.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                            causal=causal, window=window, bq=s, bk=s)
+    return batch_only(o)[0]
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
@@ -100,10 +163,14 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      valid_mask: torch.Tensor) -> torch.Tensor:
     """Single-position attention over a cache.  q: (B, Hq, 1, D); k/v_cache:
     (B, Hkv, S, D); ``valid_mask`` (B, S) or (S,) says which entries are
-    visible."""
+    visible.  Under a mesh q and the cache are sharded over the batch, and
+    the cache over its slots too, not over heads (``batch_only``)."""
     b, hq, _, d = q.shape
-    g = hq // k_cache.shape[1]
-    qg = q.reshape(b, k_cache.shape[1], g, d)
+    hkv = k_cache.shape[1]
+    g = hq // hkv
+    q = batch_only(q)[0]
+    k_cache, v_cache = batch_only(k_cache, v_cache, slots="kv_seq")
+    qg = q.reshape(b, hkv, g, d)
     scores = torch.einsum("bhgd,bhkd->bhgk", qg.float(),
                           k_cache.float()) / math.sqrt(d)
     if valid_mask.dim() == 1:
@@ -119,9 +186,13 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
 # FFN
 # ---------------------------------------------------------------------------
 def swiglu(x: torch.Tensor, w1: torch.Tensor, w3: torch.Tensor,
-           w2: torch.Tensor) -> torch.Tensor:
-    """x: (..., M); w1/w3: (M, F); w2: (F, M)."""
-    return (F.silu(x @ w1) * (x @ w3)) @ w2
+           w2: torch.Tensor, shard_acts: bool = True) -> torch.Tensor:
+    """x: (B, S, M); w1/w3: (M, F); w2: (F, M).  ``shard_acts``: the
+    hidden (B, S, F) constrained as the reference's (layers.py:205)."""
+    h = F.silu(x @ w1) * (x @ w3)
+    if shard_acts:
+        h = constrain(h, "batch", "seq", "act_ff")
+    return h @ w2
 
 
 # ---------------------------------------------------------------------------
@@ -138,7 +209,8 @@ def _span(name: str):
 
 def moe_ffn(x: torch.Tensor, router_w: torch.Tensor, we1: torch.Tensor,
             we3: torch.Tensor, we2: torch.Tensor, *, n_experts: int,
-            top_k: int, capacity: int) -> torch.Tensor:
+            top_k: int, capacity: int, shard_acts: bool = True
+            ) -> torch.Tensor:
     """x: (B, S, M) -> (B, S, M); router_w (M, E), we1/we3 (E, M, F), we2
     (E, F, M).  The function of the JAX layer (layers.py:213-286), per
     batch row:
@@ -159,6 +231,9 @@ def moe_ffn(x: torch.Tensor, router_w: torch.Tensor, we1: torch.Tensor,
     runs in a span (``moe.router``, ``moe.sort``, ``moe.dispatch``,
     ``moe.experts``, ``moe.combine``), which ``trace_main_path --moe-only``
     reads.
+
+    ``shard_acts`` constrains the gathered tokens and the experts' hidden
+    as the reference does (layers.py:262, 272).
 
     Ties: ``torch.topk`` does not promise ``lax.top_k``'s lower-index-first
     order on equal gates, so on exact ties the two may pick other experts;
@@ -184,24 +259,31 @@ def moe_ffn(x: torch.Tensor, router_w: torch.Tensor, we1: torch.Tensor,
         flat_ids = top_ids.reshape(b, s * k)
         sid, order = torch.sort(flat_ids, dim=-1, stable=True)
         # rank within expert: position - first position of this expert id
-        first = torch.searchsorted(
-            sid, torch.arange(e, device=dev).expand(b, e).contiguous())
-        rank = torch.arange(s * k, device=dev) - first.gather(1, sid)
+        experts = replicate_as(
+            torch.arange(e, device=dev).expand(b, e).contiguous(), x)
+        first = torch.searchsorted(sid, experts)
+        flat = replicate_as(torch.arange(s * k, device=dev), x)
+        rank = flat - first.gather(1, sid)
         slot = torch.empty_like(rank).scatter_(1, order, rank)  # flat order
         kept = slot < c
-        flat = torch.arange(s * k, device=dev).expand(b, s * k)
+        flat = flat.expand(b, s * k)
         dest = torch.where(kept, flat_ids * c + slot, e * c + flat)
     with _span("moe.dispatch"):
         # the token of each (expert, slot); an empty slot reads row s, zeros
-        tok = torch.full((b, e * c + s * k), s, dtype=torch.long, device=dev)
+        tok = replicate_as(torch.full((b, e * c + s * k), s,
+                                      dtype=torch.long, device=dev), x)
         tok = tok.scatter_(1, dest, flat // k)[:, :e * c]
         xz = torch.cat([x, x.new_zeros(b, 1, m)], dim=1)
         xin = xz.gather(1, tok[..., None].expand(b, e * c, m))
         xin = xin.reshape(b, e, c, m)
+        if shard_acts:
+            xin = constrain(xin, "batch", "act_expert", None, None)
     with _span("moe.experts"):
         we1, we3, we2 = (w.to(x.dtype) for w in (we1, we3, we2))
         h = F.silu(torch.einsum("becm,emf->becf", xin, we1))
         h = h * torch.einsum("becm,emf->becf", xin, we3)
+        if shard_acts:
+            h = constrain(h, "batch", "act_expert", None, "act_ff")
         out = torch.einsum("becf,efm->becm", h, we2).reshape(b, e * c, m)
     with _span("moe.combine"):
         # each assignment's output, weighted, summed over its token's k

@@ -33,7 +33,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from .layers import _span, rmsnorm
+from ..parallel.sharding import constrain, replicate_as
+from .layers import _span, embed, merge_heads, rmsnorm, split_heads
 from .losses import lm_cross_entropy
 from .model_api import (BaseModel, ParamDef, cache_pos, cache_tensor,
                         split_params, unbound)
@@ -49,7 +50,8 @@ _FP32 = ("final_norm.w", "layers.norm.w", "layers.gate_norm.w",
 # ---------------------------------------------------------------------------
 def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
                 b: torch.Tensor, c: torch.Tensor, d_skip: torch.Tensor,
-                chunk: int) -> tuple[torch.Tensor, torch.Tensor]:
+                chunk: int, shard_acts: bool = False
+                ) -> tuple[torch.Tensor, torch.Tensor]:
     """SSD in the chunked dual form (mamba2.py:28-115).
 
     x (B, L, H, P) inputs a head; dt (B, L, H) softplus'd step sizes; a_log
@@ -63,7 +65,11 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
     final state are exact.  The intra-chunk decay exp(La_i - La_j) is taken
     of -inf above the diagonal, where JAX takes ``where(causal, exp(diff),
     0)``: the same values, and no inf * 0 in the backward where the masked
-    exponent overflows."""
+    exponent overflows.
+
+    ``shard_acts`` (``cfg.ssd_shard_acts``) constrains the intra-chunk
+    temporaries to the batch sharding, as the reference's does
+    (mamba2.py:75-84)."""
     bsz, L, H, P = x.shape
     N = b.shape[-1]
     L_orig = L
@@ -88,12 +94,18 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
     # ---- intra-chunk: y_i = sum_{j <= i} (C_i . B_j) decay(i<-j) dt_j x_j
     Lh = La.transpose(2, 3)                              # (B, nc, H, q)
     ii = torch.arange(q, device=x.device)
-    causal = ii[:, None] >= ii[None, :]
+    causal = replicate_as(ii[:, None] >= ii[None, :], x)
     decay = torch.exp((Lh[..., :, None] - Lh[..., None, :]).masked_fill(
         ~causal, float("-inf")))                         # (B, nc, H, i, j)
+    if shard_acts:
+        decay = constrain(decay, "batch", None, None, None, None)
     cb = torch.einsum("bcin,bcjn->bcij", cr, br)         # (B, nc, q, q)
     w = cb[:, :, None] * decay * dtr.transpose(2, 3)[:, :, :, None, :]
+    if shard_acts:
+        w = constrain(w, "batch", None, None, None, None)
     y_intra = torch.matmul(w, xr.transpose(2, 3))        # (B, nc, H, q, P)
+    if shard_acts:
+        y_intra = constrain(y_intra, "batch", None, None, None, None)
 
     # ---- chunk states: S_c = sum_j exp(La_last - La_j) dt_j B_j x_j^T
     last = La[:, :, -1:, :]                              # (B, nc, 1, H)
@@ -167,12 +179,12 @@ def ssm_branch_full(h: torch.Tensor, in_proj: torch.Tensor,
                     conv_w: torch.Tensor, conv_b: torch.Tensor,
                     a_log: torch.Tensor, dt_bias: torch.Tensor,
                     d_skip: torch.Tensor, *, d_inner: int, n: int,
-                    head_dim: int, chunk: int):
+                    head_dim: int, chunk: int, shard_acts: bool = False):
     """The SSM branch over a whole sequence, up to the gate: h (B, S, M)
     -> (y * silu(z) (B, S, d_inner) in h's dtype, (conv state (B, K - 1,
     conv_dim) in ``ACT_DTYPE``, SSD state (B, H, N, P) fp32)).
     mamba2.py:180-198 and hybrid.py:85-107 are this function."""
-    bsz, S, _ = h.shape
+    S = h.shape[1]
     H = d_inner // head_dim
     proj = h @ in_proj.to(h.dtype)
     z, xs, b, c, dt = split_proj(proj, d_inner, n)
@@ -181,11 +193,12 @@ def ssm_branch_full(h: torch.Tensor, in_proj: torch.Tensor,
         conv = causal_conv(xbc, conv_w, conv_b)
     xs, b, c = (conv[..., :d_inner], conv[..., d_inner:d_inner + n],
                 conv[..., d_inner + n:])
+    dt = constrain(dt, "batch", "seq", "act_heads")   # as ssm_branch_step
     dt = F.softplus(dt.float() + dt_bias.float())
     with _span("ssm.scan"):
-        y, final = ssd_chunked(xs.reshape(bsz, S, H, head_dim), dt, a_log,
-                               b, c, d_skip, chunk=min(chunk, S))
-    y = y.reshape(bsz, S, d_inner) * F.silu(z.float()).to(y.dtype)
+        y, final = ssd_chunked(split_heads(xs, H), dt, a_log, b, c, d_skip,
+                               chunk=min(chunk, S), shard_acts=shard_acts)
+    y = merge_heads(y) * F.silu(z.float()).to(y.dtype)
     K = conv_w.shape[0]
     return y, (xbc[:, -(K - 1):].to(ACT_DTYPE), final)
 
@@ -199,7 +212,6 @@ def ssm_branch_step(h: torch.Tensor, conv_c: torch.Tensor,
     """One decode step of the SSM branch, up to the gate: h (B, M) ->
     (y * silu(z) (B, d_inner), (new conv state, new SSD state)).
     mamba2.py:293-309 and hybrid.py:203-223 are this function."""
-    bsz = h.shape[0]
     H = d_inner // head_dim
     proj = h @ in_proj.to(h.dtype)                       # (B, d_in_proj)
     z, xs, b, c, dt = split_proj(proj, d_inner, n)
@@ -210,11 +222,14 @@ def ssm_branch_step(h: torch.Tensor, conv_c: torch.Tensor,
         conv = F.silu(conv + conv_b.to(conv.dtype))
     xs_c, b_c, c_c = (conv[:, :d_inner], conv[:, d_inner:d_inner + n],
                       conv[:, d_inner + n:])
+    # a slice of the projection's sharded last dim: replicate its H heads
+    # where they do not divide over the mesh (DTensor shards them unevenly)
+    dt = constrain(dt, "batch", "act_heads")
     dt = F.softplus(dt.float() + dt_bias.float())
     with _span("ssm.scan"):
-        y, new_ssd = ssd_decode_step(ssd_c, xs_c.reshape(bsz, H, head_dim),
-                                     dt, a_log, b_c, c_c, d_skip)
-    y = y.reshape(bsz, d_inner) * F.silu(z.float()).to(y.dtype)
+        y, new_ssd = ssd_decode_step(ssd_c, split_heads(xs_c, H), dt, a_log,
+                                     b_c, c_c, d_skip)
+    y = merge_heads(y) * F.silu(z.float()).to(y.dtype)
     return y, (hist[:, 1:].to(ACT_DTYPE), new_ssd)
 
 
@@ -273,14 +288,18 @@ class Mamba2LM(BaseModel):
         y, state = ssm_branch_full(
             h, p["in_proj.w"], p["conv.w"], p["conv.b"], p["a_log"],
             p["dt_bias"], p["d_skip"], chunk=cfg.ssm_chunk,
-            **self._branch_kw())
+            shard_acts=cfg.ssd_shard_acts, **self._branch_kw())
         y = rmsnorm(y, p["gate_norm.w"], cfg.norm_eps)
-        return x + y @ p["out_proj.w"].to(y.dtype), state
+        y = constrain(y, "batch", "seq", "act_ff")
+        x = constrain(x + y @ p["out_proj.w"].to(y.dtype),
+                      "batch", "seq", "act_embed")
+        return x, state
 
     def _layers(self, params: dict, tokens: torch.Tensor):
         """Backbone over ``tokens``: yields (x, state) after each layer."""
         top, stacked = split_params(params)
-        x = top["embed.w"][tokens].to(ACT_DTYPE)
+        x = constrain(embed(top["embed.w"], tokens).to(ACT_DTYPE),
+                      "batch", "seq", "act_embed")
         for p in unbound(stacked):
             x, state = self._layer_full(p, x)
             yield x, state
@@ -300,7 +319,7 @@ class Mamba2LM(BaseModel):
         x = None
         for x, _ in self._layers(params, batch["tokens"]):
             pass
-        return self._head(params, x)
+        return constrain(self._head(params, x), "batch", "seq", "vocab")
 
     def loss(self, params: dict, batch: dict):
         loss = lm_cross_entropy(self.forward(params, batch),
@@ -349,7 +368,7 @@ class Mamba2LM(BaseModel):
         new cache); ``cache`` is left as it was (mamba2.py:281-319)."""
         cfg = self.cfg
         top, stacked = split_params(params)
-        x = top["embed.w"][tokens[:, 0]].to(ACT_DTYPE)     # (B, M)
+        x = embed(top["embed.w"], tokens[:, 0]).to(ACT_DTYPE)  # (B, M)
         convs, ssds = [], []
         for p, conv_c, ssd_c in zip(unbound(stacked), cache["conv"],
                                     cache["ssd"]):

@@ -67,8 +67,10 @@ class ModelConfig:
     frontend: str = "none"               # none | patch (vlm) | frames (audio)
     n_patches: int = 256                 # vlm stub patch count
     # --- execution knobs of the JAX package, kept so that configs carry
-    # across unchanged; the port's eager decoder reads ce_onehot,
-    # logits_chunk and swa_ring_buffer ---
+    # across unchanged; the port reads ce_onehot (off a mesh only:
+    # launch.dryrun.MESH_NO_EFFECT), logits_chunk, swa_ring_buffer,
+    # ssd_shard_acts, shard_kv_seq and decode_no_fsdp, and no model of it
+    # reads the others (launch.dryrun.NO_EFFECT) ---
     remat: bool = True
     remat_policy: str = "nothing"
     attn_chunk: int = 1024

@@ -36,8 +36,9 @@ from __future__ import annotations
 
 import torch
 
-from .layers import (apply_rope, attention, decode_attention, moe_ffn,
-                     rmsnorm, swiglu)
+from ..parallel.sharding import constrain, replicate_as
+from .layers import (apply_rope, attention, decode_attention, embed,
+                     merge_heads, moe_ffn, rmsnorm, split_heads, swiglu)
 from .losses import lm_cross_entropy
 from .model_api import (BaseModel, ParamDef, cache_pos, cache_tensor,
                         split_params, unbound)
@@ -104,11 +105,12 @@ class DecoderLM(BaseModel):
                 for k, v in params.items()}
 
     # ------------------------------------------------------------ forward --
-    def _qkv(self, p: dict, h: torch.Tensor, positions: torch.Tensor):
+    def _qkv(self, p: dict, h: torch.Tensor, positions: torch.Tensor,
+             shard: bool = False):
         """Projections, biases and RoPE: q (B, Hq, S, HD), k and v
-        (B, Hkv, S, HD)."""
+        (B, Hkv, S, HD); ``shard`` (the full-sequence layer) constrains q
+        and k as the reference's layer does (transformer.py:101-102)."""
         cfg = self.cfg
-        B, S, _ = h.shape
         q = h @ p["attn.wq"].to(h.dtype)
         k = h @ p["attn.wk"].to(h.dtype)
         v = h @ p["attn.wv"].to(h.dtype)
@@ -116,39 +118,54 @@ class DecoderLM(BaseModel):
             q = q + p["attn.bq"].to(h.dtype)
             k = k + p["attn.bk"].to(h.dtype)
             v = v + p["attn.bv"].to(h.dtype)
-        q = q.reshape(B, S, cfg.n_heads, cfg.hd)
-        k = k.reshape(B, S, cfg.n_kv_heads, cfg.hd)
-        v = v.reshape(B, S, cfg.n_kv_heads, cfg.hd)
+        q = split_heads(q, cfg.n_heads)
+        k = split_heads(k, cfg.n_kv_heads)
+        v = split_heads(v, cfg.n_kv_heads)
         q = apply_rope(q, positions, cfg.rope_theta, cfg.rope_fraction)
         k = apply_rope(k, positions, cfg.rope_theta, cfg.rope_fraction)
+        if shard:
+            q = constrain(q, "batch", "seq", "act_heads", None)
+            k = constrain(k, "batch", "seq", "act_heads", None)
         return (q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
 
-    def _mlp(self, p: dict, x: torch.Tensor, group_tokens: int
-             ) -> torch.Tensor:
+    def _mlp(self, p: dict, x: torch.Tensor, group_tokens: int,
+             no_fsdp: bool = False) -> torch.Tensor:
         """x + ffn(rmsnorm(x)); the MoE routes each batch row of
-        ``group_tokens`` tokens at ``moe_capacity(group_tokens)``."""
+        ``group_tokens`` tokens at ``moe_capacity(group_tokens)``.
+        ``no_fsdp`` (a decode step of a ``decode_no_fsdp`` model) replicates
+        the token activations into the FFN and shards its output over the
+        batch, in place of the FFN's own constraints (transformer.py:353-
+        371)."""
         cfg = self.cfg
         h = rmsnorm(x, p["mlp_norm.w"], cfg.norm_eps)
+        if no_fsdp:
+            h = constrain(h, None, None, None)
         if cfg.is_moe:
-            return x + moe_ffn(h, p["moe.router"], p["moe.experts.w1"],
-                               p["moe.experts.w3"], p["moe.experts.w2"],
-                               n_experts=cfg.n_experts,
-                               top_k=cfg.experts_per_token,
-                               capacity=cfg.moe_capacity(group_tokens))
-        return x + swiglu(h, p["mlp.w1"].to(h.dtype), p["mlp.w3"].to(h.dtype),
-                          p["mlp.w2"].to(h.dtype))
+            y = moe_ffn(h, p["moe.router"], p["moe.experts.w1"],
+                        p["moe.experts.w3"], p["moe.experts.w2"],
+                        n_experts=cfg.n_experts, top_k=cfg.experts_per_token,
+                        capacity=cfg.moe_capacity(group_tokens),
+                        shard_acts=not no_fsdp)
+        else:
+            y = swiglu(h, p["mlp.w1"].to(h.dtype), p["mlp.w3"].to(h.dtype),
+                       p["mlp.w2"].to(h.dtype), shard_acts=not no_fsdp)
+        if no_fsdp:
+            y = constrain(y, "batch", None, None)
+        return x + y
 
     def _layer(self, p: dict, x: torch.Tensor, *, positions: torch.Tensor):
         """One decoder layer (full-sequence path).  Returns (x, (k, v)), k and
         v (B, Hkv, S, HD) the layer's cache contribution."""
         cfg = self.cfg
-        B, S, _ = x.shape
+        S = x.shape[1]
         h = rmsnorm(x, p["attn_norm.w"], cfg.norm_eps)
-        qT, kT, vT = self._qkv(p, h, positions)
+        qT, kT, vT = self._qkv(p, h, positions, shard=True)
         o = attention(qT, kT, vT, causal=cfg.causal, window=cfg.window)
-        o = o.transpose(1, 2).reshape(B, S, cfg.n_heads * cfg.hd)
-        x = x + (o @ p["attn.wo"].to(o.dtype))
-        return self._mlp(p, x, S), (kT, vT)
+        o = merge_heads(o.transpose(1, 2))
+        x = constrain(x + (o @ p["attn.wo"].to(o.dtype)),
+                      "batch", "seq", "act_embed")
+        x = constrain(self._mlp(p, x, S), "batch", "seq", "act_embed")
+        return x, (kT, vT)
 
     def _head(self, top: dict) -> torch.Tensor:
         return top["embed.w"].T if self.cfg.tie_embeddings else top["head.w"]
@@ -160,7 +177,7 @@ class DecoderLM(BaseModel):
         inputs (transformer.py:138-148)."""
         if self.cfg.frontend == "frames":
             return batch["frames"].to(ACT_DTYPE)
-        x = top["embed.w"][batch["tokens"]].to(ACT_DTYPE)
+        x = embed(top["embed.w"], batch["tokens"]).to(ACT_DTYPE)
         if self.cfg.frontend == "patch" and "patch_embeds" in batch:
             pe = batch["patch_embeds"].to(ACT_DTYPE)
             x = torch.cat([pe, x[:, pe.shape[1]:]], dim=1)
@@ -170,9 +187,10 @@ class DecoderLM(BaseModel):
         """Backbone over ``batch``'s inputs: yields (x, (k, v)) after each
         layer; ``x`` enters as ``_embed_inputs``."""
         top, stacked = split_params(params)
-        x = self._embed_inputs(top, batch)
-        positions = torch.arange(x.shape[1], dtype=torch.int32,
-                                 device=x.device)
+        x = constrain(self._embed_inputs(top, batch),
+                      "batch", "seq", "act_embed")
+        positions = replicate_as(torch.arange(
+            x.shape[1], dtype=torch.int32, device=x.device), x)
         for p in unbound(stacked):
             x, kv = self._layer(p, x, positions=positions)
             yield x, kv
@@ -189,7 +207,7 @@ class DecoderLM(BaseModel):
     def forward(self, params: dict, batch: dict) -> torch.Tensor:
         """Full-sequence forward -> logits (B, S, V)."""
         x, head = self._hidden(params, batch)
-        return x @ head.to(x.dtype)
+        return constrain(x @ head.to(x.dtype), "batch", "seq", "vocab")
 
     # --------------------------------------------------------------- loss --
     def loss(self, params: dict, batch: dict):
@@ -200,6 +218,7 @@ class DecoderLM(BaseModel):
             mask = torch.ones(targets.shape, dtype=torch.float32,
                               device=targets.device)
             mask[:, :cfg.n_patches] = 0.0
+            mask = replicate_as(mask, targets)
         if cfg.logits_chunk > 1:
             loss = self._chunked_ce(params, batch, targets, mask)
         else:
@@ -300,10 +319,9 @@ class DecoderLM(BaseModel):
         pos = int(cache["pos"])
         eff = cache["k"].shape[3]
         rolling = cfg.window is not None and eff == cfg.window
-        B = tokens.shape[0]
-        x = top["embed.w"][tokens].to(ACT_DTYPE)
+        x = embed(top["embed.w"], tokens).to(ACT_DTYPE)
         dev = x.device
-        slots = torch.arange(eff, device=dev)
+        slots = replicate_as(torch.arange(eff, device=dev), x)
         if rolling and cfg.swa_ring_buffer:
             at = pos % eff
             valid = pos - torch.remainder(pos - slots, eff) >= 0
@@ -320,7 +338,8 @@ class DecoderLM(BaseModel):
             at = pos
             valid = slots <= pos
             new_k, new_v = cache["k"].clone(), cache["v"].clone()
-        positions = torch.full((1,), pos, dtype=torch.int32, device=dev)
+        positions = replicate_as(
+            torch.full((1,), pos, dtype=torch.int32, device=dev), x)
         for i in range(cfg.n_layers):
             p = {k: v[i] for k, v in stacked.items()}
             h = rmsnorm(x, p["attn_norm.w"], cfg.norm_eps)
@@ -328,9 +347,9 @@ class DecoderLM(BaseModel):
             new_k[i, :, :, at] = kT[:, :, 0]
             new_v[i, :, :, at] = vT[:, :, 0]
             o = decode_attention(qT, new_k[i], new_v[i], valid_mask=valid)
-            o = o.transpose(1, 2).reshape(B, 1, cfg.n_heads * cfg.hd)
+            o = merge_heads(o.transpose(1, 2))
             x = x + o @ p["attn.wo"].to(o.dtype)
-            x = self._mlp(p, x, 1)
+            x = self._mlp(p, x, 1, no_fsdp=cfg.decode_no_fsdp)
         x = rmsnorm(x, top["final_norm.w"], cfg.norm_eps)
         logits = x @ self._head(top).to(x.dtype)
         return logits, {"k": new_k, "v": new_v,

@@ -15,6 +15,8 @@ import dataclasses
 
 import torch
 
+from ..parallel.sharding import abstract_tensor, is_sharded
+
 
 @dataclasses.dataclass
 class AdamWState:
@@ -31,6 +33,28 @@ def adamw_init(params: dict) -> AdamWState:
             for k, p in params.items()},
         nu={k: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
             for k, p in params.items()})
+
+
+def abstract_opt_state(abstract_params: dict) -> AdamWState:
+    """The state ``adamw_init`` would give ``abstract_params``, without
+    allocating (twin of src/repro/launch/dryrun.py:95-102): fp32 meta
+    moments, each a DTensor with its parameter's mesh and placements where
+    the parameter is one, and a meta int32 0-d step, replicated under a
+    mesh context."""
+    def f32(p):
+        sharding = (p.device_mesh, list(p.placements)) if is_sharded(p) \
+            else None
+        return abstract_tensor(p.shape, torch.float32, sharding)
+
+    first = next(iter(abstract_params.values()))
+    step_sharding = None
+    if is_sharded(first):
+        from torch.distributed.tensor import Replicate
+        mesh = first.device_mesh
+        step_sharding = (mesh, [Replicate()] * mesh.ndim)
+    return AdamWState(step=abstract_tensor((), torch.int32, step_sharding),
+                      mu={k: f32(p) for k, p in abstract_params.items()},
+                      nu={k: f32(p) for k, p in abstract_params.items()})
 
 
 @torch.no_grad()

@@ -14,8 +14,11 @@ DTensor placements over a mesh, in JAX's major-to-minor chunk order.
 The context (mesh + rules) is stored in a contextvar, so model code can call
 ``constrain(x, "batch", "seq", "embed")`` without threading a mesh handle
 through every function.  Outside a context ``constrain`` is a no-op, as in
-JAX.  Under a mesh it redistributes a DTensor and returns a plain tensor
-unchanged: eager PyTorch has no compiler to take an annotation.
+JAX.  Under a mesh it redistributes a DTensor, and its grad in the
+backward, and returns a plain tensor unchanged: eager PyTorch has no
+compiler to take an annotation.  A tensor that model code makes (an
+``arange``, a mask) meets DTensors under a mesh as a replicated one
+(``replicate_as``), where JAX's tracer takes it in as a constant.
 
 ``torch.distributed`` is imported inside the functions that need it, so
 importing this module (or `pad_to_multiple` and `operand_footprint` from it)
@@ -26,6 +29,7 @@ from __future__ import annotations
 import contextlib
 import contextvars
 import dataclasses
+import functools
 import math
 from typing import Any, Sequence
 
@@ -97,9 +101,29 @@ def current_ctx() -> ShardingCtx | None:
     return _CTX.get()
 
 
+@functools.cache
+def _register_strategies() -> None:
+    """DTensor sharding rules, once a process, for the ops that model code
+    runs and DTensor has none for: ``searchsorted`` (the MoE's first slot
+    of each expert) searches each row on its own, so any dim but the last
+    shards, the same on the sorted rows, the values and the output."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import register_sharding
+
+    @register_sharding(torch.ops.aten.searchsorted.Tensor)
+    def _searchsorted(sorted_sequence, values, **_):
+        out = [([Replicate()], [Replicate(), Replicate()])]
+        for d in range(sorted_sequence.ndim - 1):
+            out.append(([Shard(d)], [Shard(d), Shard(d)]))
+        return out
+
+
 @contextlib.contextmanager
 def use_sharding(mesh, rules: dict[str, tuple[str, ...]] | None = None):
-    """Install a sharding context for model code."""
+    """Install a sharding context for model code; on a ``DeviceMesh`` the
+    port's own DTensor rules too (``_register_strategies``)."""
+    if getattr(mesh, "mesh_dim_names", None) is not None:
+        _register_strategies()
     ctx = ShardingCtx(mesh=mesh, rules=dict(rules or LOGICAL_RULES))
     token = _CTX.set(ctx)
     try:
@@ -219,9 +243,33 @@ def abstract_tensor(shape: Sequence[int], dtype: torch.dtype, sharding=None
         run_check=False, shape=torch.Size(shape), stride=tuple(stride))
 
 
-def constrain(x: torch.Tensor, *names: str | None) -> torch.Tensor:
-    """A DTensor redistributed to the named placements under a mesh; any
-    other tensor, or any tensor outside a mesh, unchanged."""
+class _Constrain(torch.autograd.Function):
+    """Redistribution to ``target`` placements on ``mesh``, and of the grad
+    to the same placements in the backward, as JAX's
+    ``with_sharding_constraint`` constrains a cotangent too (DTensor's own
+    ``redistribute`` takes the grad back to the input's placements, and
+    records nothing where they are the target already).  Each local shard
+    is made contiguous: a shard cut from the last dim is a strided view,
+    which DTensor's local ``view`` (inside ``einsum``) cannot take."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, target):
+        ctx.mesh, ctx.target = mesh, target
+        return x.redistribute(mesh, target).contiguous().view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad.redistribute(ctx.mesh, ctx.target).contiguous(), None, \
+            None
+
+
+def constrain(x: torch.Tensor, *names: str | None,
+              shape: Sequence[int] | None = None) -> torch.Tensor:
+    """A DTensor redistributed to the named placements under a mesh, its
+    grad too; any other tensor, or any tensor outside a mesh, unchanged.
+    ``shape`` resolves the names against another shape of x's rank, as that
+    of a dim about to be split whose leading factor must take its sharding
+    (``layers.split_heads``)."""
     ctx = current_ctx()
     if ctx is None or ctx.mesh is None:
         return x
@@ -229,8 +277,31 @@ def constrain(x: torch.Tensor, *names: str | None) -> torch.Tensor:
 
     if not isinstance(x, DTensor):
         return x
-    spec = logical_spec(x.shape, names, ctx)
-    return x.redistribute(ctx.mesh, placements(spec, ctx.mesh))
+    spec = logical_spec(x.shape if shape is None else shape, names, ctx)
+    return _Constrain.apply(x, ctx.mesh, tuple(placements(spec, ctx.mesh)))
+
+
+def is_sharded(t: torch.Tensor) -> bool:
+    """Whether ``t`` is a DTensor under a mesh context."""
+    if current_ctx() is None:
+        return False
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(t, DTensor)
+
+
+def replicate_as(t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """``t``, a tensor that model code made (an ``arange``, a mask), as a
+    DTensor replicated over the mesh of ``like`` where ``like`` is a
+    DTensor under a mesh context; otherwise ``t`` unchanged.  JAX needs no
+    such step: its tracer takes a constant into the sharded program."""
+    if not is_sharded(like) or is_sharded(t):
+        return t
+    from torch.distributed.tensor import DTensor, Replicate
+
+    mesh = like.device_mesh
+    return DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
+                              run_check=False)
 
 
 def pad_to_multiple(n: int, multiple: int) -> int:

@@ -69,6 +69,7 @@ def test_importing_the_port_loads_no_jax_and_no_repro():
         "import repro_torch.examples.mixed_mode_dag\n"
         "import repro_torch.examples.serve_lm\n"
         "import repro_torch.examples.train_lm\n"
+        "import repro_torch.launch.dryrun\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro', 'ml_dtypes')]\n"
         "print(json.dumps(bad))\n")

@@ -1,0 +1,381 @@
+"""The port's dry run (``repro_torch.launch.dryrun``) and the port's steps on
+its own stand-ins (ROADMAP.md, Queue 3, fault C), on the CPU.
+
+Every world here is torch's fake process group, started and destroyed by
+``mesh.fake_world`` inside a fixture or test, so that no group outlives its
+test.  FLOPs and bytes are integers and held exactly: the step counter's
+collective bytes and per-device FLOPs on hand-built DTensor ops, the world
+matmul FLOPs of the smoke llama3.2-1b against the closed form of its
+config, with no mesh and on a 2x2 (data, model) world, and the argument
+bytes of a smoke train cell against JAX's ``memory_analysis``.  The skip
+list is the reference's, cell for cell.
+"""
+import dataclasses
+import json
+
+import jax
+import jax.numpy as jnp
+import pytest
+import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import DeviceMesh
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+import repro.configs as jconfigs
+import repro.models as jmodels
+from repro.optimizer import AdamWState
+from repro.parallel.sharding import use_sharding as jax_use_sharding
+from repro_torch import configs as tconfigs
+from repro_torch.launch import dryrun
+from repro_torch.launch.mesh import fake_world
+from repro_torch.models import (get_model, make_decode_step, make_encode_step,
+                                make_prefill_step, make_train_step)
+from repro_torch.optimizer import abstract_opt_state
+from repro_torch.parallel.sharding import abstract_tensor, use_sharding
+
+SMALL = {"train": tconfigs.ShapeSpec("t", "train", 64, 4),
+         "prefill": tconfigs.ShapeSpec("p", "prefill", 64, 4),
+         "decode": tconfigs.ShapeSpec("d", "decode", 64, 4)}
+
+
+@pytest.fixture
+def mesh2x2():
+    """A (data=2, model=2) mesh over a fake world of 4 ranks, destroyed
+    after the test."""
+    with fake_world(4):
+        yield DeviceMesh("cpu", torch.arange(4).reshape(2, 2),
+                         mesh_dim_names=("data", "model"))
+    assert not dist.is_initialized()
+
+
+def _dt(mesh, shape, pls):
+    return abstract_tensor(shape, torch.float32, (mesh, pls))
+
+
+# ------------------------------------------- twin of the reference's helpers
+def test_collective_bytes_of_hand_built_ops(mesh2x2):
+    """Twin of tests/test_system.py::test_dryrun_cell_machinery_importable:
+    each collective counts its result's bytes on the local shard once."""
+    m = mesh2x2
+    counter = dryrun.StepCounter()
+    with use_sharding(m), dryrun.native_all_to_all(), counter:
+        # (8, 32) fp32 sharded on both axes -> replicated: gathers of the
+        # (8, 16) half on data, then of the whole (8, 32) on model
+        _dt(m, (8, 32), [Shard(0), Shard(1)]).redistribute(
+            m, [Replicate(), Replicate()])
+        _dt(m, (8, 32), [Partial(), Replicate()]).redistribute(
+            m, [Replicate(), Replicate()])
+        _dt(m, (8, 32), [Partial(), Replicate()]).redistribute(
+            m, [Shard(0), Replicate()])
+        out = _dt(m, (8, 32), [Shard(0), Replicate()]).redistribute(
+            m, [Shard(1), Replicate()])
+    assert out.to_local().shape == (8, 16)
+    assert counter.collectives == {
+        "all-gather": 8 * 16 * 4 + 8 * 32 * 4, "all-reduce": 8 * 32 * 4,
+        "reduce-scatter": 4 * 32 * 4, "all-to-all": 8 * 16 * 4,
+        "collective-permute": 0, "count": 5}
+    assert dryrun.COLLECTIVES == ("all-gather", "all-reduce",
+                                  "reduce-scatter", "all-to-all",
+                                  "collective-permute")
+
+
+def test_matmul_flops_of_a_sharded_matmul_world_and_per_device(mesh2x2):
+    m = mesh2x2
+    x = _dt(m, (8, 16), [Shard(0), Replicate()])
+    w = _dt(m, (16, 32), [Replicate(), Shard(1)])
+    counter = dryrun.StepCounter()
+    with use_sharding(m), counter:
+        y = x @ w
+    assert y.placements == (Shard(0), Shard(1))
+    assert counter.totals() == (2 * 8 * 16 * 32, 2 * 4 * 16 * 16)
+    assert counter.collectives["count"] == 0
+
+
+def test_without_a_mesh_world_and_device_flops_are_one_count():
+    counter = dryrun.StepCounter()
+    with counter:
+        torch.empty(8, 16, device="meta") @ torch.empty(16, 32,
+                                                         device="meta")
+    assert counter.totals() == (2 * 8 * 16 * 32,) * 2
+
+
+def test_fake_world_is_destroyed_on_error_and_refuses_a_running_one():
+    with pytest.raises(ZeroDivisionError):
+        with fake_world(4):
+            assert dist.get_world_size() == 4
+            with pytest.raises(RuntimeError, match="running already"):
+                with fake_world(2):
+                    pass
+            1 / 0
+    assert not dist.is_initialized()
+
+
+# ------------------------------------------------- fault C: the step builders
+def _cells():
+    for arch in tconfigs.ARCH_IDS:
+        cfg = tconfigs.get_smoke_config(arch)
+        for kind, shape in SMALL.items():
+            if tconfigs.cell_skip_reason(cfg, shape) is None:
+                yield arch, kind
+
+
+@pytest.mark.parametrize("arch,kind", list(_cells()),
+                         ids=lambda v: str(v))
+def test_steps_run_on_meta_dtensors(mesh2x2, arch, kind):
+    """Fault C: the train, prefill (encode) and decode steps of every
+    arch's smoke config run on ``abstract_params`` and ``input_specs`` as
+    meta DTensors of a 2x2 world, and return global shapes."""
+    cfg = tconfigs.get_smoke_config(arch)
+    shape = SMALL[kind]
+    B, V = shape.global_batch, cfg.padded_vocab
+    with use_sharding(mesh2x2):
+        model = get_model(cfg)
+        params = model.abstract_params()
+        specs = tconfigs.input_specs(cfg, shape)
+        assert all(isinstance(p, DTensor) for p in params.values())
+        if kind == "train":
+            new, opt, metrics = make_train_step(model)(
+                params, abstract_opt_state(params), specs["batch"])
+            assert {k: v.shape for k, v in new.items()} == \
+                {k: v.shape for k, v in params.items()}
+            assert all(isinstance(v, DTensor) and v.device.type == "meta"
+                       for v in (*new.values(), *opt.mu.values()))
+            assert metrics["loss"].shape == ()
+        elif cfg.family == "encoder":
+            logits = make_encode_step(model)(params, specs["batch"])
+            assert logits.shape == (B, shape.seq_len, V)
+        elif kind == "prefill":
+            logits, cache = make_prefill_step(model)(params, specs["batch"])
+            assert logits.shape == (B, 1, V)
+            assert int(cache["pos"]) == shape.seq_len
+        else:
+            logits, cache = make_decode_step(model)(
+                params, specs["tokens"], specs["cache"])
+            assert logits.shape == (B, 1, V)
+            assert int(cache["pos"]) == tconfigs.decode_pos(shape) + 1
+    assert isinstance(logits if kind != "train" else metrics["loss"],
+                      DTensor)
+
+
+def test_abstract_opt_state_takes_the_parameters_placements(mesh2x2):
+    with use_sharding(mesh2x2):
+        params = get_model(tconfigs.get_smoke_config("llama3.2-1b")
+                           ).abstract_params()
+        opt = abstract_opt_state(params)
+    for k, p in params.items():
+        for moment in (opt.mu[k], opt.nu[k]):
+            assert moment.dtype == torch.float32 and moment.shape == p.shape
+            assert moment.placements == p.placements
+            assert moment.to_local().device.type == "meta"
+    assert opt.step.shape == () and opt.step.dtype == torch.int32
+    assert opt.step.placements == (Replicate(), Replicate())
+
+
+def test_a_dtensor_on_the_card_raises_and_never_runs_plain(mesh2x2,
+                                                          monkeypatch):
+    """A DTensor on the card reaches no plain version: the norm and the
+    attention raise, as ``ops`` does for any kernel.  The CUDA tensors are
+    fake (``FakeTensorMode``), so this runs on a host with no card."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.kernels import flash_attention as kflash
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import rmsnorm as krms
+    from repro_torch.models import layers
+
+    ran = []
+    monkeypatch.setattr(krms, "plain", lambda *a, **k: ran.append("rms"))
+    monkeypatch.setattr(kflash, "plain", lambda *a, **k: ran.append("fa"))
+    card = DeviceMesh("cuda", torch.arange(4).reshape(2, 2),
+                      mesh_dim_names=("data", "model"))
+    with FakeTensorMode():
+        x = torch.empty(2, 4, 64, device="cuda")
+        w = torch.empty(64, device="cuda")
+        q = torch.empty(2, 2, 4, 64, device="cuda")
+    rep = [Replicate(), Replicate()]
+    dx, dw, dq = (DTensor.from_local(t, card, rep, run_check=False)
+                  for t in (x, w, q))
+    with use_sharding(card):
+        with pytest.raises(NotImplementedError, match="DTensor on the card"):
+            layers.rmsnorm(dx, dw, 1e-5)
+        with pytest.raises(NotImplementedError, match="DTensor on the card"):
+            ops.flash_attention(dq, dq, dq, bq=4, bk=4)
+        # the plain version stays the caller's explicit choice
+        assert ops.rmsnorm(dx, dw, force="ref") is None
+    assert ran == ["rms"]
+
+
+# --------------------------------------------------------- the counted cells
+def _llama_smoke_flops(kind: str, B: int, S: int) -> int:
+    """Matmul FLOPs of the smoke llama3.2-1b from its config: the layer
+    weights on every token, dense attention over every key (4 B H S^2 hd
+    a layer: scores and values), and the LM head (the last token alone in
+    a prefill).  A train step's backward takes two matmuls a forward one:
+    3x the forward."""
+    cfg = tconfigs.get_smoke_config("llama3.2-1b")
+    L, M, H, KV, hd, F = (cfg.n_layers, cfg.d_model, cfg.n_heads,
+                          cfg.n_kv_heads, cfg.hd, cfg.d_ff)
+    V = cfg.padded_vocab
+    layer_weights = L * (2 * M * H * hd + 2 * M * KV * hd + 3 * M * F)
+    if kind == "decode":   # one token over a cache of S slots
+        return 2 * layer_weights * B + 4 * B * H * S * hd * L + 2 * B * M * V
+    fwd = 2 * layer_weights * B * S + 4 * B * H * S * S * hd * L
+    if kind == "prefill":
+        return fwd + 2 * B * M * V
+    return 3 * (fwd + 2 * B * S * M * V)
+
+
+@pytest.mark.parametrize("on_mesh", [False, True], ids=["no_mesh", "2x2"])
+@pytest.mark.parametrize("kind", ["prefill", "train", "decode"])
+def test_matmul_flops_equal_the_closed_form(kind, on_mesh):
+    cfg = tconfigs.get_smoke_config("llama3.2-1b")
+    shape = SMALL[kind]
+    want = _llama_smoke_flops(kind, shape.global_batch, shape.seq_len)
+    if on_mesh:
+        with fake_world(4):
+            mesh = DeviceMesh("cpu", torch.arange(4).reshape(2, 2),
+                              mesh_dim_names=("data", "model"))
+            got = dryrun.run_cell(cfg, shape, mesh)
+        assert got["chips"] == 4 and got["collectives"]["count"] > 0
+        # each device runs at least its share
+        assert got["matmul_flops_per_device"] * 4 >= want
+    else:
+        got = dryrun.run_cell(cfg, shape, None)
+        assert got["matmul_flops_per_device"] == want
+        assert got["collectives"]["count"] == 0
+    assert got["matmul_flops"] == want
+
+
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "mixtral-8x22b"])
+def test_a_decode_no_fsdp_decode_takes_the_serve_time_rules(mesh2x2, arch):
+    """``decode_no_fsdp``: the weights' contracting dims stay local and
+    their other dims take every mesh axis (src/repro/launch/dryrun.py:
+    215-225), and the FFN takes replicated tokens: the same work in
+    another program."""
+    cfg = tconfigs.get_smoke_config(arch)
+    base = dryrun.run_cell(cfg, SMALL["decode"], mesh2x2)
+    serve = dryrun.run_cell(dataclasses.replace(cfg, decode_no_fsdp=True),
+                            SMALL["decode"], mesh2x2)
+    assert (base["rules"], serve["rules"]) == ("logical", "decode_no_fsdp")
+    assert serve["matmul_flops"] == base["matmul_flops"]
+    assert serve["collectives"]["count"] < base["collectives"]["count"]
+    rules = {**dryrun.LOGICAL_RULES, **dryrun.DECODE_NO_FSDP_RULES}
+    with use_sharding(mesh2x2, rules):
+        wq = get_model(cfg).abstract_params()["layers.attn.wq"]
+    # (layers, embed, heads): the heads over both axes, the embed dim local
+    assert [pl.dim for pl in wq.placements] == [2, 2]
+
+
+def test_argument_bytes_equal_jax_memory_analysis():
+    """The smoke llama3.2-1b's train_4k cell on one device: params, AdamW
+    state (two fp32 moments and the int32 step) and the int32 batch, as
+    XLA's ``argument_size_in_bytes`` counts them."""
+    jcfg = jconfigs.get_smoke_config("llama3.2-1b")
+    jmodel = jmodels.get_model(jcfg)
+    with jax_use_sharding(None):
+        aparams = jmodel.abstract_params()
+        f32 = lambda p: jax.ShapeDtypeStruct(p.shape, jnp.float32)  # noqa
+        aopt = AdamWState(step=jax.ShapeDtypeStruct((), jnp.int32),
+                          mu=jax.tree.map(f32, aparams),
+                          nu=jax.tree.map(f32, aparams))
+        batch = jconfigs.input_specs(jcfg, jconfigs.SHAPES["train_4k"])
+        want = jax.jit(jmodels.make_train_step(jmodel), donate_argnums=(0, 1)
+                       ).lower(aparams, aopt, batch["batch"]).compile(
+                       ).memory_analysis().argument_size_in_bytes
+    got = dryrun.run_cell(tconfigs.get_smoke_config("llama3.2-1b"),
+                          tconfigs.SHAPES["train_4k"], None)["memory"]
+    assert got["argument_size_bytes"] == want
+    assert got["argument_size_bytes"] == got["params_bytes"] + \
+        got["opt_state_bytes"] + got["inputs_bytes"]
+    assert got["opt_state_bytes"] == 2 * got["params_bytes"] + 4
+    assert got["temp_size_bytes"] is None and \
+        got["generated_code_size_bytes"] is None
+
+
+def test_state_bytes_are_the_params_and_their_moments():
+    cfg = tconfigs.get_config("llama3.2-1b")
+    n = get_model(cfg).param_count()
+    assert dryrun.state_bytes(cfg) == {"params": 4 * n,
+                                       "opt_state": 8 * n + 4}
+
+
+@pytest.mark.parametrize("arch,shape", [
+    (a, s) for a in tconfigs.ARCH_IDS for s in tconfigs.SHAPE_NAMES],
+    ids=lambda v: str(v))
+def test_skips_are_the_references(arch, shape):
+    want = jconfigs.cell_skip_reason(jconfigs.get_config(arch),
+                                     jconfigs.SHAPES[shape])
+    if want is None:
+        assert tconfigs.cell_skip_reason(tconfigs.get_config(arch),
+                                         tconfigs.SHAPES[shape]) is None
+    else:
+        assert dryrun.dryrun_cell(arch, shape, None) == {
+            "arch": arch, "shape": shape, "status": "skip", "reason": want}
+
+
+# ----------------------------------------------------------------- the CLI
+@pytest.mark.parametrize("knob", dryrun.NO_EFFECT + dryrun.MESH_NO_EFFECT)
+def test_a_knob_the_port_does_not_read_is_refused(knob, capsys, tmp_path):
+    with pytest.raises(SystemExit) as e:
+        dryrun.main(["--arch", "llama3.2-1b", "--shape", "prefill_32k",
+                     "--set", f"{knob}=True", "--out", str(tmp_path)])
+    assert e.value.code == 2
+    assert knob in capsys.readouterr().err
+    assert not any(tmp_path.iterdir())
+
+
+def test_main_writes_a_cell_resumes_and_recomputes_with_force(tmp_path,
+                                                               capsys):
+    """The full llama3.2-1b decode_32k cell on the 16x16 mesh: the one
+    full-config cell of this file."""
+    argv = ["--arch", "llama3.2-1b", "--shape", "decode_32k",
+            "--single-pod", "--out", str(tmp_path), "--no-cost-accounting"]
+    assert dryrun.main(argv) == {"ok": 1, "skip": 0, "fail": 0}
+    assert not dist.is_initialized()
+    path = tmp_path / "single_pod" / "llama3.2-1b__decode_32k.json"
+    res = json.loads(path.read_text())
+    assert res["status"] == "ok" and res["chips"] == 256
+    assert res["mesh"] == {"data": 16, "model": 16}
+    assert res["decode_pos"] == 32767
+    assert res["cost_detail"]["no_cost_accounting"] is True
+    assert res["memory"]["argument_size_bytes"] > 0
+    for key in ("temp_size_bytes", "generated_code_size_bytes",
+                "alias_size_bytes"):
+        assert res["memory"][key] is None
+    assert res["lower_s"] is None and res["compile_s"] is None
+    assert set(dryrun.COLLECTIVES) < set(res["collectives"])
+    assert "cuda_initialized=False" in capsys.readouterr().out
+    path.write_text(json.dumps({**res, "marker": 1}))
+    assert dryrun.main(argv) == {"ok": 0, "skip": 0, "fail": 0}
+    assert "[cached]" in capsys.readouterr().out
+    assert json.loads(path.read_text())["marker"] == 1
+    assert dryrun.main(argv + ["--force"])["ok"] == 1
+    assert "marker" not in json.loads(path.read_text())
+
+
+def test_main_records_a_failure_and_exits_1(tmp_path, monkeypatch):
+    def broken(*a, **k):
+        raise RuntimeError("no rule")
+    monkeypatch.setattr(dryrun, "run_cell", broken)
+    with pytest.raises(SystemExit) as e:
+        dryrun.main(["--arch", "llama3.2-1b", "--shape", "train_4k",
+                     "--single-pod", "--out", str(tmp_path)])
+    assert e.value.code == 1
+    assert not dist.is_initialized()
+    res = json.loads((tmp_path / "single_pod" /
+                      "llama3.2-1b__train_4k.json").read_text())
+    assert res == {"arch": "llama3.2-1b", "shape": "train_4k",
+                   "status": "fail", "error": "RuntimeError: no rule"}
+
+
+def test_an_override_the_port_reads_is_taken(tmp_path):
+    cfg = dryrun.apply_overrides(tconfigs.get_config("mixtral-8x22b"),
+                                 {"decode_no_fsdp": True})
+    assert dataclasses.asdict(cfg)["decode_no_fsdp"] is True
+    with pytest.raises(TypeError):
+        dryrun.apply_overrides(cfg, {"no_such_knob": 1})
+    # off a mesh the loss reads ce_onehot, so it is taken there alone
+    assert dryrun.apply_overrides(cfg, {"ce_onehot": True},
+                                  meshed=False).ce_onehot is True
+    with pytest.raises(ValueError, match="ce_onehot"):
+        dryrun.apply_overrides(cfg, {"ce_onehot": True})

@@ -26,7 +26,7 @@ from repro_torch.configs import ARCH_IDS, get_config, get_smoke_config
 from repro_torch.kernels import launch_counts
 from repro_torch.launch import serve
 from repro_torch.models import (get_model, make_decode_step,
-                                make_prefill_step)
+                                make_encode_step, make_prefill_step)
 from repro_torch.models.convert import params_from_numpy
 from repro_torch.models.layers import apply_rope, rope_freqs
 
@@ -382,3 +382,72 @@ def test_serve_arch_generates_what_the_model_does():
                        out["out_tokens"][:, 0])
     assert int(out["cache"]["pos"]) == 8 + 3
     assert out["cache"]["k"].shape[3] == 8 + 3 + 1
+
+
+# ------------------------------------------ fault C (ROADMAP.md, Queue 3)
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "mixtral-8x22b",
+                                  "mamba2-780m", "hymba-1.5b"])
+def test_fault_C_decode_reads_a_concrete_pos_over_a_meta_cache(arch):
+    """A decode cell's stand-ins: meta parameters and cache, and a concrete
+    CPU ``pos`` (``configs.decode_pos``) that the step reads on the host.
+    Past a positional cache's slots it raises on meta too (fault 3)."""
+    from repro_torch.configs import ShapeSpec, decode_pos, input_specs
+    cfg = get_smoke_config(arch)
+    shape = ShapeSpec("d", "decode", 16, 2)
+    model = get_model(cfg)
+    params = model.abstract_params()
+    specs = input_specs(cfg, shape)
+    assert specs["cache"]["pos"].device.type == "cpu"
+    logits, cache = make_decode_step(model)(params, specs["tokens"],
+                                            specs["cache"])
+    assert logits.device.type == "meta"
+    assert logits.shape == (2, 1, cfg.padded_vocab)
+    assert int(cache["pos"]) == decode_pos(shape) + 1 == 16
+    if cfg.family == "ssm":
+        return
+    past = {**specs["cache"], "pos": torch.tensor(16, dtype=torch.int32)}
+    if cfg.window is not None and cfg.window <= 16:
+        return  # a rolling cache has no end
+    with pytest.raises(ValueError, match="past"):
+        make_decode_step(model)(params, specs["tokens"], past)
+
+
+def test_fault_C_the_loss_on_dtensor_logits_takes_the_onehot_gold():
+    """On DTensor logits the cross-entropy takes the one-hot gold logit,
+    which shards over the vocab; on one rank of gloo it gives the gather's
+    value bit for bit.  A serve step on DTensor parameters runs under
+    no_grad (the encode step here: the decoder's prefill writes into a
+    plain cache), any other under inference mode."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models.losses import lm_cross_entropy
+    from repro_torch.parallel.sharding import use_sharding
+
+    gen = torch.Generator().manual_seed(0)
+    logits = torch.randn(2, 8, 64, generator=gen)
+    targets = torch.randint(0, 64, (2, 8), generator=gen)
+    want = lm_cross_entropy(logits, targets)
+    model = get_model(get_smoke_config("llama3.2-1b"))
+    params = model.init(torch.Generator().manual_seed(0))
+    tokens = torch.randint(0, 503, (2, 4), generator=gen)
+    plain = make_encode_step(model)(params, {"tokens": tokens})
+    assert plain.is_inference()
+    mesh = make_debug_mesh(device_type="cpu")
+    try:
+        with use_sharding(mesh):
+            dl = DTensor.from_local(logits, mesh, [Shard(0), Shard(2)])
+            dt = DTensor.from_local(targets, mesh, [Shard(0), Shard(1)])
+            got = lm_cross_entropy(dl, dt)
+            assert isinstance(got, DTensor)
+            assert torch.equal(got.full_tensor(), want)
+            rep = [Replicate()] * 2
+            dparams = {k: DTensor.from_local(v, mesh, rep)
+                       for k, v in params.items()}
+            out = make_encode_step(model)(
+                dparams, {"tokens": DTensor.from_local(tokens, mesh, rep)})
+            assert not out.to_local().is_inference()
+            assert torch.equal(out.full_tensor(), plain)
+    finally:
+        dist.destroy_process_group()
