@@ -53,7 +53,12 @@ that run it, and drives every ported path at full size:
   llama3.2-1b's cells of the 16x16 and 2x16x16 meshes, all on the meta
   device of a fake world, never touching CUDA (``phase_dryrun``); and in
   ``phase_train`` the parameters and AdamW state the card allocates for
-  llama3.2-1b against the dry run's bytes of them.
+  llama3.2-1b against the dry run's bytes of them;
+* slice 12: llama3.2-1b at full size on a one-rank NCCL mesh
+  (``make_debug_mesh``), a prefill of 4 x 64, 32 decode steps into the
+  placed cache and one ``make_train_step`` of 4 x 128, with the kernels
+  on the local shards, against the same steps without a mesh
+  (``phase_sharded``).
 
 Besides, it holds the RMSNorm kernel against its plain version at every
 edge of its geometry (``check_rmsnorm_edges``), and the decoder's loss
@@ -131,6 +136,7 @@ from repro_torch.workers import ChunkLog  # noqa: E402
 from repro_torch.examples import serve_lm, train_lm  # noqa: E402
 from repro_torch.launch.mesh import make_debug_mesh  # noqa: E402
 from repro_torch.parallel import use_sharding  # noqa: E402
+from repro_torch.parallel.sharding import place  # noqa: E402
 from repro_torch.parallel.collectives import (grad_sync_tree,  # noqa: E402
                                               quantize_int8)
 from repro_torch.runtime_ft import (ElasticFleet,  # noqa: E402
@@ -218,6 +224,9 @@ DRYRUN_CELLS = {("single_pod", "train_4k"): "ok",
                 ("single_pod", "long_500k"): "skip",
                 ("multi_pod", "decode_32k"): "ok"}
 DRYRUN_TIMEOUT_S = 600
+# slice 12: serve:model's prefill and decode steps and one train step of the
+# train path, with and without a one-rank NCCL mesh (the sharded program)
+SHARDED_PATH, SHARDED_DECODE = "sharded", 32
 # fleet: worker 5 (BIG) runs at 0.3 of its speed from the start, worker 2
 # (LITTLE) is killed 1 s in; the second DAG runs on the re-meshed fleet
 FLEET_SLOW, FLEET_SPEED, FLEET_KILLED, FLEET_KILL_AT = 5, 0.3, 2, 1.0
@@ -232,11 +241,12 @@ KERNEL_PATHS = {"matmul": MIXED_PATHS + SERVE_PATHS
                 "triad": (),
                 "sort_rows": MIXED_PATHS + (FLEET_PATH,),
                 "rmsnorm": (MODEL_PATH,) + SERVE_PATHS + TRAIN_PATHS
-                + MOE_PATHS + FAMILY_PATHS + (GRAD_SYNC_PATH, EXAMPLES_PATH),
+                + MOE_PATHS + FAMILY_PATHS + (GRAD_SYNC_PATH, EXAMPLES_PATH,
+                                              SHARDED_PATH),
                 "flash_attention": (MODEL_PATH,) + SERVE_PATHS + TRAIN_PATHS
                 + MOE_PATHS + ("serve:hymba", ENCODE_PATH, FAMILY_ZOO_PATH,
                                MULTI_IMPL_PATH, GRAD_SYNC_PATH,
-                               EXAMPLES_PATH)}
+                               EXAMPLES_PATH, SHARDED_PATH)}
 # kernel -> the shape (a key of phase_times's result) its top-level numbers
 # in the kernels line are taken at: the path that brought it into the port
 MAIN_SHAPE = {"matmul": "mixed_mode", "copy": "mixed_mode",
@@ -2784,6 +2794,182 @@ def sync_rounds(grads: dict, cpu_group) -> dict:
     return {"ms": ms, "residual": residual, "invariant": invariant}
 
 
+# ------------------------------------------------------ slice 12's phase
+def card_and_limit() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.splitlines()[0]
+
+
+@contextlib.contextmanager
+def plain_calls():
+    """While open, each plain version of the norm and the attention counts
+    its calls into the yielded dict (kernel -> calls)."""
+    calls = {"rmsnorm": 0, "flash_attention": 0}
+    saved = [(mod, mod.plain) for mod in (rmsnorm, flash_attention)]
+
+    def counting(name, fn):
+        def plain(*args, **kw):
+            calls[name] += 1
+            return fn(*args, **kw)
+        return plain
+
+    rmsnorm.plain = counting("rmsnorm", rmsnorm.plain)
+    flash_attention.plain = counting("flash_attention", flash_attention.plain)
+    try:
+        yield calls
+    finally:
+        for mod, fn in saved:
+            mod.plain = fn
+
+
+def sharded_steps(model, params, prompt, steps, batch, mesh) -> dict:
+    """The prefill of ``prompt``, a decode step of each column of ``steps``
+    and one ``make_train_step`` on ``batch``, under ``use_sharding(mesh)``
+    (None: no mesh; the parameters, tokens and batch then placed by their
+    logical names).  Each call's launches and plain calls are counted on
+    their own and checked: 2L + 1 norms and L attentions in the prefill and
+    the train step's forward, the norms alone in a decode step; no plain
+    version in a serve step, the unsharded step's count in the train step
+    (flash's backward is plain PyTorch).  Returns the logits of every
+    step and the last cache on the CPU, the params after the step on the
+    card, with the launches, plain calls and seconds."""
+    norms, layers = call_launches(model.cfg)
+    out = {"logits": [], "launches": {name: 0 for name in KERNELS},
+           "plain": {}, "seconds": {}}
+
+    def run(name, fn, want):
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        with plain_calls() as calls:
+            result = fn()
+            torch.cuda.synchronize()
+        out["seconds"][name] = out["seconds"].get(name, 0.0) + \
+            time.perf_counter() - t0
+        got = kernels.launch_counts()
+        if got != {**{k: 0 for k in KERNELS}, **want}:
+            raise AssertionError(f"{SHARDED_PATH} {name}: launches {got}, "
+                                 f"want {want}")
+        for k, n in got.items():
+            out["launches"][k] += n
+        for k, n in calls.items():
+            out["plain"][f"{name}:{k}"] = out["plain"].get(f"{name}:{k}",
+                                                           0) + n
+        return result
+
+    def full(t):
+        return t.full_tensor() if hasattr(t, "full_tensor") else t
+
+    with use_sharding(mesh):
+        if mesh is not None:
+            params = model.place(params)
+            prompt, steps = (place(t, ("batch", "seq"))
+                             for t in (prompt, steps))
+            batch = {k: place(v, ("batch", "seq")) for k, v in batch.items()}
+        weights = model.bf16_copy(params)
+        logits, cache = run("prefill", lambda: make_prefill_step(model)(
+            weights, {"tokens": prompt}), {"rmsnorm": norms,
+                                          "flash_attention": layers})
+        out["logits"].append(full(logits).cpu())
+        for i in range(steps.shape[1]):
+            logits, cache = run("decode", lambda: make_decode_step(model)(
+                weights, steps[:, i:i + 1], cache), {"rmsnorm": norms})
+            out["logits"].append(full(logits).cpu())
+        out["cache"] = {k: full(cache[k]).cpu() for k in ("k", "v")}
+        out["cache_local"] = {k: list((cache[k].to_local() if mesh is not
+                                       None else cache[k]).shape)
+                              for k in ("k", "v")}
+        del weights, cache
+        new, _, metrics = run("train", lambda: make_train_step(model)(
+            params, adamw_init(params), batch),
+            {"rmsnorm": norms, "flash_attention": layers})
+        out["loss"] = full(metrics["loss"]).item()
+        out["params"] = {k: full(v) for k, v in new.items()}
+        del new
+    return out
+
+
+def phase_sharded() -> dict:
+    """sharded: llama3.2-1b at its published widths and depth (random
+    weights from seed 0) on a one-rank NCCL mesh (``make_debug_mesh``)
+    against the same steps with no mesh on the card: a prefill of batch 4
+    x prompt 64, 32 decode steps into the placed cache and one
+    ``make_train_step`` of 4 x 128 (``sharded_steps``).  Under the mesh the
+    norms and the attention run the kernels on each rank's local shards
+    (``parallel.sharding.on_local_shards``), the cache is a DTensor placed
+    by its logical names and written in place.  The logits of every step
+    and the cache are held at serve:model's bf16 bound (rtol 3e-2, atol
+    ``bf16_atol(L)``), the loss at 3e-2 and each parameter after AdamW at
+    3e-2 relative Frobenius (phase_train_vs_cpu's); whether each is bit
+    for bit the unsharded run's is reported.  Every counter is reset just
+    before each call and read just after; returns kernel -> launches of
+    the sharded run."""
+    cfg = get_config(ARCH)
+    model = get_model(cfg)
+    rng = np.random.default_rng(12)
+    toks = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (MODEL_BATCH, MODEL_PROMPT + SHARDED_DECODE)
+    )).cuda()
+    prompt, steps = toks[:, :MODEL_PROMPT], toks[:, MODEL_PROMPT:]
+    batch = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                        global_batch=TRAIN_BATCH).batch(0, device="cuda")
+    params = model.init(torch.Generator("cuda").manual_seed(0))
+    runs = {"plain": sharded_steps(model, params, prompt, steps, batch,
+                                   None)}
+    torch.cuda.empty_cache()
+    mesh = make_debug_mesh()
+    try:
+        runs["mesh"] = sharded_steps(model, params, prompt, steps, batch,
+                                     mesh)
+    finally:
+        dist.destroy_process_group()
+    del params
+    got, want = runs["mesh"], runs["plain"]
+    served = [k for k in got["plain"] if not k.startswith("train:")]
+    if any(got["plain"][k] for k in served) or \
+            got["plain"] != want["plain"]:
+        raise AssertionError(f"{SHARDED_PATH}: plain calls {got['plain']}, "
+                             f"unsharded {want['plain']}")
+    atol = bf16_atol(cfg.n_layers)
+    errs = {"logits": max(close(f"{SHARDED_PATH} logits {i}", g, w, 3e-2,
+                                atol) for i, (g, w) in enumerate(zip(
+                                    got["logits"], want["logits"])))}
+    for k in ("k", "v"):
+        errs[f"cache_{k}"] = close(f"{SHARDED_PATH} cache {k}",
+                                   got["cache"][k], want["cache"][k], 3e-2,
+                                   atol)
+    errs["loss_rel"] = abs(got["loss"] - want["loss"]) / abs(want["loss"])
+    errs["params_max_rel_frobenius"] = max(
+        float((got["params"][k] - p).norm() / p.norm())
+        for k, p in want["params"].items())
+    if not (errs["loss_rel"] <= 3e-2 and
+            errs["params_max_rel_frobenius"] <= 3e-2):
+        raise AssertionError(f"{SHARDED_PATH}: {errs}")
+    bit_equal = {
+        "logits": all(torch.equal(g, w) for g, w in zip(got["logits"],
+                                                        want["logits"])),
+        "cache": all(torch.equal(got["cache"][k], want["cache"][k])
+                     for k in ("k", "v")),
+        "loss": got["loss"] == want["loss"],
+        "params": all(torch.equal(got["params"][k], p)
+                      for k, p in want["params"].items())}
+    del runs, got["params"], want["params"]
+    torch.cuda.empty_cache()
+    emit({"phase": "sharded", "path": SHARDED_PATH, "arch": ARCH,
+          "card": card_and_limit(), "mesh": {"data": 1, "model": 1},
+          "backend": "nccl", "layers": cfg.n_layers, "batch": MODEL_BATCH,
+          "prompt": MODEL_PROMPT, "decode_steps": SHARDED_DECODE,
+          "train_tokens": [TRAIN_BATCH, TRAIN_SEQ],
+          "cache_local_shape": got["cache_local"],
+          "max_abs_err": errs, "atol": atol, "bit_equal": bit_equal,
+          "plain_calls": got["plain"], "seconds": got["seconds"],
+          "seconds_unsharded": want["seconds"],
+          "launches": got["launches"]})
+    return got["launches"]
+
+
 def prefill_matmul_flops(cfg, batch: int, seq: int) -> int:
     """World matmul FLOPs of a dense decoder's prefill from its config: the
     layer weights on every token, dense attention over every key (4 B H
@@ -2932,7 +3118,8 @@ def main() -> None:
                         (FLEET_PATH, phase_fleet),
                         (GRAD_SYNC_PATH, phase_grad_sync),
                         (EXAMPLES_PATH, phase_examples),
-                        (DRYRUN_PATH, phase_dryrun)):
+                        (DRYRUN_PATH, phase_dryrun),
+                        (SHARDED_PATH, phase_sharded)):
         t_phase = time.perf_counter()
         launches[path] = phase()
         emit({"phase": "seconds", "path": path,

@@ -81,7 +81,8 @@ from ..configs import (ARCH_IDS, SHAPES, SHAPE_NAMES, cell_skip_reason,
 from ..models import (get_model, make_decode_step, make_encode_step,
                       make_prefill_step, make_train_step)
 from ..optimizer import abstract_opt_state
-from ..parallel.sharding import LOGICAL_RULES, is_sharded, use_sharding
+from ..parallel.sharding import (LOGICAL_RULES, is_sharded, local_split,
+                                 use_sharding)
 from .mesh import fake_world, make_production_mesh, mesh_chip_count
 
 COLLECTIVES = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
@@ -104,9 +105,11 @@ COST_NOTE = (
     "matmul FLOPs only (torch.utils.flop_counter: mm, bmm, addmm, baddbmm, "
     "attention); XLA's cost_analysis counts elementwise work too. "
     "matmul_flops is the world's, at global shapes; matmul_flops_per_device "
-    "counts one rank's local shards, where each model rank runs the plain "
-    "attention over every head of its batch shard (layers.batch_only). No "
-    "remat in the port: a backward "
+    "counts one rank's local shards: attention and the norms run on each "
+    "rank's shards (q heads sharded as act_heads resolves, k and v whole "
+    "where their heads do not divide the model axis), counted into the "
+    "world's times the pieces the mesh splits them into. No remat in the "
+    "port: a backward "
     "recomputes nothing, where the reference's FLOPs include remat's "
     "recompute. Eager code runs every layer, so the reference's 0/1-layer "
     "accounting (an XLA scan quirk) is dropped. On a mesh the loss's gold "
@@ -158,10 +161,14 @@ class StepCounter(TorchDispatchMode):
     An op on DTensors is counted at global shapes into ``global_flops`` and
     handed on (``NotImplemented``), so DTensor runs it: the ops DTensor then
     runs on the local shards, collectives included, come back here as plain
-    tensors and count into ``local_flops`` and ``collectives``.  Where no op
-    ran on a DTensor (no mesh), the plain ops are the world's too.  The op that
-    DTensor runs on fake tensors to learn an output's shape runs
-    uncounted."""
+    tensors and count into ``local_flops`` and ``collectives``.  A kernel's
+    body on local shards (``parallel.sharding.on_local_shards``: the norms
+    and attention under a mesh) reaches the counter as plain ops alone, in
+    its forward and its backward: each counts into ``local_flops`` and,
+    times the number of distinct pieces the mesh splits the body into
+    (``local_split``), into ``global_flops``.  Where no op ran on a DTensor
+    (no mesh), the plain ops are the world's too.  The op that DTensor runs
+    on fake tensors to learn an output's shape runs uncounted."""
 
     def __init__(self):
         super().__init__()
@@ -200,7 +207,13 @@ class StepCounter(TorchDispatchMode):
                 return out
         out = func(*args, **kwargs)
         if flops is not None:
-            self.local_flops += int(flops(*args, **kwargs, out_val=out))
+            n = int(flops(*args, **kwargs, out_val=out))
+            self.local_flops += n
+            split = local_split()
+            if split is not None:
+                # a kernel's body on local shards (``on_local_shards``):
+                # the world runs ``split`` distinct pieces of it
+                self.global_flops += n * split
         kind = self._kinds.get(packet)
         if kind is not None:
             self.collectives[kind] += _nbytes(out)

@@ -31,11 +31,13 @@ from __future__ import annotations
 
 import torch
 
-from ..parallel.sharding import constrain, replicate_as
+from ..parallel.sharding import (constrain, replicate_as, shift_in,
+                                 write_slots)
 from .layers import (apply_rope, attention, decode_attention, embed,
                      merge_heads, rmsnorm, split_heads, swiglu)
 from .losses import lm_cross_entropy
-from .mamba2 import ssm_branch_full, ssm_branch_step
+from .mamba2 import (CONV_NAMES, SSD_NAMES, ssm_branch_full,
+                     ssm_branch_step, stacked_states)
 from .model_api import (BaseModel, ParamDef, cache_pos, cache_tensor,
                         split_params, unbound)
 
@@ -44,6 +46,7 @@ ACT_DTYPE = torch.bfloat16
 _FP32 = ("final_norm.w", "layers.norm.w", "layers.mlp_norm.w",
          "layers.fuse.attn_norm", "layers.fuse.ssm_norm", "layers.ssm.a_log",
          "layers.ssm.d_skip", "layers.ssm.dt_bias")
+KV_NAMES = ("batch", "kv_heads", "kv_seq", None)  # a layer's K or V
 
 
 class HymbaLM(BaseModel):
@@ -208,21 +211,19 @@ class HymbaLM(BaseModel):
         cfg = self.cfg
         DI, N, P = cfg.d_inner_hybrid, cfg.ssm_state, cfg.ssm_head_dim
         ks, vs = [], []
-        names = ("batch", "kv_heads", "kv_seq", None)
         for i in range(cfg.n_layers):
             win = self.window(i)
             eff = max_len if win is None else min(max_len, win)
             shape = (batch_size, cfg.n_kv_heads, eff, cfg.hd)
-            ks.append(cache_tensor(shape, names, ACT_DTYPE, device))
-            vs.append(cache_tensor(shape, names, ACT_DTYPE, device))
+            ks.append(cache_tensor(shape, KV_NAMES, ACT_DTYPE, device))
+            vs.append(cache_tensor(shape, KV_NAMES, ACT_DTYPE, device))
         return {
             "k": tuple(ks), "v": tuple(vs),
             "conv": cache_tensor(
                 (cfg.n_layers, batch_size, cfg.ssm_conv - 1, DI + 2 * N),
-                ("layers", "batch", None, "ff"), ACT_DTYPE, device),
+                CONV_NAMES, ACT_DTYPE, device),
             "ssd": cache_tensor((cfg.n_layers, batch_size, DI // P, N, P),
-                                ("layers", "batch", None, None, None),
-                                torch.float32, device),
+                                SSD_NAMES, torch.float32, device),
             "pos": cache_pos(device)}
 
     def prefill(self, params: dict, batch: dict, max_len: int | None = None):
@@ -244,13 +245,13 @@ class HymbaLM(BaseModel):
                 pad = (0, 0, 0, max_len - S)
                 k = torch.nn.functional.pad(k, pad)
                 v = torch.nn.functional.pad(v, pad)
-            ks.append(k.contiguous())
-            vs.append(v.contiguous())
+            ks.append(constrain(k.contiguous(), *KV_NAMES))
+            vs.append(constrain(v.contiguous(), *KV_NAMES))
             convs.append(conv)
             ssds.append(ssd)
         logits = self._head(params, x, last=True)
         return logits, {"k": tuple(ks), "v": tuple(vs),
-                        "conv": torch.stack(convs), "ssd": torch.stack(ssds),
+                        **stacked_states(convs, ssds),
                         "pos": torch.tensor(S, dtype=torch.int32)}
 
     def decode_step(self, params: dict, tokens: torch.Tensor, cache: dict):
@@ -277,16 +278,15 @@ class HymbaLM(BaseModel):
             eff = k_c.shape[2]
             slots = replicate_as(torch.arange(eff, device=x.device), x)
             if win is not None and eff == win:
-                k_c = torch.cat([k_c[:, :, 1:], kT], dim=2)
-                v_c = torch.cat([v_c[:, :, 1:], vT], dim=2)
+                k_c, v_c = shift_in(k_c, kT), shift_in(v_c, vT)
                 valid = slots >= eff - min(pos + 1, eff)
             else:
                 if not 0 <= pos < eff:
                     raise ValueError(f"decode at position {pos} past layer "
                                      f"{i}'s {eff} cache slots")
                 k_c, v_c = k_c.clone(), v_c.clone()
-                k_c[:, :, pos] = kT[:, :, 0]
-                v_c[:, :, pos] = vT[:, :, 0]
+                write_slots(k_c, kT, pos)
+                write_slots(v_c, vT, pos)
                 valid = slots <= pos
             o = decode_attention(qT, k_c, v_c, valid_mask=valid)
             attn_out = merge_heads(o.transpose(1, 2))
@@ -294,11 +294,11 @@ class HymbaLM(BaseModel):
                                              cache["ssd"][i],
                                              **self._ssm_kw(p))
             x = self._fuse_out(p, x, attn_out, y[:, None, :])
-            new_k.append(k_c)
-            new_v.append(v_c)
+            new_k.append(constrain(k_c, *KV_NAMES))
+            new_v.append(constrain(v_c, *KV_NAMES))
             convs.append(conv)
             ssds.append(ssd)
         logits = self._head(top, x)
         return logits, {"k": tuple(new_k), "v": tuple(new_v),
-                        "conv": torch.stack(convs), "ssd": torch.stack(ssds),
+                        **stacked_states(convs, ssds),
                         "pos": torch.tensor(pos + 1, dtype=torch.int32)}

@@ -12,6 +12,13 @@ on the CPU:
     it; the kernel takes any length, so the port has one path.
 ``decode_attention``, ``swiglu`` and ``moe_ffn`` stay plain PyTorch, as the
 JAX package leaves them to XLA outside any Pallas kernel.
+
+Under a mesh (DTensors under ``use_sharding``) the norm, the attention and
+the decode attention run their bodies on each rank's local shards
+(``parallel.sharding.on_local_shards``): the kernels on the card, the plain
+versions off it.  Attention keeps q's heads sharded as ``act_heads``
+resolves, as the reference's layer does under GSPMD; the decode attention
+reads each rank's shard of the cache where it lies.
 """
 from __future__ import annotations
 
@@ -23,7 +30,9 @@ import torch.nn.functional as F
 from torch.profiler import record_function
 
 from ..kernels import ops
-from ..parallel.sharding import constrain, is_sharded, replicate_as
+from ..parallel.sharding import (constrain, is_shard, is_sharded,
+                                 logical_spec, on_local_shards, placements,
+                                 replicate_as, shard_bounds)
 
 NEG_INF = -1e30
 
@@ -36,15 +45,26 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
     activations, as the models pass them).  All rows go to one kernel call:
     ``block_rows=rows`` keeps the Pallas path's tiling check satisfiable at a
     decode step's 1-4 rows (the JAX models never called the Pallas kernel,
-    so there is no reference tiling).  A DTensor off the card (the dry
-    run's meta stand-ins) takes the plain version whole, as any tensor off
-    the card takes it: the rows' flatten of a batch sharded over more ranks
-    than it has rows (256 over 512) does not come back in DTensor's
-    backward.  A DTensor on the card raises in ``ops`` (the kernel takes
-    local tensors)."""
+    so there is no reference tiling).  Under a mesh each rank normalises
+    the rows of its own shard (``on_local_shards``): the rows keep their
+    sharding, and a normalised dim that is sharded (a branch output over
+    its heads, mamba2's gated norm over ``ff``) and the weight are gathered
+    first."""
     if is_sharded(x):
-        return ops.rmsnorm(x, w, eps=eps,
-                           force=None if x.device.type == "cuda" else "ref")
+        from torch.distributed.tensor import Replicate
+
+        last = x.ndim - 1
+        pls = [p if is_shard(p) and p.dim != last else Replicate()
+               for p in x.placements]
+        rep = [Replicate()] * x.device_mesh.ndim
+        return on_local_shards(lambda xl, wl: _rmsnorm_rows(xl, wl, eps),
+                               [(x, pls), (replicate_as(w, x), rep)],
+                               [pls])[0]
+    return _rmsnorm_rows(x, w, eps)
+
+
+def _rmsnorm_rows(x: torch.Tensor, w: torch.Tensor, eps: float
+                  ) -> torch.Tensor:
     d = x.shape[-1]
     x2 = x.reshape(-1, d)
     out = ops.rmsnorm(x2, w, eps=eps, block_rows=max(1, x2.shape[0]))
@@ -58,13 +78,16 @@ def embed(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     mesh.  Where a graph is recorded the lookup is ``F.embedding``, whose
     backward DTensor shards (2.11's rule for the indexing's backward,
     ``index_put``, raises); without one it is the indexing, as 2.11's
-    ``embedding`` rule fails on the 3-D mesh."""
+    ``embedding`` rule fails on the 3-D mesh.  The rows of a vocab-sharded
+    table come back as a masked partial sum, which DTensor can reduce only
+    once, so the lookup is laid out over the batch at once: a model may
+    read its embeddings twice (hymba's norm and residual)."""
     if not is_sharded(table):
         return table[tokens]
     ids = constrain(tokens, *(None,) * tokens.dim())
-    if torch.is_grad_enabled():
-        return F.embedding(ids, table)
-    return table[ids]
+    out = F.embedding(ids, table) if torch.is_grad_enabled() else table[ids]
+    return constrain(out, "batch", *(None,) * (tokens.dim() - 1),
+                     "act_embed")
 
 
 # ---------------------------------------------------------------------------
@@ -129,17 +152,6 @@ def merge_heads(o: torch.Tensor) -> torch.Tensor:
                      shape=lead + (h,))
 
 
-def batch_only(*ts: torch.Tensor, slots: str | None = None) -> tuple:
-    """(B, H, S, D) tensors constrained to shard over the batch (and the S
-    dim over ``slots``' axes), their heads replicated: the plain
-    attention's ``einsum`` flattens (B, H) into one batch dim of ``bmm``,
-    which DTensor can do only with the outer dim sharded (torch 2.11
-    refuses it; 2.13 gathers the heads for want of a ``bmm`` rule on the
-    flattened shard).  GSPMD keeps heads sharded; the port runs each model
-    rank's attention over all heads of its batch shard."""
-    return tuple(constrain(t, "batch", None, slots, None) for t in ts)
-
-
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               causal: bool = True, window: int | None = None) -> torch.Tensor:
     """GQA attention over a whole sequence, causal and within ``window``
@@ -149,27 +161,62 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     layer's mask on positions; every row sees at least itself, so the JAX
     bias fill of -1e30 and the kernel agree.  ``bq = bk = S`` satisfy the
     TPU kernel's tiling check at any length; the CUDA kernel tiles by
-    itself.  Under a mesh q, k, v and the output (its grad too) are sharded
-    over the batch alone (``batch_only``)."""
+    itself.  Under a mesh see ``_sharded_attention``."""
+    if is_sharded(q):
+        return _sharded_attention(q, k, v, causal=causal, window=window)
     s = q.shape[2]
-    q, k, v = batch_only(q, k, v)
-    o = ops.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
-                            causal=causal, window=window, bq=s, bk=s)
-    return batch_only(o)[0]
+    return ops.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                               causal=causal, window=window, bq=s, bk=s)
 
 
-def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
-                     v_cache: torch.Tensor, *,
-                     valid_mask: torch.Tensor) -> torch.Tensor:
-    """Single-position attention over a cache.  q: (B, Hq, 1, D); k/v_cache:
-    (B, Hkv, S, D); ``valid_mask`` (B, S) or (S,) says which entries are
-    visible.  Under a mesh q and the cache are sharded over the batch, and
-    the cache over its slots too, not over heads (``batch_only``)."""
+def _sharded_attention(q, k, v, *, causal, window):
+    """``attention`` on each rank's local shards, as the reference's layer
+    runs it under GSPMD (transformer.py:101-102): q over the batch and its
+    heads as ``act_heads`` resolves, k and v over the same mesh dims where
+    their heads divide them and replicated elsewhere (8 kv heads on 16
+    ranks; 25 or 36 heads replicate q too).  A rank then takes the kv
+    heads its own q heads use: one slice where its q heads fall in one kv
+    head or cover whole ones, one kv head a q head (group 1) otherwise."""
+    from torch.distributed.tensor import Replicate
+
+    mesh, (_, hq, s, _), hkv = q.device_mesh, q.shape, k.shape[1]
+    qp = placements(logical_spec(q.shape, ("batch", "act_heads", None, None)),
+                    mesh)
+    head_ways = math.prod(mesh.size(m) for m, p in enumerate(qp)
+                          if is_shard(p) and p.dim == 1)
+    kp, pick = qp, None
+    if hkv % head_ways:
+        kp = [Replicate() if is_shard(p) and p.dim == 1 else p for p in qp]
+        h0, h1 = shard_bounds(q.shape, mesh, qp, 1)
+        g = hq // hkv
+        if (h1 - h0) % g == 0 or g % (h1 - h0) == 0:
+            pick = slice(h0 // g, (h1 - 1) // g + 1)
+        else:
+            pick = [h // g for h in range(h0, h1)]
+
+    def body(ql, kl, vl):
+        if isinstance(pick, list):
+            pick_ = torch.tensor(pick, device=kl.device)
+            kl, vl = kl[:, pick_], vl[:, pick_]
+        elif pick is not None:
+            kl, vl = kl[:, pick], vl[:, pick]
+        return ops.flash_attention(ql.contiguous(), kl.contiguous(),
+                                   vl.contiguous(), causal=causal,
+                                   window=window, bq=s, bk=s)
+
+    return on_local_shards(body, [(q, qp), (k, kp), (v, kp)], [qp])[0]
+
+
+def _decode_local(q: torch.Tensor, k_cache: torch.Tensor,
+                  v_cache: torch.Tensor, valid_mask: torch.Tensor,
+                  all_reduce=None) -> torch.Tensor:
+    """``decode_attention``'s arithmetic.  ``all_reduce(t, op)`` combines a
+    value across the ranks that split the slots: the softmax is then taken
+    as a log-sum-exp combine, the local max, its all-reduce, the local
+    exponentials' sum and P.V, and their all-reduces."""
     b, hq, _, d = q.shape
     hkv = k_cache.shape[1]
     g = hq // hkv
-    q = batch_only(q)[0]
-    k_cache, v_cache = batch_only(k_cache, v_cache, slots="kv_seq")
     qg = q.reshape(b, hkv, g, d)
     scores = torch.einsum("bhgd,bhkd->bhgk", qg.float(),
                           k_cache.float()) / math.sqrt(d)
@@ -177,9 +224,55 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
         valid_mask = valid_mask[None, :]
     scores = torch.where(valid_mask[:, None, None, :], scores,
                          torch.full_like(scores, NEG_INF))
-    p = torch.softmax(scores, dim=-1)
-    o = torch.einsum("bhgk,bhkd->bhgd", p, v_cache.float())
+    if all_reduce is None:
+        p = torch.softmax(scores, dim=-1)
+        o = torch.einsum("bhgk,bhkd->bhgd", p, v_cache.float())
+    else:
+        m = all_reduce(scores.amax(dim=-1, keepdim=True), "max")
+        p = torch.exp(scores - m)
+        total = all_reduce(p.sum(dim=-1, keepdim=True), "sum")
+        o = all_reduce(torch.einsum("bhgk,bhkd->bhgd", p, v_cache.float()),
+                       "sum") / total
     return o.reshape(b, hq, 1, d).to(q.dtype)
+
+
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, *,
+                     valid_mask: torch.Tensor) -> torch.Tensor:
+    """Single-position attention over a cache.  q: (B, Hq, 1, D); k/v_cache:
+    (B, Hkv, S, D); ``valid_mask`` (B, S) or (S,) says which entries are
+    visible.  Under a mesh each rank attends over its own shard of the
+    cache, which stays where it is: q takes the cache's batch and head
+    layout, and where the slots are sharded (``kv_seq``) the softmax
+    combines across the slot shards (``_decode_local``), as GSPMD runs a
+    softmax over a sharded dim."""
+    if not is_sharded(k_cache):
+        return _decode_local(q, k_cache, v_cache, valid_mask)
+    from torch.distributed import _functional_collectives as funcol
+    from torch.distributed.tensor import Replicate, Shard
+
+    mesh, kpl = k_cache.device_mesh, tuple(k_cache.placements)
+    dims = [p.dim if is_shard(p) else None for p in kpl]
+    if any(d == 2 and type(p) is not Shard for p, d in zip(kpl, dims)):
+        raise NotImplementedError("cache slots split by a strided shard")
+    slot_dims = [m for m, d in enumerate(dims) if d == 2]
+    qp = [p if d in (0, 1) else Replicate() for p, d in zip(kpl, dims)]
+    mask = replicate_as(valid_mask, k_cache)
+    last = mask.dim() - 1         # the slots; a (B, S) mask has the batch
+    mp = [Shard(last) if d == 2 else p if d == 0 and last else Replicate()
+          for p, d in zip(kpl, dims)]
+
+    def all_reduce(t, op):
+        for m in slot_dims:
+            t = funcol.all_reduce(t, op, (mesh, m))
+        return t
+
+    def body(ql, kl, vl, ml):
+        return _decode_local(ql, kl, vl, ml,
+                             all_reduce if slot_dims else None)
+
+    return on_local_shards(body, [(q, qp), (k_cache, kpl), (v_cache, kpl),
+                                  (mask, mp)], [qp])[0]
 
 
 # ---------------------------------------------------------------------------

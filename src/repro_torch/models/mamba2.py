@@ -43,6 +43,17 @@ ACT_DTYPE = torch.bfloat16
 # read in fp32 where used: the norm weights and the SSD's scalars a head
 _FP32 = ("final_norm.w", "layers.norm.w", "layers.gate_norm.w",
          "layers.a_log", "layers.d_skip", "layers.dt_bias")
+# the logical names of the caches' conv and SSD states (mamba2.py:236-255),
+# shared with the hybrid
+CONV_NAMES = ("layers", "batch", None, "ff")
+SSD_NAMES = ("layers", "batch", None, None, None)
+
+
+def stacked_states(convs: list, ssds: list) -> dict:
+    """The cache's ``conv`` and ``ssd`` from each layer's states, laid out
+    by their names under a mesh (as ``init_cache`` lays them out)."""
+    return {"conv": constrain(torch.stack(convs), *CONV_NAMES),
+            "ssd": constrain(torch.stack(ssds), *SSD_NAMES)}
 
 
 # ---------------------------------------------------------------------------
@@ -339,12 +350,10 @@ class Mamba2LM(BaseModel):
         return {
             "conv": cache_tensor(
                 (cfg.n_layers, batch_size, cfg.ssm_conv - 1, conv_dim),
-                ("layers", "batch", None, "ff"), ACT_DTYPE, device),
+                CONV_NAMES, ACT_DTYPE, device),
             "ssd": cache_tensor(
                 (cfg.n_layers, batch_size, cfg.ssm_heads, cfg.ssm_state,
-                 cfg.ssm_head_dim),
-                ("layers", "batch", None, None, None), torch.float32,
-                device),
+                 cfg.ssm_head_dim), SSD_NAMES, torch.float32, device),
             "pos": cache_pos(device)}
 
     def prefill(self, params: dict, batch: dict, max_len: int | None = None):
@@ -359,7 +368,7 @@ class Mamba2LM(BaseModel):
             convs.append(conv)
             ssds.append(ssd)
         logits = self._head(params, x, last=True)
-        return logits, {"conv": torch.stack(convs), "ssd": torch.stack(ssds),
+        return logits, {**stacked_states(convs, ssds),
                         "pos": torch.tensor(tokens.shape[1],
                                             dtype=torch.int32)}
 
@@ -381,6 +390,6 @@ class Mamba2LM(BaseModel):
             convs.append(conv)
             ssds.append(ssd)
         logits = self._head(top, x)[:, None, :]
-        return logits, {"conv": torch.stack(convs), "ssd": torch.stack(ssds),
+        return logits, {**stacked_states(convs, ssds),
                         "pos": torch.tensor(int(cache["pos"]) + 1,
                                             dtype=torch.int32)}

@@ -26,7 +26,7 @@ import numpy as np
 import torch
 
 from ..parallel.sharding import (abstract_tensor, logical_sharding,
-                                 pad_to_multiple)
+                                 pad_to_multiple, place)
 
 
 # ---------------------------------------------------------------------------
@@ -166,11 +166,21 @@ def ssm_init(init: str, u):
 def cache_tensor(shape: tuple, names: tuple, dtype: torch.dtype,
                  device) -> torch.Tensor:
     """One decode-cache tensor: zeros on ``device``, or on ``"meta"`` an
-    abstract one carrying ``logical_sharding(shape, names)``, as JAX's
-    abstract caches do."""
+    abstract one, both laid out by ``logical_sharding(shape, names)`` under
+    a mesh, as JAX's caches are: a concrete one is then a DTensor of zeros
+    on the mesh's device, each rank holding its own shard."""
+    sharding = logical_sharding(shape, names)
     if torch.device(device).type == "meta":
-        return abstract_tensor(shape, dtype, logical_sharding(shape, names))
-    return torch.zeros(shape, dtype=dtype, device=device)
+        return abstract_tensor(shape, dtype, sharding)
+    if sharding is None:
+        return torch.zeros(shape, dtype=dtype, device=device)
+    from torch.distributed.tensor import zeros
+
+    mesh, pls = sharding
+    if torch.device(device).type != mesh.device_type:
+        raise ValueError(f"a cache on {device} under a mesh of "
+                         f"{mesh.device_type} devices")
+    return zeros(shape, dtype=dtype, device_mesh=mesh, placements=pls)
 
 
 def cache_pos(device) -> torch.Tensor:
@@ -229,6 +239,14 @@ class BaseModel:
         return {name: abstract_tensor(d.shape, d.dtype,
                                       logical_sharding(d.shape, d.names))
                 for name, d in sorted(self.param_defs().items())}
+
+    def place(self, params: dict) -> dict:
+        """``params``, whole tensors that every rank holds alike, laid out
+        by their ``ParamDef``s' logical names under the context's mesh, as
+        ``abstract_params`` lays out the stand-ins (each rank keeps its own
+        shard); unchanged outside a mesh."""
+        defs = self.param_defs()
+        return {k: place(v, defs[k].names) for k, v in params.items()}
 
     def param_count(self) -> int:
         return int(sum(math.prod(d.shape)

@@ -36,7 +36,8 @@ from __future__ import annotations
 
 import torch
 
-from ..parallel.sharding import constrain, replicate_as
+from ..parallel.sharding import (constrain, replicate_as, roll_slots,
+                                 write_slots)
 from .layers import (apply_rope, attention, decode_attention, embed,
                      merge_heads, moe_ffn, rmsnorm, split_heads, swiglu)
 from .losses import lm_cross_entropy
@@ -274,8 +275,8 @@ class DecoderLM(BaseModel):
                 if cfg.swa_ring_buffer:
                     k = torch.roll(k, S % W, dims=2)
                     v = torch.roll(v, S % W, dims=2)
-            cache["k"][i, :, :, :k.shape[2]] = k
-            cache["v"][i, :, :, :v.shape[2]] = v
+            write_slots(cache["k"], k, 0, layer=i)
+            write_slots(cache["v"], v, 0, layer=i)
         top, _ = split_params(params)
         x = rmsnorm(x, top["final_norm.w"], cfg.norm_eps)
         logits = x[:, -1:] @ self._head(top).to(x.dtype)
@@ -329,8 +330,8 @@ class DecoderLM(BaseModel):
         elif rolling:
             at = eff - 1
             valid = slots >= eff - min(pos + 1, eff)
-            new_k = torch.roll(cache["k"], -1, dims=3)
-            new_v = torch.roll(cache["v"], -1, dims=3)
+            new_k = roll_slots(cache["k"], 3)
+            new_v = roll_slots(cache["v"], 3)
         else:
             if not 0 <= pos < eff:
                 raise ValueError(f"decode at position {pos} past the "
@@ -344,8 +345,8 @@ class DecoderLM(BaseModel):
             p = {k: v[i] for k, v in stacked.items()}
             h = rmsnorm(x, p["attn_norm.w"], cfg.norm_eps)
             qT, kT, vT = self._qkv(p, h, positions)
-            new_k[i, :, :, at] = kT[:, :, 0]
-            new_v[i, :, :, at] = vT[:, :, 0]
+            write_slots(new_k, kT, at, layer=i)
+            write_slots(new_v, vT, at, layer=i)
             o = decode_attention(qT, new_k[i], new_v[i], valid_mask=valid)
             o = merge_heads(o.transpose(1, 2))
             x = x + o @ p["attn.wo"].to(o.dtype)

@@ -26,7 +26,22 @@ class AdamWState:
 
 
 def adamw_init(params: dict) -> AdamWState:
+    """Zero moments and step; on DTensor parameters (under a mesh) each
+    moment takes its parameter's placements and the step is replicated, as
+    ``abstract_opt_state`` lays them out."""
     first = next(iter(params.values()))
+    if is_sharded(first):
+        from torch.distributed.tensor import Replicate, zeros
+
+        mesh = first.device_mesh
+        step = zeros((), dtype=torch.int32, device_mesh=mesh,
+                     placements=[Replicate()] * mesh.ndim)
+        return AdamWState(
+            step=step,
+            mu={k: torch.zeros_like(p, dtype=torch.float32)
+                for k, p in params.items()},
+            nu={k: torch.zeros_like(p, dtype=torch.float32)
+                for k, p in params.items()})
     return AdamWState(
         step=torch.zeros((), dtype=torch.int32, device=first.device),
         mu={k: torch.zeros(p.shape, dtype=torch.float32, device=p.device)

@@ -304,6 +304,225 @@ def replicate_as(t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
                               run_check=False)
 
 
+def is_shard(pl) -> bool:
+    """Whether placement ``pl`` splits a tensor dim (``Shard`` or
+    ``_StridedShard``, which torch 2.13 no longer derives from ``Shard``)."""
+    from torch.distributed.tensor import Shard
+    from torch.distributed.tensor.placement_types import _StridedShard
+
+    return isinstance(pl, (Shard, _StridedShard))
+
+
+def shard_bounds(shape: Sequence[int], mesh, pls: Sequence,
+                 dim: int) -> tuple[int, int]:
+    """[start, stop) of the global indices along ``dim`` that this rank's
+    shard of a tensor of ``shape`` laid out as ``pls`` on ``mesh`` holds.
+    ``dim`` must be split by plain ``Shard``s, whose pieces are contiguous."""
+    from torch.distributed.tensor import Shard
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+
+    if any(is_shard(p) and p.dim == dim and type(p) is not Shard
+           for p in pls):
+        raise NotImplementedError(f"dim {dim} split by a strided shard")
+    local, offset = compute_local_shape_and_global_offset(
+        torch.Size(shape), mesh, list(pls))
+    return offset[dim], offset[dim] + local[dim]
+
+
+# ---------------------------------------------------------------------------
+# kernels on local shards
+# ---------------------------------------------------------------------------
+_SPLIT: contextvars.ContextVar[int | None] = contextvars.ContextVar(
+    "repro_torch_local_split", default=None)
+
+
+def local_split() -> int | None:
+    """Inside the body of ``on_local_shards``, forward or backward: into how
+    many distinct pieces the mesh splits the body's work (the product of
+    the sizes of the mesh dims that shard one of its inputs; the ranks
+    along any other mesh dim repeat it); None outside a body.  A counter of
+    the world's work scales a body's local FLOPs by it (``launch.dryrun``)."""
+    return _SPLIT.get()
+
+
+class _OnLocalShards(torch.autograd.Function):
+    """``fn`` on the local shards of DTensors, its outputs wrapped as
+    DTensors.  Where a graph is recorded, ``fn`` records its own graph on
+    the local tensors (the kernels' ``autograd.Function``s inside it), and
+    the backward differentiates that graph and wraps each input's grad: a
+    shard where the input is sharded, a ``Partial`` sum where it is
+    replicated over a mesh dim that splits the work (each rank's grad
+    covers its own piece), replicated elsewhere."""
+
+    @staticmethod
+    def forward(ctx, fn, mesh, out_pls, split_dims, *xs):
+        from torch.distributed.tensor import DTensor
+
+        split = math.prod(mesh.size(m) for m in split_dims)
+        need = ctx.needs_input_grad[4:]
+        token = _SPLIT.set(split)
+        try:
+            with torch.enable_grad() if any(need) else \
+                    contextlib.nullcontext():
+                ins = [x.to_local().detach().requires_grad_(n)
+                       for x, n in zip(xs, need)]
+                outs = fn(*ins)
+        finally:
+            _SPLIT.reset(token)
+        outs = (outs,) if isinstance(outs, torch.Tensor) else tuple(outs)
+        if any(need):
+            ctx.mesh, ctx.out_pls, ctx.split = mesh, out_pls, split
+            ctx.ins, ctx.outs = ins, outs
+            ctx.grad_pls = [_grad_placements(x.placements, split_dims)
+                            for x in xs]
+        return tuple(DTensor.from_local(o.detach(), mesh, pls,
+                                        run_check=False)
+                     for o, pls in zip(outs, out_pls))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        from torch.distributed.tensor import DTensor
+
+        pairs = [(o, g.redistribute(ctx.mesh, pls).to_local())
+                 for o, g, pls in zip(ctx.outs, grads, ctx.out_pls)
+                 if g is not None and o.requires_grad]
+        want = [x for x in ctx.ins if x.requires_grad]
+        token = _SPLIT.set(ctx.split)
+        try:
+            got = iter(torch.autograd.grad([o for o, _ in pairs], want,
+                                           [g for _, g in pairs],
+                                           allow_unused=True))
+        finally:
+            _SPLIT.reset(token)
+        out = []
+        for x, pls in zip(ctx.ins, ctx.grad_pls):
+            g = next(got) if x.requires_grad else None
+            # contiguous, as DTensor's local views in the backward need
+            out.append(None if g is None else DTensor.from_local(
+                g.contiguous(), ctx.mesh, pls, run_check=False))
+        return (None, None, None, None, *out)
+
+
+def _grad_placements(pls: Sequence, split_dims: Sequence[int]) -> tuple:
+    from torch.distributed.tensor import Partial, Replicate
+
+    return tuple(p if is_shard(p) else
+                 Partial() if m in split_dims else Replicate()
+                 for m, p in enumerate(pls))
+
+
+def on_local_shards(fn, inputs: Sequence[tuple], out_placements: Sequence
+                    ) -> tuple:
+    """``fn`` run on each rank's local shards: ``inputs`` are (DTensor,
+    placements) pairs, each DTensor redistributed to its placements first
+    (its grad back to its own in the backward); ``fn`` takes the local
+    tensors and returns one local tensor or a tuple, and each output is
+    wrapped as a DTensor of the matching entry of ``out_placements``.
+    Returns a tuple of DTensors.  This is how a kernel, which takes plain
+    tensors, runs under a mesh: the same body takes the CUDA kernels on the
+    card and the plain versions elsewhere (``kernels.ops``)."""
+    xs = []
+    for x, pls in inputs:
+        pls = tuple(pls)
+        xs.append(x if tuple(x.placements) == pls else
+                  x.redistribute(x.device_mesh, pls))
+    mesh = xs[0].device_mesh
+    split_dims = tuple(m for m in range(mesh.ndim)
+                       if any(is_shard(x.placements[m]) for x in xs))
+    return _OnLocalShards.apply(fn, mesh, tuple(map(tuple, out_placements)),
+                                split_dims, *xs)
+
+
+def write_slots(cache: torch.Tensor, value: torch.Tensor, start: int,
+                layer: int | None = None) -> None:
+    """Write ``value`` (B, H, n, D) into slots ``start`` .. ``start + n - 1``
+    of ``cache`` ([L,] B, H, S, D), at ``layer`` where given, in place.  On
+    a DTensor cache each rank writes the slots of its own shard that the
+    range covers, and no slot moves: the value takes the cache's batch and
+    head layout and is replicated over the mesh dims that split the slots
+    (a redistribution of the value alone).  JAX's ``dynamic_update_slice``
+    keeps the shards in place the same way."""
+    idx = () if layer is None else (layer,)
+    n = value.shape[2]
+    if not is_sharded(cache):
+        cache[idx + (slice(None), slice(None), slice(start, start + n))] = \
+            value
+        return
+    from torch.distributed.tensor import Replicate, Shard
+
+    lead, mesh = len(idx), cache.device_mesh
+    pls = [Shard(p.dim - lead) if type(p) is Shard and p.dim - lead in (0, 1)
+           else Replicate() for p in cache.placements]
+    local_v = replicate_as(value, cache).redistribute(mesh, pls).to_local()
+    lo, hi = shard_bounds(cache.shape, mesh, cache.placements, lead + 2)
+    a, b = max(start, lo), min(start + n, hi)
+    if a < b:
+        local = cache.to_local()
+        local[idx + (slice(None), slice(None), slice(a - lo, b - lo))] = \
+            local_v[:, :, a - start:b - start]
+
+
+def roll_slots(cache: torch.Tensor, dim: int) -> torch.Tensor:
+    """``torch.roll(cache, -1, dims=dim)``: the slots shift left by one and
+    the first comes last.  Where a DTensor's ``dim`` is sharded, each rank
+    shifts its own shard and takes the next shard's first slot from its
+    owner: one permute of a slot's worth a rank for each mesh dim that
+    splits the slots, innermost first, where DTensor's own roll would
+    gather the whole dim."""
+    if not is_sharded(cache):
+        return torch.roll(cache, -1, dims=dim)
+    from torch.distributed import _functional_collectives as funcol
+    from torch.distributed.tensor import Shard
+
+    mesh, pls = cache.device_mesh, tuple(cache.placements)
+    slot_dims = [m for m, p in enumerate(pls) if is_shard(p) and p.dim == dim]
+    if not slot_dims:
+        return torch.roll(cache, -1, dims=dim)
+    if any(type(pls[m]) is not Shard for m in slot_dims):
+        raise NotImplementedError(f"dim {dim} split by a strided shard")
+    coord = mesh.get_coordinate()
+
+    def body(local):
+        need = local.narrow(dim, 0, 1).contiguous()
+        update = True  # whether every inner slot dim's coordinate is last
+        for m in reversed(slot_dims):
+            n = mesh.size(m)
+            got = funcol.permute_tensor(need.flatten(), [
+                (i - 1) % n for i in range(n)], (mesh, m)).view_as(need)
+            if update:
+                need = got
+            update = update and coord[m] == n - 1
+        return torch.cat([local.narrow(dim, 1, local.shape[dim] - 1), need],
+                         dim=dim)
+
+    return on_local_shards(body, [(cache, pls)], [pls])[0]
+
+
+def shift_in(cache: torch.Tensor, value: torch.Tensor) -> torch.Tensor:
+    """A rolling cache (B, H, S, D) shifted left one slot, ``value`` (B, H,
+    1, D) in the last: ``cat([cache[:, :, 1:], value])``, or on a DTensor
+    ``roll_slots`` and ``write_slots``, which keep the slots' shards."""
+    if not is_sharded(cache):
+        return torch.cat([cache[:, :, 1:], value], dim=2)
+    out = roll_slots(cache, 2)
+    write_slots(out, value, cache.shape[2] - 1)
+    return out
+
+
+def place(t: torch.Tensor, names: Sequence[str | None]) -> torch.Tensor:
+    """``t``, a whole tensor that every rank holds alike, as a DTensor laid
+    out by its logical ``names`` under the context's mesh (each rank keeps
+    its own shard, nothing is sent); ``t`` unchanged outside a mesh."""
+    sharding = logical_sharding(t.shape, names)
+    if sharding is None:
+        return t
+    from torch.distributed.tensor import distribute_tensor
+
+    mesh, pls = sharding
+    return distribute_tensor(t, mesh, pls, src_data_rank=None)
+
+
 def pad_to_multiple(n: int, multiple: int) -> int:
     """Round up (used for vocab padding so TP divides: paper-of-record
     practice for odd vocab sizes like 92553)."""

@@ -173,9 +173,11 @@ def test_abstract_opt_state_takes_the_parameters_placements(mesh2x2):
 
 def test_a_dtensor_on_the_card_raises_and_never_runs_plain(mesh2x2,
                                                           monkeypatch):
-    """A DTensor on the card reaches no plain version: the norm and the
-    attention raise, as ``ops`` does for any kernel.  The CUDA tensors are
-    fake (``FakeTensorMode``), so this runs on a host with no card."""
+    """On DTensors on the card the norm and the attention launch the
+    kernels on each rank's local shards (the launchers recorded here), and
+    no plain version runs; a DTensor passed to an op directly still raises,
+    as ``ops`` does for any kernel.  The CUDA tensors are fake
+    (``FakeTensorMode``), so this runs on a host with no card."""
     from torch._subclasses.fake_tensor import FakeTensorMode
 
     from repro_torch.kernels import flash_attention as kflash
@@ -183,39 +185,69 @@ def test_a_dtensor_on_the_card_raises_and_never_runs_plain(mesh2x2,
     from repro_torch.kernels import rmsnorm as krms
     from repro_torch.models import layers
 
-    ran = []
+    ran, launched = [], []
     monkeypatch.setattr(krms, "plain", lambda *a, **k: ran.append("rms"))
     monkeypatch.setattr(kflash, "plain", lambda *a, **k: ran.append("fa"))
+
+    def rms_launch(x, w, eps):
+        launched.append(("rmsnorm", type(x) is not DTensor, tuple(x.shape),
+                         tuple(w.shape)))
+        return torch.empty_like(x)
+
+    def flash_launch(q, k, v, **kw):
+        launched.append(("flash", type(q) is not DTensor, tuple(q.shape),
+                         tuple(k.shape)))
+        return torch.empty_like(q)
+
+    monkeypatch.setattr(krms, "rmsnorm", rms_launch)
+    monkeypatch.setattr(kflash, "launch", flash_launch)
     card = DeviceMesh("cuda", torch.arange(4).reshape(2, 2),
                       mesh_dim_names=("data", "model"))
     with FakeTensorMode():
-        x = torch.empty(2, 4, 64, device="cuda")
+        x = torch.empty(2, 8, 64, device="cuda", dtype=torch.bfloat16)
         w = torch.empty(64, device="cuda")
-        q = torch.empty(2, 2, 4, 64, device="cuda")
+        q = torch.empty(4, 4, 8, 16, device="cuda", dtype=torch.bfloat16)
+        kv = torch.empty(4, 2, 8, 16, device="cuda", dtype=torch.bfloat16)
     rep = [Replicate(), Replicate()]
-    dx, dw, dq = (DTensor.from_local(t, card, rep, run_check=False)
-                  for t in (x, w, q))
+    dw, dq, dkv = (DTensor.from_local(t, card, rep, run_check=False)
+                   for t in (w, q, kv))
+    # the rows keep their layout: (4, 8, 64), the batch over data
+    dx = DTensor.from_local(x, card, [Shard(0), Replicate()],
+                            run_check=False)
     with use_sharding(card):
-        with pytest.raises(NotImplementedError, match="DTensor on the card"):
-            layers.rmsnorm(dx, dw, 1e-5)
-        with pytest.raises(NotImplementedError, match="DTensor on the card"):
-            ops.flash_attention(dq, dq, dq, bq=4, bk=4)
-        # the plain version stays the caller's explicit choice
-        assert ops.rmsnorm(dx, dw, force="ref") is None
-    assert ran == ["rms"]
+        out = layers.rmsnorm(dx, dw, 1e-5)
+        assert out.shape == (4, 8, 64) and out.placements == dx.placements
+        att = layers.attention(dq, dkv, dkv)
+        assert att.shape == q.shape
+        assert att.placements == (Shard(0), Shard(1))
+        for fn, args in ((ops.rmsnorm, (dx.reshape(-1, 64), dw)),
+                         (ops.flash_attention, (dq, dkv, dkv))):
+            with pytest.raises(NotImplementedError,
+                               match="DTensor on the card"):
+                fn(*args)
+    # the batch over data, the heads over model: each launch on one shard
+    assert launched == [("rmsnorm", True, (16, 64), (64,)),
+                        ("flash", True, (2, 2, 8, 16), (2, 1, 8, 16))]
+    assert ran == []
 
 
 # --------------------------------------------------------- the counted cells
-def _llama_smoke_flops(kind: str, B: int, S: int) -> int:
+def _llama_smoke_flops(kind: str, B: int, S: int, data: int = 1,
+                       model: int = 1) -> int:
     """Matmul FLOPs of the smoke llama3.2-1b from its config: the layer
     weights on every token, dense attention over every key (4 B H S^2 hd
     a layer: scores and values), and the LM head (the last token alone in
     a prefill).  A train step's backward takes two matmuls a forward one:
-    3x the forward."""
+    3x the forward.  On a (data, model) mesh, one device's: the batch split
+    over ``data``, and the q and kv heads, the FFN's hidden dim and the
+    vocab over ``model`` (the smoke's 4 q and 2 kv heads divide 2)."""
     cfg = tconfigs.get_smoke_config("llama3.2-1b")
     L, M, H, KV, hd, F = (cfg.n_layers, cfg.d_model, cfg.n_heads,
                           cfg.n_kv_heads, cfg.hd, cfg.d_ff)
     V = cfg.padded_vocab
+    assert H % model == KV % model == F % model == V % model == 0
+    B, H, KV, F, V = (B // data, H // model, KV // model, F // model,
+                      V // model)
     layer_weights = L * (2 * M * H * hd + 2 * M * KV * hd + 3 * M * F)
     if kind == "decode":   # one token over a cache of S slots
         return 2 * layer_weights * B + 4 * B * H * S * hd * L + 2 * B * M * V
@@ -228,6 +260,10 @@ def _llama_smoke_flops(kind: str, B: int, S: int) -> int:
 @pytest.mark.parametrize("on_mesh", [False, True], ids=["no_mesh", "2x2"])
 @pytest.mark.parametrize("kind", ["prefill", "train", "decode"])
 def test_matmul_flops_equal_the_closed_form(kind, on_mesh):
+    """The world's FLOPs are the closed form's on either; on the 2x2 mesh a
+    device runs its own share of every matmul and of attention, heads and
+    batch sharded (the norms and attention on local shards, counted into
+    the world's by the pieces the mesh splits them into)."""
     cfg = tconfigs.get_smoke_config("llama3.2-1b")
     shape = SMALL[kind]
     want = _llama_smoke_flops(kind, shape.global_batch, shape.seq_len)
@@ -237,13 +273,53 @@ def test_matmul_flops_equal_the_closed_form(kind, on_mesh):
                               mesh_dim_names=("data", "model"))
             got = dryrun.run_cell(cfg, shape, mesh)
         assert got["chips"] == 4 and got["collectives"]["count"] > 0
-        # each device runs at least its share
-        assert got["matmul_flops_per_device"] * 4 >= want
+        assert got["matmul_flops_per_device"] == _llama_smoke_flops(
+            kind, shape.global_batch, shape.seq_len, data=2, model=2)
     else:
         got = dryrun.run_cell(cfg, shape, None)
         assert got["matmul_flops_per_device"] == want
         assert got["collectives"]["count"] == 0
     assert got["matmul_flops"] == want
+
+
+# a decode's cache at two lengths: a positional cache of seq_len slots, or
+# (the window below seq_len) a rolling one of the window's
+DECODE_CACHES = {
+    "llama3.2-1b": ("llama3.2-1b", {}, 4),
+    "chatglm3-6b": ("chatglm3-6b", {}, 4),
+    "llama3.2-1b-slots": ("llama3.2-1b", {}, 1),
+    "mixtral-shifted": ("mixtral-8x22b", {"n_kv_heads": 1}, 4),
+    "mixtral-ring": ("mixtral-8x22b", {"n_kv_heads": 1,
+                                       "swa_ring_buffer": True}, 4),
+}
+
+
+@pytest.mark.parametrize("case", sorted(DECODE_CACHES))
+def test_a_decode_gathers_no_cache(case):
+    """A decode step on the fake 2x2 world writes its slot in place,
+    attends over each rank's shard of the cache and shifts a rolling cache
+    by one slot a shard: its collectives do not grow with the cache's
+    length.  At batch 1 (``-slots``) and with one kv head (mixtral's) the
+    slots are sharded (``kv_seq``), so the softmax combines across them;
+    elsewhere the batch takes ``data`` and the kv heads ``model``.
+    Gathering the cache, as DTensor does for an indexed write or a roll of
+    a sharded dim, would move a layer's cache a step."""
+    arch, changes, batch = DECODE_CACHES[case]
+    moved = []
+    for length in (64, 128):
+        cfg = dataclasses.replace(tconfigs.get_smoke_config(arch),
+                                  **changes)
+        seq = length
+        if cfg.window is not None:   # a rolling cache of ``length`` slots
+            cfg, seq = dataclasses.replace(cfg, window=length), 256
+        with fake_world(4):
+            mesh = DeviceMesh("cpu", torch.arange(4).reshape(2, 2),
+                              mesh_dim_names=("data", "model"))
+            got = dryrun.run_cell(cfg, tconfigs.ShapeSpec(
+                "d", "decode", seq, batch), mesh)
+        moved.append(got["collectives"])
+    assert moved[0] == moved[1]
+    assert moved[0]["all-gather"] > 0   # the weights' FSDP gathers
 
 
 @pytest.mark.parametrize("arch", ["llama3.2-1b", "mixtral-8x22b"])

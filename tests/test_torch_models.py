@@ -416,8 +416,7 @@ def test_fault_C_the_loss_on_dtensor_logits_takes_the_onehot_gold():
     """On DTensor logits the cross-entropy takes the one-hot gold logit,
     which shards over the vocab; on one rank of gloo it gives the gather's
     value bit for bit.  A serve step on DTensor parameters runs under
-    no_grad (the encode step here: the decoder's prefill writes into a
-    plain cache), any other under inference mode."""
+    no_grad (the encode step here), any other under inference mode."""
     import torch.distributed as dist
     from torch.distributed.tensor import DTensor, Replicate, Shard
 

@@ -1,0 +1,373 @@
+"""The port's model steps on real DTensors, sharded over a 4-rank gloo world
+as a (data=2, model=2) mesh, against the port's unsharded steps and the JAX
+package's, on the same weights and inputs, on the CPU.
+
+The weights are JAX's (``init(PRNGKey(0))``), carried over through
+``convert.params_from_numpy``; the inputs come from numpy with a seed.  One
+module-scoped spawn of 4 ranks runs, for each case, a prefill of B = 4
+prompts, 3 decode steps into the placed cache and one ``make_train_step``,
+all under ``use_sharding(mesh)``, and writes each output's
+``full_tensor()``; meanwhile this process runs the same steps unsharded and
+JAX's jitted steps.  GSPMD does not change values, so the JAX package's
+unsharded run is the reference.  The kernels take their plain versions on
+the CPU, on each rank's local shards (``parallel.sharding.
+on_local_shards``).
+
+The cases: the smoke llama3.2-1b (4 q and 2 kv heads: both shard over
+``model``), mixtral-8x22b (MoE; a 40-token prompt past its 32-token window,
+so the cache rolls), mamba2-780m (across a chunk edge), hymba-1.5b (a
+positional global layer beside a rolling windowed one), and llama3.2-1b
+with 1 kv head (q heads sharded, the kv head whole on every model rank; the
+cache's slots shard over ``model``, so decode combines its softmax across
+them) and with 6 q over 3 kv heads (a rank's q heads span two kv heads);
+with one kv head too, serving only, mixtral's shifted and ring-buffer
+caches and hymba's caches, their slots sharded over ``model``; and
+hubert-xlarge's encode.
+
+Every run takes fp32 activations (the port's ``ACT_DTYPE``, JAX's ``jnp``
+read with bfloat16 as float32, as tests/test_torch_train.py runs its fp32
+steps).  In bf16 the sharded program's other summation order moves a value
+by a few ulps, past the one-ulp cache bound; it flips a near tie of the
+MoE's top-k routing, discontinuous in either package (ROADMAP.md, Queue
+3); and it flips the sign of a tiny grad, which AdamW's first step turns
+into a whole step of the parameter.  In fp32 each quantity is held at
+tests/test_torch_train.py's fp32 bound, rtol 1e-4 and atol 1e-5, against
+both references: the logits and caches after the prefill and each decode
+step, the loss, the grad norm, the first moments ((1 - b1) times the
+step's clipped grads) and the parameters after AdamW.  That is tighter
+than test_torch_models.py's bf16 bounds (logits 3e-2, caches one bf16
+ulp).  The card's one-rank mesh holds the bf16 run (``chip_smoke.py``'s
+``sharded`` phase).
+"""
+import contextlib
+import dataclasses
+import time
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
+
+from repro_torch.configs import get_smoke_config
+from repro_torch.models import (get_model, make_decode_step,
+                                make_encode_step, make_prefill_step,
+                                make_train_step)
+from repro_torch.models.convert import params_from_numpy
+from repro_torch.optimizer import adamw_init
+from repro_torch.parallel.sharding import place, use_sharding
+
+B, DECODE_STEPS, WORLD = 4, 3, 4
+RANKS_TIMEOUT_S = 600
+# case -> (arch, config changes, prompt length, whether it trains a step)
+CASES = {
+    "llama3.2-1b": ("llama3.2-1b", {}, 16, True),
+    "mixtral-8x22b": ("mixtral-8x22b", {}, 40, True),
+    "mamba2-780m": ("mamba2-780m", {}, 24, True),
+    "hymba-1.5b": ("hymba-1.5b", {}, 40, True),
+    "llama-1kv": ("llama3.2-1b", {"n_kv_heads": 1}, 16, True),
+    "llama-6q3kv": ("llama3.2-1b", {"n_heads": 6, "n_kv_heads": 3}, 16,
+                    True),
+    # one kv head: the rolling caches' slots shard over model
+    "mixtral-1kv": ("mixtral-8x22b", {"n_kv_heads": 1}, 40, False),
+    "mixtral-1kv-ring": ("mixtral-8x22b", {"n_kv_heads": 1,
+                                           "swa_ring_buffer": True}, 40,
+                         False),
+    "hymba-1kv": ("hymba-1.5b", {"n_kv_heads": 1}, 40, False),
+}
+ENCODER, ENCODE_FRAMES = "hubert-xlarge", 24
+
+TOL = dict(rtol=1e-4, atol=1e-5)   # every quantity, fp32 activations
+
+
+@contextlib.contextmanager
+def _fp32_activations():
+    """The port's models in fp32 activations while open."""
+    from repro_torch.models import hybrid, mamba2, transformer
+
+    with pytest.MonkeyPatch.context() as mp_:
+        for mod in (transformer, mamba2, hybrid):
+            mp_.setattr(mod, "ACT_DTYPE", torch.float32)
+        yield
+
+
+def _config(case: str):
+    arch, changes, *_ = CASES.get(case, (case, {}))
+    return dataclasses.replace(get_smoke_config(arch), remat=False,
+                               **changes)
+
+
+def _inputs(case: str) -> dict:
+    """Numpy inputs from a seed: the prompt, one token a decode step, the
+    train batch; frames for the encoder."""
+    cfg = _config(case)
+    rng = np.random.default_rng(11)
+    if case == ENCODER:
+        return {"frames": rng.standard_normal(
+            (B, ENCODE_FRAMES, cfg.d_model)).astype(np.float32)}
+    s = CASES[case][2]
+    t = rng.integers(0, cfg.vocab_size, (B, s + DECODE_STEPS)
+                     ).astype(np.int32)
+    return {"prompt": t[:, :s], "steps": [t[:, s + i:s + i + 1]
+                                          for i in range(DECODE_STEPS)],
+            "train": {"tokens": t[:, :s], "targets": t[:, 1:s + 1]}}
+
+
+def _np(t) -> np.ndarray:
+    if isinstance(t, torch.Tensor):
+        if hasattr(t, "full_tensor"):
+            t = t.full_tensor()
+        return t.detach().float().numpy()
+    return np.asarray(t, np.float32)
+
+
+def _cache_leaves(cache: dict):
+    """(name, tensor) of a cache's tensors, ``pos`` apart: a tuple of a
+    layer each (hymba's k and v) by index."""
+    for k in sorted(cache):
+        if k == "pos":
+            continue
+        v = cache[k]
+        if isinstance(v, (tuple, list)):
+            yield from ((f"{k}.{i}", t) for i, t in enumerate(v))
+        else:
+            yield k, v
+
+
+def _record(out: dict, step: str, logits, cache) -> None:
+    out[f"{step}.logits"] = _np(logits)
+    out[f"{step}.pos"] = np.asarray(int(cache["pos"]))
+    for name, t in _cache_leaves(cache):
+        out[f"{step}.cache.{name}"] = _np(t)
+        if hasattr(t, "to_local"):
+            out[f"shape:{step}.{name}"] = np.asarray(t.to_local().shape)
+
+
+def _port_steps(case: str, arrays: dict, mesh=None) -> dict:
+    """The port's steps of ``case`` on ``arrays`` under ``mesh`` (None:
+    unsharded): {name: full numpy array}, and under a mesh each cache
+    tensor's local shape after each step (``shape:...``) beside the one
+    its names give (``want:...``)."""
+    cfg = _config(case)
+    model = get_model(cfg)
+    x = _inputs(case)
+    out = {}
+    with use_sharding(mesh):
+        params = model.place(params_from_numpy(arrays, "cpu"))
+        if case == ENCODER:
+            frames = place(torch.from_numpy(x["frames"]),
+                           ("batch", "seq", None))
+            out["encode.logits"] = _np(make_encode_step(model)(
+                params, {"frames": frames}))
+            return out
+
+        def tok(a):
+            return place(torch.from_numpy(a), ("batch", "seq"))
+
+        logits, cache = make_prefill_step(model)(
+            params, {"tokens": tok(x["prompt"])})
+        _record(out, "prefill", logits, cache)
+        for i, t in enumerate(x["steps"]):
+            logits, cache = make_decode_step(model)(params, tok(t), cache)
+            _record(out, f"decode{i}", logits, cache)
+        if mesh is not None:
+            s = x["prompt"].shape[1]
+            for name, t in _cache_leaves(model.init_cache(B, s + 64,
+                                                          device="meta")):
+                out[f"want:{name}"] = np.asarray(t.to_local().shape)
+        if not CASES[case][3]:
+            return out
+        new, opt, metrics = make_train_step(model)(
+            params, adamw_init(params),
+            {k: tok(v) for k, v in x["train"].items()})
+        for k in ("loss", "grad_norm"):
+            out[f"train.{k}"] = _np(metrics[k])
+        for k in new:
+            out[f"train.params.{k}"] = _np(new[k])
+            out[f"train.mu.{k}"] = _np(opt.mu[k])
+    return out
+
+
+def _rank_main(rank: int, tmp: str) -> None:
+    """One of the 4 gloo ranks: every case on the (data, model) mesh,
+    written to ``rank{rank}_{case}.npz``."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    torch.set_num_threads(1)
+    tmp = Path(tmp)
+    dist.init_process_group("gloo", store=dist.FileStore(
+        str(tmp / "store"), WORLD), rank=rank, world_size=WORLD)
+    try:
+        mesh = DeviceMesh("cpu", torch.arange(WORLD).reshape(2, 2),
+                          mesh_dim_names=("data", "model"))
+        with _fp32_activations():
+            for case in (*CASES, ENCODER):
+                w = dict(np.load(tmp / f"weights_{case}.npz"))
+                np.savez(tmp / f"rank{rank}_{case}.npz",
+                         **_port_steps(case, w, mesh))
+    finally:
+        dist.destroy_process_group()
+
+
+def _jax_model(case: str):
+    """(JAX's model of ``case``, its weights ``init(PRNGKey(0))``)."""
+    import jax
+
+    from repro.configs import get_smoke_config as jax_smoke_config
+    from repro.models import get_model as jax_get_model
+
+    arch, changes, *_ = CASES.get(case, (case, {}))
+    jm = jax_get_model(dataclasses.replace(jax_smoke_config(arch),
+                                           remat=False, **changes))
+    return jm, jm.init(jax.random.PRNGKey(0))
+
+
+def _jax_steps(case: str, jm, jp) -> dict:
+    """JAX's jitted steps of ``case`` on ``jp`` in fp32 activations, under
+    the names of ``_port_steps``."""
+    import jax
+    import jax.numpy as jnp
+    from test_torch_autograd import _Float32Jnp
+
+    import repro.models.hybrid as jax_hybrid
+    import repro.models.mamba2 as jax_mamba2
+    import repro.models.transformer as jax_transformer
+    from repro.models import make_train_step as jax_make_train_step
+    from repro.optimizer import adamw_init as jax_adamw_init
+
+    x = _inputs(case)
+    out = {}
+
+    def record(step, logits, cache):
+        out[f"{step}.logits"] = _np(logits)
+        out[f"{step}.pos"] = np.asarray(int(cache["pos"]))
+        for name, t in _cache_leaves(cache):
+            out[f"{step}.cache.{name}"] = _np(t)
+
+    with pytest.MonkeyPatch.context() as patch:
+        for mod in (jax_transformer, jax_mamba2, jax_hybrid):
+            patch.setattr(mod, "jnp", _Float32Jnp())
+        if case == ENCODER:
+            out["encode.logits"] = _np(jax.jit(jm.forward)(
+                jp, {"frames": jnp.asarray(x["frames"])}))
+            return out
+        logits, cache = jax.jit(jm.prefill)(
+            jp, {"tokens": jnp.asarray(x["prompt"])})
+        record("prefill", logits, cache)
+        decode = jax.jit(jm.decode_step)
+        for i, t in enumerate(x["steps"]):
+            logits, cache = decode(jp, jnp.asarray(t), cache)
+            record(f"decode{i}", logits, cache)
+        if not CASES[case][3]:
+            return out
+        new, opt, metrics = jax.jit(jax_make_train_step(jm))(
+            jp, jax_adamw_init(jp), {k: jnp.asarray(v)
+                                     for k, v in x["train"].items()})
+    for k in ("loss", "grad_norm"):
+        out[f"train.{k}"] = _np(metrics[k])
+    for k in new:
+        out[f"train.params.{k}"] = _np(new[k])
+        out[f"train.mu.{k}"] = _np(opt.mu[k])
+    return out
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory) -> dict:
+    """case -> {"sharded": rank 0's outputs, "port": the unsharded port's,
+    "jax": JAX's}.  JAX's weights are written first; the ranks then run
+    while this process computes both references."""
+    tmp = tmp_path_factory.mktemp("sharded4")
+    models = {case: _jax_model(case) for case in (*CASES, ENCODER)}
+    for case, (_, jp) in models.items():
+        np.savez(tmp / f"weights_{case}.npz",
+                 **{k: np.asarray(v) for k, v in jp.items()})
+    ranks = mp.start_processes(_rank_main, args=(str(tmp),), nprocs=WORLD,
+                               join=False, start_method="spawn")
+    out = {}
+    with _fp32_activations():
+        for case, (jm, jp) in models.items():
+            out[case] = {"jax": _jax_steps(case, jm, jp), "port": _port_steps(
+                case, {k: np.asarray(v) for k, v in jp.items()})}
+    deadline = time.monotonic() + RANKS_TIMEOUT_S
+    while not ranks.join(timeout=5):
+        if time.monotonic() > deadline:
+            for p in ranks.processes:
+                p.kill()
+            raise TimeoutError(f"the {WORLD} ranks ran past "
+                               f"{RANKS_TIMEOUT_S} s")
+    for case in out:
+        got = [dict(np.load(tmp / f"rank{r}_{case}.npz"))
+               for r in range(WORLD)]
+        for other in got[1:]:   # every rank gathers the same full tensors
+            assert other.keys() == got[0].keys()
+            assert all(np.array_equal(other[k], got[0][k]) for k in other)
+        out[case]["sharded"] = got[0]
+    return out
+
+
+def _steps() -> list[str]:
+    return ["prefill"] + [f"decode{i}" for i in range(DECODE_STEPS)]
+
+
+def _assert_close(runs: dict, case: str, names: list) -> None:
+    """Each of ``names`` in the sharded run, gathered, against the port's
+    unsharded run and JAX's, at ``TOL``."""
+    got, port, want = (runs[case][k] for k in ("sharded", "port", "jax"))
+    assert names
+    for k in names:
+        np.testing.assert_allclose(got[k], want[k], **TOL,
+                                   err_msg=f"{k} against JAX")
+        np.testing.assert_allclose(got[k], port[k], **TOL,
+                                   err_msg=f"{k} against the port unsharded")
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_prefill_and_decode_match_unsharded_and_jax(runs, case):
+    """Each step's logits, cache and ``pos``."""
+    want = runs[case]["jax"]
+    names = sorted(k for k in want if k.split(".")[0] in _steps())
+    assert names == sorted(k for k in runs[case]["sharded"] if
+                           not k.startswith(("shape:", "want:", "train.")))
+    _assert_close(runs, case, names)
+    assert int(want["decode2.pos"]) == CASES[case][2] + DECODE_STEPS
+
+
+@pytest.mark.parametrize("case", sorted(c for c in CASES if CASES[c][3]))
+def test_train_step_matches_unsharded_and_jax(runs, case):
+    """One ``make_train_step`` from the same weights: the loss, the grad
+    norm, the first moments ((1 - b1) times the clipped grads) and the
+    parameters after AdamW."""
+    want = runs[case]["jax"]
+    names = sorted(k for k in want if k.startswith("train."))
+    assert names == sorted(k for k in runs[case]["sharded"]
+                           if k.startswith("train."))
+    _assert_close(runs, case, names)
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_the_cache_keeps_its_shard_shape_at_every_step(runs, case):
+    """After the prefill and each decode step every cache tensor on a rank
+    has the local shape its logical names give (``init_cache`` on meta
+    under the mesh): the cache is placed, written in place and never left
+    gathered."""
+    got = runs[case]["sharded"]
+    want = {k.split(":", 1)[1]: v for k, v in got.items()
+            if k.startswith("want:")}
+    assert want
+    for step in _steps():
+        for name, shape in want.items():
+            assert list(got[f"shape:{step}.{name}"]) == list(shape), \
+                (step, name)
+    if case == "llama-1kv":
+        # one kv head: the slots shard over model, the batch over data
+        assert list(want["k"]) == [2, B // 2, 1, (16 + 64) // 2, 16]
+    if case.startswith("mixtral-1kv"):
+        # a rolling cache of the window's 32 slots, 16 on each model rank
+        assert list(want["k"]) == [2, B // 2, 1, 32 // 2, 16]
+
+
+def test_encode_matches_unsharded_and_jax(runs):
+    """hubert-xlarge's encode (the frames frontend, attention not
+    causal)."""
+    _assert_close(runs, ENCODER, ["encode.logits"])
