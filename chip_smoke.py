@@ -58,7 +58,18 @@ that run it, and drives every ported path at full size:
   (``make_debug_mesh``), a prefill of 4 x 64, 32 decode steps into the
   placed cache and one ``make_train_step`` of 4 x 128, with the kernels
   on the local shards, against the same steps without a mesh
-  (``phase_sharded``).
+  (``phase_sharded``);
+* slice 13: remat.  Every training path recomputes each layer in its
+  backward, the config's default (``remat=True``, ``"nothing"``), so its
+  backward launches the layers' norms and attentions again; and
+  ``models.loss_and_grads`` of the full llama3.2-1b at train_4k's
+  sequence, 2 x 4096 tokens, under remat off, ``"nothing"``, ``"dots"``
+  and ``"nothing"`` with the loss in 8 chunks (and chunked without remat),
+  with each one's peak memory, seconds, launches and loss, its loss and
+  grads against its twin's without remat and the dry run's temp bytes of
+  the same call; the peaks again at 16 x 512 tokens, where the loss sets
+  them; and the default, cut to 2 layers, against the plain versions of
+  the norm and attention (``phase_remat``).
 
 Besides, it holds the RMSNorm kernel against its plain version at every
 edge of its geometry (``check_rmsnorm_edges``), and the decoder's loss
@@ -227,6 +238,32 @@ DRYRUN_TIMEOUT_S = 600
 # slice 12: serve:model's prefill and decode steps and one train step of the
 # train path, with and without a one-rank NCCL mesh (the sharded program)
 SHARDED_PATH, SHARDED_DECODE = "sharded", 32
+# slice 13: one loss_and_grads of the full llama3.2-1b at train_4k's
+# sequence under each variant (config changes), each remat variant held
+# against its twin without remat (REMAT_TWIN): the chunked loss sums its
+# chunks' bf16 head grads in another order, so it has a twin of its own
+# (off_chunk8).  At 2 x 4096 tokens the plain attention backward's fp32
+# (B, H, S, S) transients set the peak of both "nothing" variants (their
+# peaks were equal on an NVIDIA H100 80GB HBM3), so there the peaks fall
+# as REMAT_ORDER says ((a, b, strictly)), and the strict order of all four
+# is held at REMAT_LOSS_TOKENS, the same 8192 tokens as 16 rows of 512,
+# where the loss sets the peak (REMAT_LOSS_ORDER).  One variant, the
+# default, is held against the plain versions of the norm and attention
+# (REMAT_PLAIN_LAYERS deep, at the grads phase's 3e-2).
+REMAT_PATH, REMAT_BATCH, REMAT_SEQ = "remat", 2, 4096
+REMAT_LOSS_TOKENS = (16, 512)
+REMAT_VARIANTS = {"off": {"remat": False},
+                  "off_chunk8": {"remat": False, "logits_chunk": 8},
+                  "nothing": {}, "dots": {"remat_policy": "dots"},
+                  "nothing_chunk8": {"logits_chunk": 8}}
+REMAT_TWIN = {"nothing": "off", "dots": "off",
+              "nothing_chunk8": "off_chunk8", "off_chunk8": "off"}
+REMAT_ORDER = (("off", "dots", True), ("dots", "nothing", False),
+               ("nothing", "nothing_chunk8", False))
+REMAT_LOSS_ORDER = (("off", "dots", True), ("dots", "nothing", False),
+                    ("nothing", "nothing_chunk8", True))
+REMAT_GRAD_TOL = 1e-3   # relative Frobenius, each parameter against twin's
+REMAT_PLAIN_LAYERS, REMAT_PLAIN_TOL = 2, 3e-2
 # fleet: worker 5 (BIG) runs at 0.3 of its speed from the start, worker 2
 # (LITTLE) is killed 1 s in; the second DAG runs on the re-meshed fleet
 FLEET_SLOW, FLEET_SPEED, FLEET_KILLED, FLEET_KILL_AT = 5, 0.3, 2, 1.0
@@ -242,11 +279,11 @@ KERNEL_PATHS = {"matmul": MIXED_PATHS + SERVE_PATHS
                 "sort_rows": MIXED_PATHS + (FLEET_PATH,),
                 "rmsnorm": (MODEL_PATH,) + SERVE_PATHS + TRAIN_PATHS
                 + MOE_PATHS + FAMILY_PATHS + (GRAD_SYNC_PATH, EXAMPLES_PATH,
-                                              SHARDED_PATH),
+                                              SHARDED_PATH, REMAT_PATH),
                 "flash_attention": (MODEL_PATH,) + SERVE_PATHS + TRAIN_PATHS
                 + MOE_PATHS + ("serve:hymba", ENCODE_PATH, FAMILY_ZOO_PATH,
                                MULTI_IMPL_PATH, GRAD_SYNC_PATH,
-                               EXAMPLES_PATH, SHARDED_PATH)}
+                               EXAMPLES_PATH, SHARDED_PATH, REMAT_PATH)}
 # kernel -> the shape (a key of phase_times's result) its top-level numbers
 # in the kernels line are taken at: the path that brought it into the port
 MAIN_SHAPE = {"matmul": "mixed_mode", "copy": "mixed_mode",
@@ -648,6 +685,11 @@ def check_flash() -> tuple[int, float, float]:
     cfg = get_config("internvl2-2b")
     cases.append(((PATCH_BATCH, cfg.n_heads, cfg.n_kv_heads, PATCH_SEQ,
                    PATCH_SEQ, cfg.hd), torch.bfloat16, True, None, PATCH_SEQ))
+    # the remat phase's training forwards at llama3.2-1b's heads: 2 x 4096
+    # tokens (its variants and the check against the plain versions) and
+    # 16 x 512 (its peaks where the loss sets them)
+    for b, sq in ((REMAT_BATCH, REMAT_SEQ), REMAT_LOSS_TOKENS):
+        cases.append(((b, hq, hkv, sq, sq, d), s.dtype, True, None, sq))
     cases += family_flash_cases() + example_flash_cases()
     worst = main = 0.0
     for i, case in enumerate(cases):
@@ -1178,6 +1220,25 @@ def call_launches(cfg) -> tuple[int, int]:
     return norms, 0 if cfg.family == "ssm" else L
 
 
+def recompute_launches(cfg) -> tuple[int, int]:
+    """(norms, flash attentions) that the backward of one training forward
+    of ``cfg``'s model launches: under ``cfg.remat`` each layer runs again
+    (``models.layers.remat``), with every norm but the final one, which
+    is outside the layers, and every attention; none without."""
+    if not cfg.remat:
+        return 0, 0
+    norms, flash = call_launches(cfg)
+    return norms - 1, flash
+
+
+def step_launches(cfg) -> tuple[int, int]:
+    """(norms, flash attentions) of one forward and backward of ``cfg``'s
+    loss: the forward's ``call_launches`` and the backward's
+    ``recompute_launches``."""
+    return tuple(a + b for a, b in zip(call_launches(cfg),
+                                       recompute_launches(cfg)))
+
+
 @contextlib.contextmanager
 def act_dtype(dtype):
     """While open, the models compute in ``dtype`` activations (each model
@@ -1270,7 +1331,8 @@ def grads_on_both(cfg, seed: int, label: str, routing: bool = False
     (``numpy_params(seed)``) and one (2, 64) batch, on the card, where the
     norms and attentions launch the kernels through their autograd
     Functions, and on the CPU (plain versions).  The card's forward must
-    launch ``call_launches(cfg)``, its backward none, and every parameter
+    launch ``call_launches(cfg)``, its backward ``recompute_launches(cfg)``
+    (each layer again under remat), and every parameter
     must get a finite non-zero grad there, but for an encoder on frames the
     token embedding, which its loss does not read: no grad on either
     device.  A frames encoder's batch is (2, 64, d_model) unit normal
@@ -1324,8 +1386,10 @@ def grads_on_both(cfg, seed: int, label: str, routing: bool = False
                 k: n - forward[k] for k, n in kernels.launch_counts().items()}}
             want = {name: 0 for name in KERNELS}
             want["rmsnorm"], want["flash_attention"] = call_launches(cfg)
-            if launched != {"forward": want,
-                            "backward": {name: 0 for name in KERNELS}}:
+            back = {name: 0 for name in KERNELS}
+            back["rmsnorm"], back["flash_attention"] = \
+                recompute_launches(cfg)
+            if launched != {"forward": want, "backward": back}:
                 raise AssertionError(f"{label}: launches {launched}")
             out["launches"] = launched
         out["loss"][dev] = loss.item()
@@ -1371,10 +1435,15 @@ def routing_alike(card, cpu, label: str) -> tuple[torch.Tensor, dict]:
             float((a[0] - b[0]).abs().max()) for a, b in zip(card, cpu))}
 
 
+def rel_frobenius_vs(grads: dict, want: dict) -> dict:
+    """Each parameter's grad against ``want``'s: relative Frobenius."""
+    return {k: float((g - want[k]).norm() / want[k].norm())
+            for k, g in grads.items()}
+
+
 def rel_frobenius(grads: dict) -> dict:
-    """Each parameter's card grad against the CPU's: relative Frobenius."""
-    return {name: float((grads["cuda"][name] - want).norm() / want.norm())
-            for name, want in grads["cpu"].items()}
+    """Each parameter's card grad against the CPU's."""
+    return rel_frobenius_vs(grads["cuda"], grads["cpu"])
 
 
 def phase_grads() -> None:
@@ -1432,15 +1501,14 @@ def phase_grads() -> None:
 
 
 def train_launches(forwards: int) -> dict:
-    """Launches of ``forwards`` forwards of the full llama3.2-1b through the
-    kernels' Functions: 2L + 1 norms and L attentions each, and none in a
-    backward or an update."""
-    from repro_torch.configs import get_config
-
-    layers = get_config(ARCH).n_layers
+    """Launches of ``forwards`` forwards and their backwards of the full
+    llama3.2-1b through the kernels' Functions (``step_launches``): 2L + 1
+    norms and L attentions a forward, and each backward's recompute of
+    every layer (remat, the config's default), 2L norms and L attentions;
+    none in an update."""
+    norms, flash = step_launches(get_config(ARCH))
     want = {name: 0 for name in KERNELS}
-    want.update(rmsnorm=forwards * (2 * layers + 1),
-                flash_attention=forwards * layers)
+    want.update(rmsnorm=forwards * norms, flash_attention=forwards * flash)
     return want
 
 
@@ -1449,7 +1517,9 @@ def phase_train() -> dict:
     full size, every counter reset just before and read just after.  Every
     loss and grad norm finite, the mean loss of the last 3 steps under the
     first's, every parameter moved and every moment non-zero, and exactly
-    33 norms and 16 attentions a step.  Returns kernel -> launches."""
+    65 norms and 32 attentions a step (``train_launches``: 33 and 16 in the
+    forward, 32 and 16 in the backward's recompute).  Returns kernel ->
+    launches."""
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
@@ -1556,8 +1626,8 @@ def phase_train_vs_cpu() -> None:
         if dev == "cuda":
             torch.cuda.synchronize()
             want = {name: 0 for name in KERNELS}
-            want.update(rmsnorm=steps * (2 * cfg.n_layers + 1),
-                        flash_attention=steps * cfg.n_layers)
+            norms, flash = step_launches(cfg)
+            want.update(rmsnorm=steps * norms, flash_attention=steps * flash)
             if kernels.launch_counts() != want:
                 raise AssertionError(f"train_vs_cpu: launches "
                                      f"{kernels.launch_counts()}")
@@ -2208,8 +2278,10 @@ def encode_path() -> dict:
     before and read just after: 2L + 1 norms and L flash attentions, the
     logits (4, 500, 504) finite.  Then ENCODE_TRAIN_STEPS steps of
     ``make_train_step`` on that batch at full size from fp32 masters
-    (seed 0): each step's forward launches the same, losses finite, every
-    parameter moved.  Returns kernel -> launches of the encode."""
+    (seed 0): each step's forward launches the same and its backward's
+    recompute 2L norms and L attentions more (``step_launches``), losses
+    finite, every parameter moved.  Returns kernel -> launches of the
+    encode."""
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
@@ -2242,6 +2314,8 @@ def encode_path() -> dict:
     start = {k: v.clone() for k, v in params.items()}
     opt = adamw_init(params)
     step = make_train_step(model, lr_schedule=TRAIN_LR)
+    want_step = {name: 0 for name in KERNELS}
+    want_step["rmsnorm"], want_step["flash_attention"] = step_launches(cfg)
     losses, step_s, per_step = [], [], []
     for _ in range(ENCODE_TRAIN_STEPS):
         kernels.reset_launch_counts()
@@ -2250,7 +2324,7 @@ def encode_path() -> dict:
         losses.append(metrics["loss"].item())
         step_s.append(time.perf_counter() - t0)
         per_step.append(kernels.launch_counts())
-    if any(n != want for n in per_step) or \
+    if any(n != want_step for n in per_step) or \
             not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"{ENCODE_PATH} train: launches {per_step}, "
                              f"losses {losses}")
@@ -2830,10 +2904,11 @@ def sharded_steps(model, params, prompt, steps, batch, mesh) -> dict:
     and one ``make_train_step`` on ``batch``, under ``use_sharding(mesh)``
     (None: no mesh; the parameters, tokens and batch then placed by their
     logical names).  Each call's launches and plain calls are counted on
-    their own and checked: 2L + 1 norms and L attentions in the prefill and
-    the train step's forward, the norms alone in a decode step; no plain
-    version in a serve step, the unsharded step's count in the train step
-    (flash's backward is plain PyTorch).  Returns the logits of every
+    their own and checked: 2L + 1 norms and L attentions in the prefill, the
+    norms alone in a decode step, and the train step's forward's and its
+    backward's recompute (``step_launches``); no plain version in a serve
+    step, the unsharded step's count in the train step (flash's backward
+    is plain PyTorch).  Returns the logits of every
     step and the last cache on the CPU, the params after the step on the
     card, with the launches, plain calls and seconds."""
     norms, layers = call_launches(model.cfg)
@@ -2882,9 +2957,10 @@ def sharded_steps(model, params, prompt, steps, batch, mesh) -> dict:
                                        None else cache[k]).shape)
                               for k in ("k", "v")}
         del weights, cache
+        t_norms, t_flash = step_launches(model.cfg)
         new, _, metrics = run("train", lambda: make_train_step(model)(
             params, adamw_init(params), batch),
-            {"rmsnorm": norms, "flash_attention": layers})
+            {"rmsnorm": t_norms, "flash_attention": t_flash})
         out["loss"] = full(metrics["loss"]).item()
         out["params"] = {k: full(v) for k, v in new.items()}
         del new
@@ -2970,6 +3046,172 @@ def phase_sharded() -> dict:
     return got["launches"]
 
 
+def peak_call(fn, *args) -> tuple:
+    """``fn(*args)`` on the card: (its result, the peak bytes allocated
+    above what was allocated before it, its seconds, kernel -> launches),
+    every counter reset just before and read just after."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    return (out, torch.cuda.max_memory_allocated() - before, seconds,
+            kernels.launch_counts())
+
+
+@contextlib.contextmanager
+def plain_versions():
+    """While open, the models' norms and attentions take their plain
+    versions on the card (``force="ref"``) and launch no kernel."""
+    norm, attend = ops.rmsnorm, ops.flash_attention
+    ops.rmsnorm = lambda *a, **kw: norm(*a, **kw, force="ref")
+    ops.flash_attention = lambda *a, **kw: attend(*a, **kw, force="ref")
+    try:
+        yield
+    finally:
+        ops.rmsnorm, ops.flash_attention = norm, attend
+
+
+def remat_call(model, params, batch, warm: bool = True) -> tuple:
+    """``models.loss_and_grads`` of ``model`` on the card, after a warm
+    call where ``warm``, through ``peak_call``: (grads, loss, peak bytes,
+    seconds, kernel -> launches), the launches exactly ``step_launches``
+    of its config and the loss finite."""
+    if warm:
+        loss_and_grads(model, params, batch)
+    (grads, metrics), peak, seconds, launched = peak_call(
+        loss_and_grads, model, params, batch)
+    want = {k: 0 for k in KERNELS}
+    want["rmsnorm"], want["flash_attention"] = step_launches(model.cfg)
+    label = (f"{REMAT_PATH} {model.cfg.n_layers} layers, tokens "
+             f"{tuple(batch['tokens'].shape)}")
+    if launched != want:
+        raise AssertionError(f"{label}: launches {launched}, want {want}")
+    loss = metrics["loss"]
+    if not bool(torch.isfinite(loss)):
+        raise AssertionError(f"{label}: loss {loss}")
+    return grads, loss, peak, seconds, launched
+
+
+def phase_remat() -> dict:
+    """remat: ``models.loss_and_grads`` of llama3.2-1b at its published
+    size (random weights, seed 0) on one ``SyntheticLM`` batch of
+    REMAT_BATCH x REMAT_SEQ tokens, under each of REMAT_VARIANTS, one warm
+    call and one timed (``remat_call``).  Each: exactly ``step_launches``
+    of its config; with remat, the loss bit for bit its twin's without
+    (REMAT_TWIN) and each parameter's grad within REMAT_GRAD_TOL relative
+    Frobenius of the twin's (bit equality reported); the peak bytes above
+    what was allocated before the call falling as REMAT_ORDER says; beside
+    each peak the dry run's temp bytes of the same call on meta
+    (``dryrun.temp_bytes``) and their ratio, reported.  Then the same
+    variants but off_chunk8 on REMAT_LOSS_TOKENS, whose peaks fall as
+    REMAT_LOSS_ORDER says, strictly from the unchunked to the chunked loss.
+    Last, the default variant cut to REMAT_PLAIN_LAYERS layers at
+    REMAT_BATCH x REMAT_SEQ against the same call on the plain versions
+    (``plain_versions``, which launch nothing): the loss and each grad
+    within REMAT_PLAIN_TOL relative.  Returns kernel -> launches of the
+    timed full-depth calls."""
+    cfg = get_config(ARCH)
+    params = get_model(cfg).init(torch.Generator("cuda").manual_seed(0))
+
+    def batch_of(b, s):
+        return SyntheticLM(vocab_size=cfg.vocab_size, seq_len=s,
+                           global_batch=b).batch(0, device="cuda")
+
+    batch = batch_of(REMAT_BATCH, REMAT_SEQ)
+    meta_batch = {k: torch.empty_like(v, device="meta")
+                  for k, v in batch.items()}
+    total = {name: 0 for name in KERNELS}
+    rows, losses, twins = {}, {}, {}
+    for name, changes in REMAT_VARIANTS.items():
+        model = get_model(dataclasses.replace(cfg, **changes))
+        grads, losses[name], peak, seconds, launched = remat_call(
+            model, params, batch)
+        for k, n in launched.items():
+            total[k] += n
+        row, twin = {}, REMAT_TWIN.get(name)
+        if twin is not None:
+            rel = rel_frobenius_vs(grads, twins[twin])
+            row = {"twin": twin, "grads_bit_equal_to_twin": all(
+                torch.equal(g, twins[twin][k]) for k, g in grads.items()),
+                "grads_max_rel_frobenius_vs_twin": max(rel.values()),
+                "loss_bit_equal_to_twin": bits_equal(losses[name],
+                                                     losses[twin])}
+            if model.cfg.remat and (max(rel.values()) > REMAT_GRAD_TOL or
+                                    not row["loss_bit_equal_to_twin"]):
+                raise AssertionError(f"{REMAT_PATH} {name}: loss "
+                                     f"{losses[name].item()} against "
+                                     f"{losses[twin].item()}, grads {rel}")
+        if not model.cfg.remat:
+            twins[name] = grads
+        del grads
+        temp = dryrun.temp_bytes(loss_and_grads, model,
+                                 model.abstract_params(), meta_batch)
+        rows[name] = {"peak_bytes": peak, "peak_gib": peak / 2 ** 30,
+                      "seconds": seconds, "launches": {
+                          k: launched[k] for k in ("rmsnorm",
+                                                   "flash_attention")},
+                      "loss": losses[name].item(), **row,
+                      "dry_run_temp_bytes": temp,
+                      "peak_over_dry_run_temp": peak / temp}
+    del twins
+    wide = batch_of(*REMAT_LOSS_TOKENS)
+    loss_rows = {}
+    for name in dict.fromkeys(n for a, b, _ in REMAT_LOSS_ORDER
+                              for n in (a, b)):
+        model = get_model(dataclasses.replace(cfg, **REMAT_VARIANTS[name]))
+        _, loss, peak, seconds, launched = remat_call(model, params, wide)
+        for k, n in launched.items():
+            total[k] += n
+        loss_rows[name] = {"peak_bytes": peak, "peak_gib": peak / 2 ** 30,
+                           "seconds": seconds, "loss": loss.item()}
+    torch.cuda.empty_cache()
+    for order, got, tokens in ((REMAT_ORDER, rows, (REMAT_BATCH, REMAT_SEQ)),
+                               (REMAT_LOSS_ORDER, loss_rows,
+                                REMAT_LOSS_TOKENS)):
+        for a, b, strict in order:
+            pa, pb = got[a]["peak_bytes"], got[b]["peak_bytes"]
+            if not (pa > pb if strict else pa >= pb):
+                raise AssertionError(f"{REMAT_PATH} {tokens}: peak {a} {pa} "
+                                     f"not {'>' if strict else '>='} {b} "
+                                     f"{pb}")
+    shallow = get_model(dataclasses.replace(cfg,
+                                            n_layers=REMAT_PLAIN_LAYERS))
+    shallow_params = {k: v[:REMAT_PLAIN_LAYERS] if k.startswith("layers.")
+                      else v for k, v in params.items()}
+    grads, loss, *_ = remat_call(shallow, shallow_params, batch, warm=False)
+    kernels.reset_launch_counts()
+    with plain_versions():
+        want, metrics = loss_and_grads(shallow, shallow_params, batch)
+    torch.cuda.synchronize()
+    if any(kernels.launch_counts().values()):
+        raise AssertionError(f"{REMAT_PATH} plain: launches "
+                             f"{kernels.launch_counts()}")
+    rel = rel_frobenius_vs(grads, want)
+    loss_rel = float(abs(loss - metrics["loss"]) / abs(metrics["loss"]))
+    if max(loss_rel, *rel.values()) > REMAT_PLAIN_TOL:
+        raise AssertionError(f"{REMAT_PATH} against the plain versions: "
+                             f"loss {loss_rel}, grads {rel}")
+    del grads, want, params, shallow_params
+    torch.cuda.empty_cache()
+    emit({"phase": "remat", "path": REMAT_PATH, "arch": ARCH,
+          "card": card_and_limit(), "tokens": [REMAT_BATCH, REMAT_SEQ],
+          "variants": {name: dict(changes) or {"remat_policy": "nothing"}
+                       for name, changes in REMAT_VARIANTS.items()},
+          "runs": rows, "loss_tokens": list(REMAT_LOSS_TOKENS),
+          "loss_runs": loss_rows,
+          "against_plain": {"layers": REMAT_PLAIN_LAYERS,
+                            "loss_rel_err": loss_rel,
+                            "grads_max_rel_frobenius": max(rel.values()),
+                            "tol": REMAT_PLAIN_TOL},
+          "launches": total})
+    return total
+
+
 def prefill_matmul_flops(cfg, batch: int, seq: int) -> int:
     """World matmul FLOPs of a dense decoder's prefill from its config: the
     layer weights on every token, dense attention over every key (4 B H
@@ -3032,8 +3274,8 @@ def phase_dryrun() -> dict:
           "cells": {k: {f: r.get(f) for f in (
               "status", "reason", "chips", "matmul_flops",
               "matmul_flops_per_device", "collectives", "trace_s",
-              "decode_pos")} | {"argument_size_bytes": r.get(
-                  "memory", {}).get("argument_size_bytes")}
+              "decode_pos")} | {k: r.get("memory", {}).get(k) for k in (
+                  "argument_size_bytes", "temp_size_bytes")}
               for k, r in cells.items()},
           "launches": launched})
     return launched
@@ -3047,7 +3289,8 @@ def phase_examples() -> dict:
     temporary ``--ckpt``): every loss finite, the mean of the last 10
     under the first, and the final checkpoint restores bit for bit.  The
     kernels launch as their calls: 2L + 1 norms a prefill, decode step or
-    train step's forward, L flash attentions a prefill or forward.
+    train step's forward, L flash attentions a prefill or forward, and a
+    train step's backward recomputes each layer's (``step_launches``).
     Returns kernel -> launches."""
     kernels.reset_launch_counts()
     served = serve_lm.main(["--device", "cuda"])["served"]
@@ -3075,7 +3318,7 @@ def phase_examples() -> dict:
     if not np.isfinite(losses).all() or not np.mean(losses[-10:]) < losses[0]:
         raise AssertionError(f"examples: train_lm losses {losses}")
     s_norms, s_flash = call_launches(serve_lm.demo_config())
-    t_norms, t_flash = call_launches(train_lm.config_100m())
+    t_norms, t_flash = step_launches(train_lm.config_100m())
     calls = 1 + types["prefill"], 1 + types["decode"]  # and one warm each
     want = {name: 0 for name in KERNELS}
     want.update(rmsnorm=s_norms * sum(calls) + t_norms * len(losses),
@@ -3119,7 +3362,8 @@ def main() -> None:
                         (GRAD_SYNC_PATH, phase_grad_sync),
                         (EXAMPLES_PATH, phase_examples),
                         (DRYRUN_PATH, phase_dryrun),
-                        (SHARDED_PATH, phase_sharded)):
+                        (SHARDED_PATH, phase_sharded),
+                        (REMAT_PATH, phase_remat)):
         t_phase = time.perf_counter()
         launches[path] = phase()
         emit({"phase": "seconds", "path": path,

@@ -8,6 +8,7 @@ on the 16x16 single-pod mesh (256 ranks) and the 2x16x16 multi-pod mesh
   * ``matmul_flops_per_device`` -- the same counted on one rank's shards
   * ``collectives``             -- bytes per device a collective kind
   * ``memory``                  -- per-device bytes of the step's arguments
+                                   and the peak of what the step allocates
 
 The world is torch's ``fake`` process group (``mesh.fake_world``), started
 for each mesh and destroyed after it; every tensor lives on the meta device,
@@ -26,8 +27,13 @@ What is counted, and how it differs from the reference's numbers:
     each op twice: on DTensors, at global shapes (the world's FLOPs), and
     on the local shards DTensor runs them on (one device's FLOPs, redundant
     work on replicated operands included).  Without a mesh the two agree.
-  * The port's models have no remat, so a train step's backward
-    recomputes nothing; the reference's FLOPs count remat's recompute.
+  * A train step recomputes each layer in its backward as the config's
+    ``remat`` and ``remat_policy`` ask (``models.layers.remat``), and the
+    counter counts the recompute, as the reference's cost analysis does:
+    under ``"nothing"`` each layer's products again but its last, whose
+    output no backward reads (torch stops the recompute there, XLA drops
+    it as dead code), under ``"dots"`` the products with batch dims
+    (attention's), none with ``remat=False``.
   * Collectives are the ``_c10d_functional`` ops DTensor issues to
     redistribute, each counted once at its result's bytes on the local
     shard, as the reference counts each HLO collective's result
@@ -37,9 +43,16 @@ What is counted, and how it differs from the reference's numbers:
     ``shard_dim_alltoall`` op instead, so it counts as an all-to-all of
     its result's bytes, as NCCL would run it.
   * ``argument_size_bytes`` sums the local shards of the parameters, the
-    optimizer state, the inputs and the cache.  With no compiled program
-    there is no temp, generated-code or alias size and no lower or compile
-    time: those keys are ``null``, never 0.
+    optimizer state, the inputs and the cache.  ``temp_size_bytes`` is the
+    peak over the step of the bytes a device holds in storages that the
+    step's ops made (``StepCounter``): saved activations, transients and
+    outputs, the arguments left out.  On meta the norms and attention take
+    their plain versions, so a forward without remat saves what they save
+    (an (S, Sk) fp32 score tensor a layer among it), where the card's
+    kernels keep their inputs alone; under remat one layer's are live at a
+    time, as in the card's plain backward.  With no compiled
+    program there is no generated-code or alias size and no lower or
+    compile time: those keys are ``null``, never 0.
   * The reference compiles 0- and 1-layer variants of each model because
     XLA counts a scanned layer body once (``_combine_costs``,
     ``_cost_variants``).  Eager code runs every layer, so the port drops
@@ -73,6 +86,7 @@ import pathlib
 import time
 
 import torch
+from torch.multiprocessing.reductions import StorageWeakRef
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils.flop_counter import flop_registry
 
@@ -89,9 +103,9 @@ COLLECTIVES = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
                "collective-permute")
 MESHES = {"single_pod": False, "multi_pod": True}  # name -> multi_pod
 # ModelConfig knobs that only the reference's compiled models read: XLA's
-# remat and layer scan, its q-chunked and block-skipping attention
-NO_EFFECT = ("remat", "remat_policy", "scan_layers", "attn_chunk",
-             "dense_attn_max_seq", "swa_block_skip")
+# layer scan, its q-chunked and block-skipping attention
+NO_EFFECT = ("scan_layers", "attn_chunk", "dense_attn_max_seq",
+             "swa_block_skip")
 # knobs that no model of the port reads on a mesh: on DTensor logits the
 # cross-entropy's gold logit is the one-hot masked sum whatever ce_onehot
 MESH_NO_EFFECT = ("ce_onehot",)
@@ -108,18 +122,26 @@ COST_NOTE = (
     "counts one rank's local shards: attention and the norms run on each "
     "rank's shards (q heads sharded as act_heads resolves, k and v whole "
     "where their heads do not divide the model axis), counted into the "
-    "world's times the pieces the mesh splits them into. No remat in the "
-    "port: a backward "
-    "recomputes nothing, where the reference's FLOPs include remat's "
-    "recompute. Eager code runs every layer, so the reference's 0/1-layer "
+    "world's times the pieces the mesh splits them into. A train step's "
+    "backward recomputes each layer as remat and remat_policy ask, and its "
+    "FLOPs count the recompute, as the reference's do: under 'nothing' "
+    "every product of a layer but its last (whose output no backward "
+    "reads), under 'dots' the products with batch dims. Eager code runs "
+    "every layer, so the reference's 0/1-layer "
     "accounting (an XLA scan quirk) is dropped. On a mesh the loss's gold "
     "logit is always the one-hot masked sum over each vocab shard plus an "
     "all-reduce of (B, S) values (DTensor has no rule for a gather along "
     "the sharded vocab), where the reference's default ce_onehot=False "
     "counts a gather.")
 MEMORY_NOTE = (
-    "per-device bytes of the local shards; no compiled program, so no "
-    "temp, generated-code or alias size")
+    "per-device bytes of the local shards. temp: the peak over the step of "
+    "the bytes in storages the step's ops made (saved activations, "
+    "transients, outputs; the arguments left out). On meta the norms and "
+    "attention are plain, so a forward without remat saves what they save "
+    "(an (S, Sk) fp32 score tensor a layer among it), where the card's "
+    "kernels keep their inputs alone; under remat one layer's at a time, "
+    "as in the card's plain backward. No compiled program, so no "
+    "generated-code or alias size")
 
 
 def _collective_kinds() -> dict:
@@ -139,24 +161,43 @@ def _collective_kinds() -> dict:
             torch.ops._dtensor.shard_dim_alltoall: "all-to-all"}
 
 
-def _nbytes(tree) -> int:
-    """Bytes of every tensor in ``tree`` (dicts, tuples, lists, dataclasses
-    and tensors), a DTensor counted at its local shard."""
+def _locals(tree):
+    """Every tensor in ``tree`` (dicts, tuples, lists, dataclasses and
+    tensors), a DTensor as its local shard."""
     if isinstance(tree, torch.Tensor):
-        local = tree.to_local() if is_sharded(tree) else tree
-        return local.numel() * local.element_size()
-    if isinstance(tree, dict):
-        return sum(_nbytes(v) for v in tree.values())
-    if isinstance(tree, (tuple, list)):
-        return sum(_nbytes(v) for v in tree)
-    if dataclasses.is_dataclass(tree):
-        return sum(_nbytes(getattr(tree, f.name))
-                   for f in dataclasses.fields(tree))
-    return 0
+        yield tree.to_local() if is_sharded(tree) else tree
+    elif isinstance(tree, dict):
+        for v in tree.values():
+            yield from _locals(v)
+    elif isinstance(tree, (tuple, list)):
+        for v in tree:
+            yield from _locals(v)
+    elif dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        for f in dataclasses.fields(tree):
+            yield from _locals(getattr(tree, f.name))
+
+
+def _aliasing_wrappers() -> tuple:
+    """Ops that return their input wrapped, with no copy, on a device but
+    allocate a new tensor on meta: funcol's autograd wrapper of a
+    collective's result (an ``AsyncCollectiveTensor`` over the same
+    memory; its meta kernel is ``empty_like``).  Their outputs are not new
+    bytes."""
+    import torch.distributed._functional_collectives  # noqa: F401
+
+    op = getattr(torch.ops._c10d_functional, "_wrap_tensor_autograd", None)
+    return () if op is None else (op,)
+
+
+def _nbytes(tree) -> int:
+    """Bytes of every tensor in ``tree``, a DTensor counted at its local
+    shard."""
+    return sum(t.numel() * t.element_size() for t in _locals(tree))
 
 
 class StepCounter(TorchDispatchMode):
-    """Counts a step's matmul FLOPs and collective bytes.
+    """Counts a step's matmul FLOPs and collective bytes, and the peak of
+    the bytes a device holds in storages that the step's ops made.
 
     An op on DTensors is counted at global shapes into ``global_flops`` and
     handed on (``NotImplemented``), so DTensor runs it: the ops DTensor then
@@ -168,9 +209,20 @@ class StepCounter(TorchDispatchMode):
     times the number of distinct pieces the mesh splits the body into
     (``local_split``), into ``global_flops``.  Where no op ran on a DTensor
     (no mesh), the plain ops are the world's too.  The op that DTensor runs
-    on fake tensors to learn an output's shape runs uncounted."""
+    on fake tensors to learn an output's shape runs uncounted.
 
-    def __init__(self):
+    Memory: each plain op's outputs on a device (a rank's local shards
+    under a mesh) whose storage neither ``args`` nor an earlier op holds
+    add their storage's bytes to ``live_bytes``.  The storages that no
+    tensor holds any more (their ``StorageWeakRef`` expired) leave it only
+    where it would pass ``peak_bytes``: until then it may count some dead
+    ones, so it bounds the live bytes from above, and where the bound stays
+    under the peak the live bytes do too.  ``peak_bytes`` is the largest
+    value of the swept sum: the step's temp.  (A weak reference keeps its
+    storage's address from being reused, so a dead entry never stands for
+    a new storage.)"""
+
+    def __init__(self, args=()):
         super().__init__()
         self.global_flops = 0      # ops on DTensors, at global shapes
         self.local_flops = 0       # ops on plain tensors
@@ -178,6 +230,29 @@ class StepCounter(TorchDispatchMode):
         self.collectives = {c: 0 for c in COLLECTIVES}
         self.collectives["count"] = 0
         self._kinds = _collective_kinds()
+        self._wrappers = _aliasing_wrappers()
+        self._args = {StorageWeakRef(t.untyped_storage())
+                      for t in _locals(args)}
+        self._live: dict = {}      # StorageWeakRef -> bytes
+        self.live_bytes = self.peak_bytes = 0
+
+    def _made(self, out, alias: bool = False) -> None:
+        """Add the storages of ``out`` that ``live_bytes`` does not hold
+        yet (at 0 bytes where ``out`` is an ``alias`` of the op's input);
+        where the sum passes the peak, drop the storages no tensor holds
+        and raise the peak to what is left."""
+        for t in _locals(out):
+            if t.device.type == "cpu":   # host scalars (a cache's pos)
+                continue
+            storage = t.untyped_storage()
+            ref = StorageWeakRef(storage)
+            if ref not in self._live and ref not in self._args:
+                self._live[ref] = 0 if alias else storage.nbytes()
+                self.live_bytes += self._live[ref]
+        if self.live_bytes > self.peak_bytes:
+            for ref in [r for r in self._live if r.expired()]:
+                self.live_bytes -= self._live.pop(ref)
+            self.peak_bytes = max(self.peak_bytes, self.live_bytes)
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         from torch._subclasses.fake_tensor import FakeTensor
@@ -206,6 +281,7 @@ class StepCounter(TorchDispatchMode):
             if out is not NotImplemented:
                 return out
         out = func(*args, **kwargs)
+        self._made(out, alias=packet in self._wrappers)
         if flops is not None:
             n = int(flops(*args, **kwargs, out_val=out))
             self.local_flops += n
@@ -291,8 +367,8 @@ def apply_overrides(cfg, overrides: dict | None, *, meshed: bool = True):
     bad = sorted(k for k in overrides if k in NO_EFFECT)
     if bad:
         raise ValueError(f"--set {', '.join(bad)}: no model of the port "
-                         f"reads it (no remat, scan or chunked attention in "
-                         f"eager code), so it would change nothing")
+                         f"reads it (no scan or chunked attention in eager "
+                         f"code), so it would change nothing")
     bad = sorted(k for k in overrides if meshed and k in MESH_NO_EFFECT)
     if bad:
         raise ValueError(f"--set {', '.join(bad)}: no model of the port "
@@ -302,6 +378,15 @@ def apply_overrides(cfg, overrides: dict | None, *, meshed: bool = True):
     return dataclasses.replace(cfg, **overrides)
 
 
+def temp_bytes(fn, *args) -> int:
+    """The peak bytes a device holds in storages that ``fn(*args)`` makes
+    (``StepCounter``'s), ``args`` stand-ins on the meta device."""
+    counter = StepCounter(args)
+    with counter:
+        fn(*args)
+    return counter.peak_bytes
+
+
 def run_cell(cfg, shape, mesh) -> dict:
     """The counts of ``cfg``'s step at ``shape`` (a ``ShapeSpec``) on
     ``mesh`` (None: one device).  A decode step of a ``decode_no_fsdp``
@@ -309,9 +394,9 @@ def run_cell(cfg, shape, mesh) -> dict:
     rules = None
     if shape.kind == "decode" and cfg.decode_no_fsdp:
         rules = {**LOGICAL_RULES, **DECODE_NO_FSDP_RULES}
-    counter = StepCounter()
     with use_sharding(mesh, rules):
         step, args, parts = build_step_and_specs(cfg, shape)
+        counter = StepCounter(args)
         t0 = time.perf_counter()
         with native_all_to_all(), counter:
             out = step(*args)
@@ -319,7 +404,7 @@ def run_cell(cfg, shape, mesh) -> dict:
         memory = {f"{k}_bytes": _nbytes(v) for k, v in parts.items()}
         memory = {"argument_size_bytes": _nbytes(args), **memory,
                   "output_size_bytes": _nbytes(out),
-                  "temp_size_bytes": None,
+                  "temp_size_bytes": counter.peak_bytes,
                   "generated_code_size_bytes": None,
                   "alias_size_bytes": None, "note": MEMORY_NOTE}
     world, local = counter.totals()
@@ -438,13 +523,15 @@ def main(argv: list[str] | None = None) -> dict:
                 path.write_text(json.dumps(res, indent=1))
                 n[res["status"]] += 1
                 if res["status"] == "ok":
-                    mem_gb = res["memory"]["argument_size_bytes"] / 2 ** 30
+                    mem = res["memory"]
+                    mem_gb = (mem["argument_size_bytes"]
+                              + mem["temp_size_bytes"]) / 2 ** 30
                     print(f"  ok: {res['matmul_flops']:.4e} matmul FLOPs "
                           f"(world), {res['matmul_flops_per_device']:.4e} "
                           f"a device, {res['collectives']['count']} "
-                          f"collectives, arguments {mem_gb:.2f} GiB a "
-                          f"device, trace {res['trace_s']:.2f}s",
-                          flush=True)
+                          f"collectives, mem/device ~{mem_gb:.2f} GiB "
+                          f"(arguments + temp), trace "
+                          f"{res['trace_s']:.2f}s", flush=True)
                 elif res["status"] == "skip":
                     print(f"  skip: {res['reason']}")
     print(f"done: ok={n['ok']} skip={n['skip']} fail={n['fail']} "

@@ -34,7 +34,7 @@ import torch
 from ..parallel.sharding import (constrain, replicate_as, shift_in,
                                  write_slots)
 from .layers import (apply_rope, attention, decode_attention, embed,
-                     merge_heads, rmsnorm, split_heads, swiglu)
+                     merge_heads, remat, rmsnorm, split_heads, swiglu)
 from .losses import lm_cross_entropy
 from .mamba2 import (CONV_NAMES, SSD_NAMES, ssm_branch_full,
                      ssm_branch_step, stacked_states)
@@ -170,13 +170,19 @@ class HymbaLM(BaseModel):
     def _layers(self, params: dict, tokens: torch.Tensor):
         """Backbone over ``tokens``: yields (layer, x, (kv, state)) after
         each layer."""
-        top, stacked = split_params(params)
-        x = embed(top["embed.w"], tokens).to(ACT_DTYPE)
-        positions = replicate_as(torch.arange(
-            x.shape[1], dtype=torch.int32, device=x.device), x)
+        x, positions, stacked = self._backbone_inputs(params, tokens)
         for i, p in enumerate(unbound(stacked)):
             x, kv_state = self._layer_full(p, x, positions, self.window(i))
             yield i, x, kv_state
+
+    def _backbone_inputs(self, params: dict, tokens: torch.Tensor):
+        """(the embeddings, their positions, the stacked layer
+        parameters)."""
+        _, stacked = split_params(params)
+        x = embed(params["embed.w"], tokens).to(ACT_DTYPE)
+        positions = replicate_as(torch.arange(
+            x.shape[1], dtype=torch.int32, device=x.device), x)
+        return x, positions, stacked
 
     def _head(self, params: dict, x: torch.Tensor, last: bool = False
               ) -> torch.Tensor:
@@ -189,10 +195,19 @@ class HymbaLM(BaseModel):
 
     # ----------------------------------------------------------- forward --
     def forward(self, params: dict, batch: dict) -> torch.Tensor:
-        """Full-sequence forward -> logits (B, S, V)."""
-        x = None
-        for _, x, _ in self._layers(params, batch["tokens"]):
-            pass
+        """Full-sequence forward -> logits (B, S, V).  Under ``cfg.remat``
+        each layer runs under ``remat``, policy ``"nothing"`` whatever
+        ``remat_policy`` says, as the reference's forward does
+        (hybrid.py:160-162)."""
+        x, positions, stacked = self._backbone_inputs(params,
+                                                      batch["tokens"])
+        for i, p in enumerate(unbound(stacked)):
+            def layer(p, x, window=self.window(i)):
+                return self._layer_full(p, x, positions, window)[0]
+
+            if self.cfg.remat:
+                layer = remat(layer)
+            x = layer(p, x)
         return constrain(self._head(params, x), "batch", "seq", "vocab")
 
     def loss(self, params: dict, batch: dict):

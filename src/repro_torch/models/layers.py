@@ -11,7 +11,9 @@ on the CPU:
     same function in jnp, dense up to ``dense_max_seq`` and q-chunked above
     it; the kernel takes any length, so the port has one path.
 ``decode_attention``, ``swiglu`` and ``moe_ffn`` stay plain PyTorch, as the
-JAX package leaves them to XLA outside any Pallas kernel.
+JAX package leaves them to XLA outside any Pallas kernel.  ``remat`` is the
+twin of the reference's ``jax.checkpoint`` around a layer: the models'
+training forwards run each layer under it.
 
 Under a mesh (DTensors under ``use_sharding``) the norm, the attention and
 the decode attention run their bodies on each rank's local shards
@@ -23,18 +25,107 @@ reads each rank's shard of the cache where it lies.
 from __future__ import annotations
 
 import contextlib
+import contextvars
 import math
 
 import torch
 import torch.nn.functional as F
 from torch.profiler import record_function
+from torch.utils._pytree import tree_leaves
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ..kernels import ops
-from ..parallel.sharding import (constrain, is_shard, is_sharded,
-                                 logical_spec, on_local_shards, placements,
-                                 replicate_as, shard_bounds)
+from ..parallel.sharding import (constrain, current_ctx, is_shard,
+                                 is_sharded, logical_spec, on_local_shards,
+                                 placements, reentered, replicate_as,
+                                 shard_bounds)
 
 NEG_INF = -1e30
+# the products with no batch dims: ``x @ w`` with a 2-D ``w`` lowers to one
+# of these.  An einsum lowers to ``bmm`` whether it has batch dims or not:
+# the one without (the MoE router's) runs under ``_no_batch_dims``
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+_BMM = torch.ops.aten.bmm.default
+_UNBATCHED = contextvars.ContextVar("unbatched_einsum", default=False)
+
+
+# ---------------------------------------------------------------------------
+# recomputation
+# ---------------------------------------------------------------------------
+def _save_dots(ctx, op, *args, **kwargs):
+    """``policy="dots"``: the twin of JAX's
+    ``checkpoint_dots_with_no_batch_dims``.  A product without batch dims
+    keeps its output; every other op, ``bmm`` and the kernels' buffers
+    included, runs again in the backward.  The norm and flash kernels
+    launch through ctypes inside their ``autograd.Function``s, so this
+    policy never sees them as products: they are recomputed, as the
+    reference recomputes their jnp bodies."""
+    if op in _DOTS or (op is _BMM and _UNBATCHED.get()):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+@contextlib.contextmanager
+def _no_batch_dims():
+    """Marks the einsums run inside as products without batch dims, which
+    ``"dots"`` keeps, though each lowers to a ``bmm`` over a batch of 1."""
+    token = _UNBATCHED.set(True)
+    try:
+        yield
+    finally:
+        _UNBATCHED.reset(token)
+
+
+@contextlib.contextmanager
+def _recompute_in(ctx, inner):
+    with reentered(ctx), inner:
+        yield
+
+
+def _contexts(policy: str):
+    """``checkpoint``'s ``context_fn`` for ``policy``: the selective
+    contexts of ``"dots"`` (none for any other policy), the recompute's
+    inside the sharding context that the forward ran under."""
+    ctx = current_ctx()
+
+    def context_fn():
+        first, again = (create_selective_checkpoint_contexts(_save_dots)
+                        if policy == "dots" else
+                        (contextlib.nullcontext(), contextlib.nullcontext()))
+        return first, _recompute_in(ctx, again)
+
+    return context_fn
+
+
+def remat(fn, policy: str = "nothing"):
+    """``fn`` recomputed in the backward, the twin of ``jax.checkpoint(fn,
+    policy=...)``: ``"dots"`` keeps ``fn``'s inputs and the outputs of its
+    products without batch dims (``_save_dots``), any other policy its
+    inputs alone, as the reference maps every policy but ``"dots"`` to
+    ``nothing_saveable`` (transformer.py:27-30).
+    Where autograd does not record (grad mode off, as under the serving
+    steps' ``inference_mode``, or no input that requires grad) the
+    returned function calls ``fn`` as it is, at no host cost.  No forward
+    of the port draws random numbers, so the RNG state is not kept.  The
+    recompute stops at the last tensor the backward needs (torch's early
+    stop): a layer's last product, whose output no backward reads, runs
+    once, as XLA drops it from the reference's recompute as dead code.
+    The recompute runs under the sharding context of the forward
+    (``parallel.sharding.reentered``): on CUDA tensors the backward runs
+    on autograd's device thread, which does not see the caller's.  Pass
+    every tensor ``fn`` reads as an argument: only those decide whether
+    autograd records."""
+    def run(*args):
+        if not (torch.is_grad_enabled()
+                and any(isinstance(t, torch.Tensor) and t.requires_grad
+                        for t in tree_leaves(args))):
+            return fn(*args)
+        return checkpoint(fn, *args, use_reentrant=False,
+                          preserve_rng_state=False,
+                          context_fn=_contexts(policy))
+
+    return run
 
 
 # ---------------------------------------------------------------------------
@@ -344,7 +435,9 @@ def moe_ffn(x: torch.Tensor, router_w: torch.Tensor, we1: torch.Tensor,
     e, c, k = n_experts, capacity, top_k
     dev = x.device
     with _span("moe.router"):
-        logits = torch.einsum("bsm,me->bse", x.float(), router_w.float())
+        with _no_batch_dims():
+            logits = torch.einsum("bsm,me->bse", x.float(),
+                                  router_w.float())
         gates = torch.softmax(logits, dim=-1)                    # (B,S,E)
         top_w, top_ids = torch.topk(gates, k, dim=-1)            # (B,S,k)
         top_w = top_w / torch.clamp(top_w.sum(-1, keepdim=True), min=1e-9)

@@ -34,7 +34,8 @@ import torch
 import torch.nn.functional as F
 
 from ..parallel.sharding import constrain, replicate_as
-from .layers import _span, embed, merge_heads, rmsnorm, split_heads
+from .layers import (_span, embed, merge_heads, remat, rmsnorm,
+                     split_heads)
 from .losses import lm_cross_entropy
 from .model_api import (BaseModel, ParamDef, cache_pos, cache_tensor,
                         split_params, unbound)
@@ -306,11 +307,14 @@ class Mamba2LM(BaseModel):
                       "batch", "seq", "act_embed")
         return x, state
 
+    def _embed(self, params: dict, tokens: torch.Tensor) -> torch.Tensor:
+        return constrain(embed(params["embed.w"], tokens).to(ACT_DTYPE),
+                         "batch", "seq", "act_embed")
+
     def _layers(self, params: dict, tokens: torch.Tensor):
         """Backbone over ``tokens``: yields (x, state) after each layer."""
-        top, stacked = split_params(params)
-        x = constrain(embed(top["embed.w"], tokens).to(ACT_DTYPE),
-                      "batch", "seq", "act_embed")
+        _, stacked = split_params(params)
+        x = self._embed(params, tokens)
         for p in unbound(stacked):
             x, state = self._layer_full(p, x)
             yield x, state
@@ -326,10 +330,20 @@ class Mamba2LM(BaseModel):
 
     # ----------------------------------------------------------- forward --
     def forward(self, params: dict, batch: dict) -> torch.Tensor:
-        """Full-sequence forward -> logits (B, S, V)."""
-        x = None
-        for x, _ in self._layers(params, batch["tokens"]):
-            pass
+        """Full-sequence forward -> logits (B, S, V).  Under ``cfg.remat``
+        each layer runs under ``remat``, policy ``"nothing"`` whatever
+        ``remat_policy`` says, as the reference's forward does
+        (mamba2.py:216-218)."""
+        _, stacked = split_params(params)
+        x = self._embed(params, batch["tokens"])
+
+        def layer(p, x):
+            return self._layer_full(p, x)[0]
+
+        if self.cfg.remat:
+            layer = remat(layer)
+        for p in unbound(stacked):
+            x = layer(p, x)
         return constrain(self._head(params, x), "batch", "seq", "vocab")
 
     def loss(self, params: dict, batch: dict):

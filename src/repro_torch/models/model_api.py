@@ -67,7 +67,8 @@ class ModelConfig:
     frontend: str = "none"               # none | patch (vlm) | frames (audio)
     n_patches: int = 256                 # vlm stub patch count
     # --- execution knobs of the JAX package, kept so that configs carry
-    # across unchanged; the port reads ce_onehot (off a mesh only:
+    # across unchanged; the port reads remat and remat_policy (the training
+    # forwards' recompute, layers.remat), ce_onehot (off a mesh only:
     # launch.dryrun.MESH_NO_EFFECT), logits_chunk, swa_ring_buffer,
     # ssd_shard_acts, shard_kv_seq and decode_no_fsdp, and no model of it
     # reads the others (launch.dryrun.NO_EFFECT) ---

@@ -11,7 +11,9 @@ Every norm runs the RMSNorm kernel and every prefill or forward attention
 the flash-attention kernel, sliding windows included (``layers``); the
 projections and the MoE dispatch are plain PyTorch, as the JAX package
 leaves them to XLA.  The layers run in a Python loop over the stacked
-parameters, where JAX scans.
+parameters, where JAX scans; a training forward recomputes each layer in
+the backward under ``cfg.remat`` (``layers.remat``), as JAX checkpoints
+each.
 
 Numerics follow JAX: activations are bf16 (the embedding is gathered from
 the fp32 table, then cast), every weight matrix is cast to bf16 where it is
@@ -39,7 +41,8 @@ import torch
 from ..parallel.sharding import (constrain, replicate_as, roll_slots,
                                  write_slots)
 from .layers import (apply_rope, attention, decode_attention, embed,
-                     merge_heads, moe_ffn, rmsnorm, split_heads, swiglu)
+                     merge_heads, moe_ffn, remat, rmsnorm, split_heads,
+                     swiglu)
 from .losses import lm_cross_entropy
 from .model_api import (BaseModel, ParamDef, cache_pos, cache_tensor,
                         split_params, unbound)
@@ -184,25 +187,41 @@ class DecoderLM(BaseModel):
             x = torch.cat([pe, x[:, pe.shape[1]:]], dim=1)
         return x
 
-    def _layers(self, params: dict, batch: dict):
-        """Backbone over ``batch``'s inputs: yields (x, (k, v)) after each
-        layer; ``x`` enters as ``_embed_inputs``."""
+    def _backbone_inputs(self, params: dict, batch: dict):
+        """(x as it enters the first layer, its positions, the stacked
+        layer parameters)."""
         top, stacked = split_params(params)
         x = constrain(self._embed_inputs(top, batch),
                       "batch", "seq", "act_embed")
         positions = replicate_as(torch.arange(
             x.shape[1], dtype=torch.int32, device=x.device), x)
+        return x, positions, stacked
+
+    def _layers(self, params: dict, batch: dict):
+        """Backbone over ``batch``'s inputs: yields (x, (k, v)) after each
+        layer; ``x`` enters as ``_embed_inputs``."""
+        x, positions, stacked = self._backbone_inputs(params, batch)
         for p in unbound(stacked):
             x, kv = self._layer(p, x, positions=positions)
             yield x, kv
 
     def _hidden(self, params: dict, batch: dict):
-        """Backbone -> (final-normed hidden (B, S, M), LM head (M, V))."""
-        x = None
-        for x, _ in self._layers(params, batch):
-            pass
+        """Backbone -> (final-normed hidden (B, S, M), LM head (M, V)).
+        Under ``cfg.remat`` each layer runs under ``remat`` with
+        ``cfg.remat_policy``, keeping its output and dropping its (k, v),
+        as the reference's ``_hidden`` does (transformer.py:161-163)."""
+        cfg = self.cfg
+        x, positions, stacked = self._backbone_inputs(params, batch)
+
+        def layer(p, x):
+            return self._layer(p, x, positions=positions)[0]
+
+        if cfg.remat:
+            layer = remat(layer, cfg.remat_policy)
+        for p in unbound(stacked):
+            x = layer(p, x)
         top, _ = split_params(params)
-        return rmsnorm(x, top["final_norm.w"], self.cfg.norm_eps), \
+        return rmsnorm(x, top["final_norm.w"], cfg.norm_eps), \
             self._head(top)
 
     def forward(self, params: dict, batch: dict) -> torch.Tensor:
@@ -232,7 +251,10 @@ class DecoderLM(BaseModel):
                     mask: torch.Tensor | None) -> torch.Tensor:
         """Cross-entropy over ``logits_chunk`` chunks of the sequence, one
         (B, S/K, V) logits chunk at a time: a loop where JAX scans
-        (transformer.py:202-230), the same sums in the same order."""
+        (transformer.py:202-230), the same sums in the same order.  Under
+        ``cfg.remat`` each chunk's logits and loss run under ``remat``, as
+        the reference checkpoints each chunk (transformer.py:228-229), so
+        that one chunk's logits are live in the backward too."""
         cfg = self.cfg
         x, head = self._hidden(params, batch)
         B, S, _ = x.shape
@@ -241,13 +263,19 @@ class DecoderLM(BaseModel):
             raise ValueError(f"seq {S} not divisible by logits_chunk {K}")
         cs = S // K
         headc = head.to(x.dtype)
+
+        def chunk(xi, headc, ti, mi):
+            return lm_cross_entropy(xi @ headc, ti, onehot=cfg.ce_onehot,
+                                    mask=mi)
+
+        if cfg.remat:
+            chunk = remat(chunk)
         tot = cnt = torch.zeros((), dtype=torch.float32, device=x.device)
         for i in range(K):
             part = slice(i * cs, (i + 1) * cs)
             mi = (mask[:, part] if mask is not None else
                   torch.ones((B, cs), dtype=torch.float32, device=x.device))
-            nll = lm_cross_entropy(x[:, part] @ headc, targets[:, part],
-                                   onehot=cfg.ce_onehot, mask=mi)
+            nll = chunk(x[:, part], headc, targets[:, part], mi)
             tot = tot + nll * torch.clamp(mi.sum(), min=1.0)
             cnt = cnt + mi.sum()
         return tot / torch.clamp(cnt, min=1.0)

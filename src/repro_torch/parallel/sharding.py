@@ -124,7 +124,18 @@ def use_sharding(mesh, rules: dict[str, tuple[str, ...]] | None = None):
     port's own DTensor rules too (``_register_strategies``)."""
     if getattr(mesh, "mesh_dim_names", None) is not None:
         _register_strategies()
-    ctx = ShardingCtx(mesh=mesh, rules=dict(rules or LOGICAL_RULES))
+    with reentered(ShardingCtx(mesh=mesh, rules=dict(rules or
+                                                      LOGICAL_RULES))) as ctx:
+        yield ctx
+
+
+@contextlib.contextmanager
+def reentered(ctx: ShardingCtx | None):
+    """Install ``ctx``, a ``current_ctx()`` taken earlier, while open: code
+    run again on another thread sees the context its first run saw.  A
+    recomputed region (``models.layers.remat``) runs again in the backward,
+    on the autograd engine's device thread for CUDA tensors, where the
+    context variable is unset."""
     token = _CTX.set(ctx)
     try:
         yield ctx
@@ -353,7 +364,14 @@ class _OnLocalShards(torch.autograd.Function):
     the backward differentiates that graph and wraps each input's grad: a
     shard where the input is sharded, a ``Partial`` sum where it is
     replicated over a mesh dim that splits the work (each rank's grad
-    covers its own piece), replicated elsewhere."""
+    covers its own piece), replicated elsewhere.
+
+    The local graph rides on an empty tensor saved for the backward (its
+    ``local_graph`` attribute), so that a recomputed region
+    (``torch.utils.checkpoint``, the models' remat) drops it with the
+    region's other saved tensors and hands the backward the graph its
+    recompute recorded; the backward's own ``autograd.grad`` then finds
+    its saved tensors in place and recomputes nothing a second time."""
 
     @staticmethod
     def forward(ctx, fn, mesh, out_pls, split_dims, *xs):
@@ -373,7 +391,9 @@ class _OnLocalShards(torch.autograd.Function):
         outs = (outs,) if isinstance(outs, torch.Tensor) else tuple(outs)
         if any(need):
             ctx.mesh, ctx.out_pls, ctx.split = mesh, out_pls, split
-            ctx.ins, ctx.outs = ins, outs
+            graph = ins[0].new_empty(0)
+            graph.local_graph = ins, outs
+            ctx.save_for_backward(graph)
             ctx.grad_pls = [_grad_placements(x.placements, split_dims)
                             for x in xs]
         return tuple(DTensor.from_local(o.detach(), mesh, pls,
@@ -384,10 +404,11 @@ class _OnLocalShards(torch.autograd.Function):
     def backward(ctx, *grads):
         from torch.distributed.tensor import DTensor
 
+        ins, outs = ctx.saved_tensors[0].local_graph
         pairs = [(o, g.redistribute(ctx.mesh, pls).to_local())
-                 for o, g, pls in zip(ctx.outs, grads, ctx.out_pls)
+                 for o, g, pls in zip(outs, grads, ctx.out_pls)
                  if g is not None and o.requires_grad]
-        want = [x for x in ctx.ins if x.requires_grad]
+        want = [x for x in ins if x.requires_grad]
         token = _SPLIT.set(ctx.split)
         try:
             got = iter(torch.autograd.grad([o for o, _ in pairs], want,
@@ -396,7 +417,7 @@ class _OnLocalShards(torch.autograd.Function):
         finally:
             _SPLIT.reset(token)
         out = []
-        for x, pls in zip(ctx.ins, ctx.grad_pls):
+        for x, pls in zip(ins, ctx.grad_pls):
             g = next(got) if x.requires_grad else None
             # contiguous, as DTensor's local views in the backward need
             out.append(None if g is None else DTensor.from_local(

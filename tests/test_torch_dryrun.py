@@ -6,8 +6,10 @@ Every world here is torch's fake process group, started and destroyed by
 test.  FLOPs and bytes are integers and held exactly: the step counter's
 collective bytes and per-device FLOPs on hand-built DTensor ops, the world
 matmul FLOPs of the smoke llama3.2-1b against the closed form of its
-config, with no mesh and on a 2x2 (data, model) world, and the argument
-bytes of a smoke train cell against JAX's ``memory_analysis``.  The skip
+config, with no mesh and on a 2x2 (data, model) world, a train step's
+under each remat policy, and the argument bytes of a smoke train cell
+against JAX's ``memory_analysis``; the temp bytes against the closed form
+of a chain of products, and a train cell's falling under remat.  The skip
 list is the reference's, cell for cell.
 """
 import dataclasses
@@ -20,6 +22,9 @@ import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.multiprocessing.reductions import StorageWeakRef
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_leaves
 
 import repro.configs as jconfigs
 import repro.models as jmodels
@@ -233,14 +238,19 @@ def test_a_dtensor_on_the_card_raises_and_never_runs_plain(mesh2x2,
 
 # --------------------------------------------------------- the counted cells
 def _llama_smoke_flops(kind: str, B: int, S: int, data: int = 1,
-                       model: int = 1) -> int:
+                       model: int = 1, remat="nothing") -> int:
     """Matmul FLOPs of the smoke llama3.2-1b from its config: the layer
     weights on every token, dense attention over every key (4 B H S^2 hd
     a layer: scores and values), and the LM head (the last token alone in
     a prefill).  A train step's backward takes two matmuls a forward one:
-    3x the forward.  On a (data, model) mesh, one device's: the batch split
-    over ``data``, and the q and kv heads, the FFN's hidden dim and the
-    vocab over ``model`` (the smoke's 4 q and 2 kv heads divide 2)."""
+    3x the forward, and recomputes as ``remat`` (the policy, or False)
+    says: under ``"nothing"`` the layers' forward again but each layer's
+    last product (the FFN's down projection, 2 B S F M a layer, whose
+    output no backward reads), under ``"dots"`` the attention's products
+    with batch dims (4 B H S^2 hd a layer).  On a (data, model) mesh, one
+    device's: the batch split over ``data``, and the q and kv heads, the
+    FFN's hidden dim and the vocab over ``model`` (the smoke's 4 q and 2 kv
+    heads divide 2)."""
     cfg = tconfigs.get_smoke_config("llama3.2-1b")
     L, M, H, KV, hd, F = (cfg.n_layers, cfg.d_model, cfg.n_heads,
                           cfg.n_kv_heads, cfg.hd, cfg.d_ff)
@@ -254,19 +264,29 @@ def _llama_smoke_flops(kind: str, B: int, S: int, data: int = 1,
     fwd = 2 * layer_weights * B * S + 4 * B * H * S * S * hd * L
     if kind == "prefill":
         return fwd + 2 * B * M * V
-    return 3 * (fwd + 2 * B * S * M * V)
+    recompute = {"nothing": fwd - 2 * B * S * F * M * L,
+                 "dots": 4 * B * H * S * S * hd * L, False: 0}[remat]
+    return 3 * (fwd + 2 * B * S * M * V) + recompute
 
 
 @pytest.mark.parametrize("on_mesh", [False, True], ids=["no_mesh", "2x2"])
-@pytest.mark.parametrize("kind", ["prefill", "train", "decode"])
-def test_matmul_flops_equal_the_closed_form(kind, on_mesh):
+@pytest.mark.parametrize("kind,remat", [
+    ("prefill", "nothing"), ("train", "nothing"), ("decode", "nothing"),
+    ("train", "dots"), ("train", False)],
+    ids=["prefill", "train", "decode", "train-dots", "train-no_remat"])
+def test_matmul_flops_equal_the_closed_form(kind, remat, on_mesh):
     """The world's FLOPs are the closed form's on either; on the 2x2 mesh a
     device runs its own share of every matmul and of attention, heads and
     batch sharded (the norms and attention on local shards, counted into
-    the world's by the pieces the mesh splits them into)."""
+    the world's by the pieces the mesh splits them into, the recomputed
+    bodies as the first ones).  A train step recomputes as its remat
+    policy says (the default ``"nothing"``, ``"dots"``, or none)."""
     cfg = tconfigs.get_smoke_config("llama3.2-1b")
+    cfg = dataclasses.replace(cfg, remat=False) if remat is False else \
+        dataclasses.replace(cfg, remat_policy=remat)
     shape = SMALL[kind]
-    want = _llama_smoke_flops(kind, shape.global_batch, shape.seq_len)
+    want = _llama_smoke_flops(kind, shape.global_batch, shape.seq_len,
+                              remat=remat)
     if on_mesh:
         with fake_world(4):
             mesh = DeviceMesh("cpu", torch.arange(4).reshape(2, 2),
@@ -274,7 +294,8 @@ def test_matmul_flops_equal_the_closed_form(kind, on_mesh):
             got = dryrun.run_cell(cfg, shape, mesh)
         assert got["chips"] == 4 and got["collectives"]["count"] > 0
         assert got["matmul_flops_per_device"] == _llama_smoke_flops(
-            kind, shape.global_batch, shape.seq_len, data=2, model=2)
+            kind, shape.global_batch, shape.seq_len, data=2, model=2,
+            remat=remat)
     else:
         got = dryrun.run_cell(cfg, shape, None)
         assert got["matmul_flops_per_device"] == want
@@ -364,8 +385,98 @@ def test_argument_bytes_equal_jax_memory_analysis():
     assert got["argument_size_bytes"] == got["params_bytes"] + \
         got["opt_state_bytes"] + got["inputs_bytes"]
     assert got["opt_state_bytes"] == 2 * got["params_bytes"] + 4
-    assert got["temp_size_bytes"] is None and \
-        got["generated_code_size_bytes"] is None
+    assert isinstance(got["temp_size_bytes"], int) and \
+        got["temp_size_bytes"] > got["output_size_bytes"] > 0
+    assert got["generated_code_size_bytes"] is None
+
+
+def test_temp_bytes_of_a_chain_of_products():
+    """Three (8, 16) @ (16, 16) products in a chain on meta: without a
+    graph one product's input and output are live at a time (the chain's
+    input an argument, so the first product's output alone at first); with
+    one the first two outputs are saved for the backward and the third is
+    the result; with the backward inside, its peak is the second product's
+    backward: the first output (saved), the result, its grad, the grads of
+    the second output and of the first, and the last two weight grads."""
+    x = torch.empty(8, 16, device="meta")
+    ws = [torch.empty(16, 16, device="meta") for _ in range(3)]
+    act, wgrad = 8 * 16 * 4, 16 * 16 * 4
+
+    def chain(x, *ws):
+        for w in ws:
+            x = x @ w
+        return x
+
+    assert dryrun.temp_bytes(chain, x, *ws) == 2 * act
+    ws = [w.requires_grad_() for w in ws]
+    assert dryrun.temp_bytes(chain, x, *ws) == 3 * act
+
+    def grads(x, *ws):
+        out = chain(x, *ws)
+        return torch.autograd.grad(out, ws, torch.ones_like(out))
+
+    assert dryrun.temp_bytes(grads, x, *ws) == 5 * act + 2 * wgrad
+
+
+class _SweepEachOp(TorchDispatchMode):
+    """A reference for ``StepCounter``'s temp: after every op, the bytes of
+    the live storages that the ops made, the dead ones dropped at once."""
+
+    def __init__(self, args):
+        super().__init__()
+        self.args = {StorageWeakRef(t.untyped_storage())
+                     for t in tree_leaves(args)
+                     if isinstance(t, torch.Tensor)}
+        self.live, self.peak = {}, 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        for ref in [r for r in self.live if r.expired()]:
+            del self.live[ref]
+        for t in tree_leaves(out):
+            if isinstance(t, torch.Tensor):
+                ref = StorageWeakRef(t.untyped_storage())
+                if ref not in self.live and ref not in self.args:
+                    self.live[ref] = t.untyped_storage().nbytes()
+        self.peak = max(self.peak, sum(self.live.values()))
+        return out
+
+
+@pytest.mark.parametrize("changes", [{"remat": False}, {},
+                                     {"remat_policy": "dots"}],
+                         ids=["no_remat", "nothing", "dots"])
+def test_temp_bytes_equal_a_sweep_after_every_op(changes):
+    """``StepCounter`` sweeps the dead storages only where its sum would
+    pass the peak; its peak is the one of a sweep after every op, on the
+    smoke llama3.2-1b's train step."""
+    cfg = dataclasses.replace(tconfigs.get_smoke_config("llama3.2-1b"),
+                              **changes)
+    with use_sharding(None):
+        step, args, _ = dryrun.build_step_and_specs(cfg, SMALL["train"])
+        want = _SweepEachOp(args)
+        with want:
+            step(*args)
+        assert dryrun.temp_bytes(step, *args) == want.peak > 0
+
+
+@pytest.mark.parametrize("kind", ["no_mesh", "2x2"])
+def test_remat_lowers_a_train_cells_temp_bytes(kind):
+    """The smoke llama3.2-1b's train cell, with and without remat: the
+    recompute keeps a layer's activations out of the forward's saved
+    tensors, with no mesh and on the fake 2x2 world."""
+    cfg = tconfigs.get_smoke_config("llama3.2-1b")
+    temps = {}
+    for remat in (True, False):
+        c = dataclasses.replace(cfg, remat=remat)
+        if kind == "2x2":
+            with fake_world(4):
+                mesh = DeviceMesh("cpu", torch.arange(4).reshape(2, 2),
+                                  mesh_dim_names=("data", "model"))
+                got = dryrun.run_cell(c, SMALL["train"], mesh)
+        else:
+            got = dryrun.run_cell(c, SMALL["train"], None)
+        temps[remat] = got["memory"]["temp_size_bytes"]
+    assert 0 < temps[True] < temps[False]
 
 
 def test_state_bytes_are_the_params_and_their_moments():
@@ -400,6 +511,25 @@ def test_a_knob_the_port_does_not_read_is_refused(knob, capsys, tmp_path):
     assert not any(tmp_path.iterdir())
 
 
+@pytest.mark.parametrize("knob,value,remat", [
+    ("remat", "False", False), ("remat_policy", "dots", "dots")])
+def test_remat_knobs_are_taken(knob, value, remat, monkeypatch, tmp_path):
+    """``--set remat=False`` and ``--set remat_policy=dots`` reach the
+    model: a smoke train cell's FLOPs are the closed form's under each."""
+    smoke = tconfigs.get_smoke_config("llama3.2-1b")
+    monkeypatch.setattr(dryrun, "get_config", lambda arch: smoke)
+    monkeypatch.setitem(dryrun.SHAPES, "train_4k", SMALL["train"])
+    assert dryrun.main(["--arch", "llama3.2-1b", "--shape", "train_4k",
+                        "--single-pod", "--set", f"{knob}={value}",
+                        "--out", str(tmp_path)])["ok"] == 1
+    res = json.loads((tmp_path / "single_pod" /
+                      "llama3.2-1b__train_4k.json").read_text())
+    assert res["overrides"] == {knob: repr(remat)}
+    shape = SMALL["train"]
+    assert res["matmul_flops"] == _llama_smoke_flops(
+        "train", shape.global_batch, shape.seq_len, remat=remat)
+
+
 def test_main_writes_a_cell_resumes_and_recomputes_with_force(tmp_path,
                                                                capsys):
     """The full llama3.2-1b decode_32k cell on the 16x16 mesh: the one
@@ -415,8 +545,8 @@ def test_main_writes_a_cell_resumes_and_recomputes_with_force(tmp_path,
     assert res["decode_pos"] == 32767
     assert res["cost_detail"]["no_cost_accounting"] is True
     assert res["memory"]["argument_size_bytes"] > 0
-    for key in ("temp_size_bytes", "generated_code_size_bytes",
-                "alias_size_bytes"):
+    assert res["memory"]["temp_size_bytes"] > 0
+    for key in ("generated_code_size_bytes", "alias_size_bytes"):
         assert res["memory"][key] is None
     assert res["lower_s"] is None and res["compile_s"] is None
     assert set(dryrun.COLLECTIVES) < set(res["collectives"])

@@ -21,8 +21,10 @@ with 1 kv head (q heads sharded, the kv head whole on every model rank; the
 cache's slots shard over ``model``, so decode combines its softmax across
 them) and with 6 q over 3 kv heads (a rank's q heads span two kv heads);
 with one kv head too, serving only, mixtral's shifted and ring-buffer
-caches and hymba's caches, their slots sharded over ``model``; and
-hubert-xlarge's encode.
+caches and hymba's caches, their slots sharded over ``model``; llama3.2-1b
+and hymba-1.5b recomputing each layer in the train step's backward (remat,
+under ``"nothing"`` and for llama ``"dots"`` too; the other cases and JAX
+run without, which changes no value); and hubert-xlarge's encode.
 
 Every run takes fp32 activations (the port's ``ACT_DTYPE``, JAX's ``jnp``
 read with bfloat16 as float32, as tests/test_torch_train.py runs its fp32
@@ -69,6 +71,12 @@ CASES = {
     "llama-1kv": ("llama3.2-1b", {"n_kv_heads": 1}, 16, True),
     "llama-6q3kv": ("llama3.2-1b", {"n_heads": 6, "n_kv_heads": 3}, 16,
                     True),
+    # the train step recomputing each layer (remat): the norms' and
+    # attention's bodies on local shards run again in the backward
+    "llama-remat": ("llama3.2-1b", {"remat": True}, 16, True),
+    "llama-remat-dots": ("llama3.2-1b", {"remat": True,
+                                         "remat_policy": "dots"}, 16, True),
+    "hymba-remat": ("hymba-1.5b", {"remat": True}, 40, True),
     # one kv head: the rolling caches' slots shard over model
     "mixtral-1kv": ("mixtral-8x22b", {"n_kv_heads": 1}, 40, False),
     "mixtral-1kv-ring": ("mixtral-8x22b", {"n_kv_heads": 1,
@@ -93,9 +101,10 @@ def _fp32_activations():
 
 
 def _config(case: str):
+    """``case``'s smoke config, without remat unless the case asks."""
     arch, changes, *_ = CASES.get(case, (case, {}))
-    return dataclasses.replace(get_smoke_config(arch), remat=False,
-                               **changes)
+    return dataclasses.replace(get_smoke_config(arch),
+                               **{"remat": False, **changes})
 
 
 def _inputs(case: str) -> dict:
@@ -219,7 +228,7 @@ def _jax_model(case: str):
 
     arch, changes, *_ = CASES.get(case, (case, {}))
     jm = jax_get_model(dataclasses.replace(jax_smoke_config(arch),
-                                           remat=False, **changes))
+                                           **{**changes, "remat": False}))
     return jm, jm.init(jax.random.PRNGKey(0))
 
 

@@ -245,8 +245,11 @@ def _check_masked_moe_train_steps(launches, monkeypatch, arch):
         launches.clear()
         params, opt, m = step(params, opt, {
             **{k: torch.from_numpy(v) for k, v in b.items()}, "mask": mask})
-        assert dict(launches) == {"rmsnorm": 2 * layers + 1,
-                                  "flash_attention": layers}
+        # the forward's, and the backward's recompute of each layer (remat,
+        # the config's default)
+        assert cfg.remat
+        assert dict(launches) == {"rmsnorm": 4 * layers + 1,
+                                  "flash_attention": 2 * layers}
         jparams, jopt, jmet = jstep(jparams, jopt, {
             **{k: jnp.asarray(v) for k, v in b.items()},
             "mask": jnp.asarray(mask.numpy())})
@@ -310,11 +313,15 @@ def _check_train_step(launches, monkeypatch, arch, route, activations,
                 else:
                     assert _rel(got, ref[part][name]) <= 3e-2, name
     layers = model.cfg.n_layers
-    per_step = {"decoder": {"rmsnorm": 2 * layers + 1,
-                            "flash_attention": layers},
-                "ssm": {"rmsnorm": 2 * layers + 1},
-                "hybrid": {"rmsnorm": 4 * layers + 1,
-                           "flash_attention": layers}}
+    # a step's forward, and under remat (the configs' default) the
+    # backward's recompute of each layer: every norm but the final one and
+    # every attention again
+    again = 2 if model.cfg.remat else 1
+    per_step = {"decoder": {"rmsnorm": again * 2 * layers + 1,
+                            "flash_attention": again * layers},
+                "ssm": {"rmsnorm": again * 2 * layers + 1},
+                "hybrid": {"rmsnorm": again * 4 * layers + 1,
+                           "flash_attention": again * layers}}
     per_step["encoder"] = per_step["decoder"]
     assert dict(launches) == ({k: STEPS * n for k, n in per_step[
         model.cfg.family].items()} if route == "functions" else {})
