@@ -69,7 +69,17 @@ that run it, and drives every ported path at full size:
   grads against its twin's without remat and the dry run's temp bytes of
   the same call; the peaks again at 16 x 512 tokens, where the loss sets
   them; and the default, cut to 2 layers, against the plain versions of
-  the norm and attention (``phase_remat``).
+  the norm and attention (``phase_remat``);
+* slice 14: the sharded program's loss and norms.  The dry run adds
+  llama3.2-1b's 16x16 ``train_4k`` with ``--set ce_onehot=True`` (the
+  vocab-parallel cross-entropy: a device's temp and all-gather bytes both
+  under the default cell's, which gathers the fp32 logits as the
+  reference's default does); and the rmsnorm kernel's two entry points for
+  a row split across ranks, ``rmsnorm_sumsq`` and ``rmsnorm_scale``, are
+  held against their plain versions at mamba2-780m's gated norm in 2 and
+  16 column pieces, recombined against the whole-row kernel, and timed
+  (``check_split_norm``).  No card path splits a row (one card shards
+  nothing), so they launch in those checks alone.
 
 Besides, it holds the RMSNorm kernel against its plain version at every
 edge of its geometry (``check_rmsnorm_edges``), and the decoder's loss
@@ -233,7 +243,9 @@ DRYRUN_CELLS = {("single_pod", "train_4k"): "ok",
                 ("single_pod", "prefill_32k"): "ok",
                 ("single_pod", "decode_32k"): "ok",
                 ("single_pod", "long_500k"): "skip",
-                ("multi_pod", "decode_32k"): "ok"}
+                ("multi_pod", "decode_32k"): "ok",
+                # slice 14: the vocab-parallel loss (--set ce_onehot=True)
+                ("single_pod", "train_4k", "ce_onehot=True"): "ok"}
 DRYRUN_TIMEOUT_S = 600
 # slice 12: serve:model's prefill and decode steps and one train step of the
 # train path, with and without a one-rank NCCL mesh (the sharded program)
@@ -264,6 +276,11 @@ REMAT_LOSS_ORDER = (("off", "dots", True), ("dots", "nothing", False),
                     ("nothing", "nothing_chunk8", True))
 REMAT_GRAD_TOL = 1e-3   # relative Frobenius, each parameter against twin's
 REMAT_PLAIN_LAYERS, REMAT_PLAIN_TOL = 2, 3e-2
+# slice 14: the norm of a row split across ranks at mamba2-780m's gated norm
+# (4000 rows of d_inner 3072: serve:mamba2's prefill), in column pieces as
+# 2 and 16 model ranks hold them, each timed
+SPLIT_NORM_ARCH, SPLIT_NORM_ROWS, SPLIT_PIECES = "mamba2-780m", 4000, (2, 16)
+SPLIT_SUMSQ_RTOL = 1e-5   # fp32 sums of squares in another order
 # fleet: worker 5 (BIG) runs at 0.3 of its speed from the start, worker 2
 # (LITTLE) is killed 1 s in; the second DAG runs on the re-meshed fleet
 FLEET_SLOW, FLEET_SPEED, FLEET_KILLED, FLEET_KILL_AT = 5, 0.3, 2, 1.0
@@ -415,6 +432,9 @@ def phase_kernels() -> dict:
                                  f"torch.sort")
         cases += 1
     cases += check_sort_edges() + check_copy_edges() + check_rmsnorm_edges()
+    split_cases, split_err = check_split_norm()
+    cases += split_cases
+    main_err.update(split_err)
     main_err["sort_rows"] = 0.0
     # rmsnorm at test_kernels.py's sweep (w in x's dtype, eps 1e-6), then at
     # the model's shapes: bf16 x, fp32 w, eps 1e-5, all rows in one block
@@ -620,6 +640,83 @@ def check_rmsnorm_edges() -> int:
                      for dt in (torch.float32, torch.bfloat16)},
           "rows": rmsnorm.EDGE_ROWS, "max_abs_err": worst})
     return cases
+
+
+def bf16_ulps(got: torch.Tensor, want: torch.Tensor) -> float:
+    """The largest difference of bf16 ``got`` and ``want`` in bf16 steps
+    of the larger magnitude (2^-7 of its power of two)."""
+    g, w = got.float(), want.float()
+    ulp = torch.ldexp(torch.ones_like(w),
+                      torch.frexp(torch.maximum(g.abs(), w.abs()))[1] - 8)
+    return ((g - w).abs() / ulp).max().item()
+
+
+def split_norm_pieces(pieces: int, seed: int = 120) -> tuple:
+    """mamba2-780m's gated norm operands (bf16 x of SPLIT_NORM_ROWS rows of
+    d_inner, fp32 w, the config's eps) and their ``pieces`` column pieces,
+    each contiguous as a rank's local shard: (x, w, eps, x pieces, w
+    pieces)."""
+    cfg = get_config(SPLIT_NORM_ARCH)
+    x = tensor((SPLIT_NORM_ROWS, cfg.d_inner), torch.bfloat16, seed)
+    w = tensor((cfg.d_inner,), torch.float32, seed + 1)
+    return (x, w, cfg.norm_eps, [p.contiguous() for p in x.chunk(pieces, -1)],
+            [p.contiguous() for p in w.chunk(pieces)])
+
+
+def check_split_norm() -> tuple[int, dict]:
+    """The rmsnorm kernel's entry points for a row split across ranks at
+    mamba2-780m's gated norm, in each of SPLIT_PIECES column pieces: each
+    piece's ``rmsnorm_sumsq`` against ``plain_sumsq`` at fp32 rtol
+    SPLIT_SUMSQ_RTOL; the pieces' sums added in piece order, as an
+    all-reduce would; each piece's ``rmsnorm_scale`` on those totals
+    against ``plain_scale`` within one bf16 ulp; the pieces side by side
+    against the whole-row kernel within one bf16 ulp.  Each entry point
+    launches once a piece.  Emits one line; returns the cases and each
+    entry point's largest error."""
+    before = kernels.entry_launch_counts()
+    err = {name: 0.0 for name in kernels.ENTRY_POINTS}
+    ulps, cases = {}, 0
+    for pieces in SPLIT_PIECES:
+        x, w, eps, xs, ws = split_norm_pieces(pieces)
+        whole = rmsnorm.rmsnorm(x, w, eps=eps)
+        sums = [rmsnorm.sumsq(p) for p in xs]
+        for p, got in zip(xs, sums):
+            want = rmsnorm.plain_sumsq(p)
+            if not torch.allclose(got, want, rtol=SPLIT_SUMSQ_RTOL, atol=0):
+                rel = ((got - want) / want).abs().max().item()
+                raise AssertionError(f"rmsnorm_sumsq ({tuple(p.shape)}): max "
+                                     f"rel err {rel}")
+            err["rmsnorm_sumsq"] = max(err["rmsnorm_sumsq"],
+                                       (got - want).abs().max().item())
+            cases += 1
+        total = torch.stack(sums).sum(dim=0)
+        outs = [rmsnorm.scale(p, wp, total, x.shape[1], eps=eps)
+                for p, wp in zip(xs, ws)]
+        for p, wp, got in zip(xs, ws, outs):
+            want = rmsnorm.plain_scale(p, wp, total, x.shape[1], eps=eps)
+            if bf16_ulps(got, want) > 1:
+                raise AssertionError(f"rmsnorm_scale ({tuple(p.shape)}): "
+                                     f"{bf16_ulps(got, want)} bf16 ulps")
+            err["rmsnorm_scale"] = max(err["rmsnorm_scale"], (
+                got.float() - want.float()).abs().max().item())
+            cases += 1
+        ulps[pieces] = bf16_ulps(torch.cat(outs, dim=-1), whole)
+        if ulps[pieces] > 1:
+            raise AssertionError(f"split norm in {pieces} pieces: "
+                                 f"{ulps[pieces]} bf16 ulps from the whole "
+                                 f"row's kernel")
+        cases += 1
+    torch.cuda.synchronize()
+    launched = {k: n - before[k]
+                for k, n in kernels.entry_launch_counts().items()}
+    if launched != {k: sum(SPLIT_PIECES) for k in kernels.ENTRY_POINTS}:
+        raise AssertionError(f"split norm: launches {launched}")
+    emit({"phase": "split_norm", "arch": SPLIT_NORM_ARCH,
+          "shape": [SPLIT_NORM_ROWS, get_config(SPLIT_NORM_ARCH).d_inner],
+          "pieces": list(SPLIT_PIECES), "cases": cases, "launches": launched,
+          "max_abs_err": err, "sumsq_rtol": SPLIT_SUMSQ_RTOL,
+          "recombined_bf16_ulps_vs_whole_row": ulps})
+    return cases, err
 
 
 # dtype -> (rtol, atol) of flash_attention against its plain version.  fp32:
@@ -892,6 +989,8 @@ def phase_times() -> dict:
             qy.dtype, [list(qy.shape), list(kvy.shape)]),
         **{("rmsnorm", key): norm(rows, width) for key, (rows, width) in
            FAMILY_NORMS.items()},
+        **{(name, f"gated_norm/{pieces}"): split_norm_work(name, pieces)
+           for name in kernels.ENTRY_POINTS for pieces in SPLIT_PIECES},
     }
     times: dict = {}
     for (name, key), (kern, plain, lib, nbytes, nops, dtype, shape) in \
@@ -902,7 +1001,8 @@ def phase_times() -> dict:
         cold = bound_by == "bytes" and nbytes <= L2_BYTES
         t = {"kernel_ms": device_ms(kern, cold),
              "plain_ms": device_ms(plain, cold),
-             "library_ms": device_ms(lib, cold), "l2": "flushed" if cold
+             "library_ms": None if lib is None else device_ms(lib, cold),
+             "l2": "flushed" if cold
              else "warm", "bound_ms": bound_ms, "bound_by": bound_by}
         if (name, key) == ("matmul", "serve:gemv"):
             # the decode burst re-reads its weight at every step: warm
@@ -913,7 +1013,9 @@ def phase_times() -> dict:
                                  f"under its bound {t['bound_ms']} ms")
         times.setdefault(name, {})[key] = t
         extra = {"rmsnorm": {"library": "rms_norm (fp32 weight)"},
-                 "triad": {"library": "add(y, x, alpha=a)"}}.get(name, {})
+                 "triad": {"library": "add(y, x, alpha=a)"},
+                 "rmsnorm_sumsq": {"library": "x.float().square().sum(-1)"},
+                 "rmsnorm_scale": {"library": None}}.get(name, {})
         if name == "flash_attention":
             extra = {"library": "scaled_dot_product_attention" + (
                 " (window as a boolean mask)" if key in ("serve:mixtral",
@@ -922,6 +1024,30 @@ def phase_times() -> dict:
         emit({"phase": "time", "kernel": name, "at": key, "shape": shape,
               **t, **extra})
     return times
+
+
+def split_norm_work(name: str, pieces: int) -> tuple:
+    """phase_times's entry for the split norm's entry point ``name`` on one
+    rank's piece of mamba2-780m's gated norm in ``pieces`` column pieces:
+    (kernel, plain, library or None, bytes, operations, op dtype, shape).
+    rmsnorm_sumsq reads the piece and writes a float a row, two fp32
+    operations an element (square, add); rmsnorm_scale reads the piece, its
+    w and the rows' totals and writes the piece, two an element (x r, w).
+    No one PyTorch call scales by given totals: no library time."""
+    x, w, eps, xs, ws = split_norm_pieces(pieces, seed=130)
+    p, wp = xs[0], ws[0]
+    rows, d = p.shape
+    if name == "rmsnorm_sumsq":
+        return (lambda: rmsnorm.sumsq(p), lambda: rmsnorm.plain_sumsq(p),
+                lambda: p.float().square().sum(-1),
+                p.numel() * p.element_size() + 4 * rows, 2 * p.numel(),
+                torch.float32, [list(p.shape)])
+    total, d_full = rmsnorm.plain_sumsq(x), x.shape[1]
+    return (lambda: rmsnorm.scale(p, wp, total, d_full, eps=eps),
+            lambda: rmsnorm.plain_scale(p, wp, total, d_full, eps=eps), None,
+            2 * p.numel() * p.element_size() + 4 * (wp.numel() + rows),
+            2 * p.numel(), torch.float32, [list(p.shape), list(wp.shape),
+                                           [rows]])
 
 
 def check_ptt(label: str, records, cells, floor) -> tuple[list, list]:
@@ -979,7 +1105,8 @@ def phase_slice(times) -> dict:
     just before each policy's run and read just after it.  Returns path ->
     kernel -> launches."""
     floor_s = {KERNELS[name][2]: PTT_FLOOR * t["mixed_mode"]["kernel_ms"]
-               / 1e3 for name, t in times.items() if KERNELS[name][2]}
+               / 1e3 for name, t in times.items()
+               if name in KERNELS and KERNELS[name][2]}
     launches = {}
     for policy in mixed_mode.POLICIES:
         log = mixed_mode.ChunkLog()
@@ -3237,25 +3364,32 @@ def phase_dryrun() -> dict:
     env = {**os.environ, "PYTHONPATH": str(
         Path(__file__).resolve().parent / "src")}
     with tempfile.TemporaryDirectory() as out:
+        # a cell with --set writes under a directory of its own: its JSON
+        # has the default cell's name
+        dirs = {cell: Path(out) / ("_".join(cell[2:]) or "default")
+                for cell in DRYRUN_CELLS}
         runs = {cell: subprocess.Popen(
             [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
              ARCH, "--shape", cell[1], "--" + cell[0].replace("_", "-"),
-             "--out", out], env=env, stdout=subprocess.PIPE,
-            stderr=subprocess.PIPE, text=True) for cell in DRYRUN_CELLS}
+             "--out", str(dirs[cell]),
+             *(a for kv in cell[2:] for a in ("--set", kv))], env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            for cell in DRYRUN_CELLS}
         cells = {}
         try:
-            for (mesh, shape), run in runs.items():
+            for cell, run in runs.items():
+                mesh, shape = cell[:2]
                 stdout, stderr = run.communicate(timeout=DRYRUN_TIMEOUT_S)
                 if run.returncode != 0 or \
                         "cuda_initialized=False" not in stdout:
                     raise AssertionError(
-                        f"dryrun: {mesh} {shape} exited {run.returncode}: "
+                        f"dryrun: {cell} exited {run.returncode}: "
                         f"{stdout[-2000:]} {stderr[-2000:]}")
-                res = json.loads((Path(out) / mesh / f"{ARCH}__{shape}.json"
+                res = json.loads((dirs[cell] / mesh / f"{ARCH}__{shape}.json"
                                   ).read_text())
-                if res["status"] != DRYRUN_CELLS[(mesh, shape)]:
-                    raise AssertionError(f"dryrun: {mesh} {shape}: {res}")
-                cells[f"{mesh}:{shape}"] = res
+                if res["status"] != DRYRUN_CELLS[cell]:
+                    raise AssertionError(f"dryrun: {cell}: {res}")
+                cells[":".join(cell)] = res
         finally:
             for run in runs.values():
                 if run.poll() is None:
@@ -3269,8 +3403,26 @@ def phase_dryrun() -> dict:
     if got != want:
         raise AssertionError(f"dryrun: prefill_32k matmul FLOPs {got}, the "
                              f"closed form {want}")
+    # the vocab-parallel loss against the reference's default gather: a
+    # device's temp and all-gather bytes both lower
+    loss = {flag: {"temp_size_bytes": r["memory"]["temp_size_bytes"],
+                   "all_gather_bytes": r["collectives"]["all-gather"],
+                   "all_reduce_bytes": r["collectives"]["all-reduce"]}
+            for flag, r in (("ce_onehot=False",
+                             cells["single_pod:train_4k"]),
+                            ("ce_onehot=True",
+                             cells["single_pod:train_4k:ce_onehot=True"]))}
+    off, on = loss["ce_onehot=False"], loss["ce_onehot=True"]
+    if not (on["temp_size_bytes"] < off["temp_size_bytes"] and
+            on["all_gather_bytes"] < off["all_gather_bytes"]):
+        raise AssertionError(f"dryrun: train_4k under ce_onehot {loss}")
+    print(f"dryrun train_4k a device: temp {off['temp_size_bytes']} B, "
+          f"all-gather {off['all_gather_bytes']} B (ce_onehot=False); temp "
+          f"{on['temp_size_bytes']} B, all-gather {on['all_gather_bytes']} B "
+          f"(ce_onehot=True)", flush=True)
     emit({"phase": "dryrun", "path": DRYRUN_PATH, "arch": ARCH,
           "prefill_closed_form_flops": want, "cuda_initialized": False,
+          "train_4k_loss": loss,
           "cells": {k: {f: r.get(f) for f in (
               "status", "reason", "chips", "matmul_flops",
               "matmul_flops_per_device", "collectives", "trace_s",
@@ -3337,6 +3489,41 @@ def phase_examples() -> dict:
     return launched
 
 
+def entry_totals() -> dict:
+    """entry point -> its launches since the script started (the phases
+    reset the counts, not the totals)."""
+    return {name: counter.total
+            for name, (_, counter) in kernels.ENTRY_POINTS.items()}
+
+
+def entry_points(kernel: str, checked: dict, main_err: dict,
+                 times: dict) -> list:
+    """The kernels line's entries of ``kernel``'s entry points: launches
+    on the paths (those after the checks and times, ``checked`` their
+    totals), their error and times at the split norm's shapes (the
+    2-piece numbers on top)."""
+    out, totals = [], entry_totals()
+    for name, (owner, _) in kernels.ENTRY_POINTS.items():
+        if owner != kernel:
+            continue
+        main_t = times[name][f"gated_norm/{SPLIT_PIECES[0]}"]
+        out.append({
+            "name": name, "route": "cuda", "source": KERNELS[kernel][0],
+            "replaces": KERNELS[kernel][1],
+            "launches": totals[name] - checked[name],
+            "caller": "models.layers.rmsnorm on a row split across ranks "
+                      "(no card path: one card splits no row)",
+            "launches_checked_and_timed": checked[name],
+            "max_abs_err": main_err[name],
+            "ms": main_t["kernel_ms"], "plain_ms": main_t["plain_ms"],
+            "bound_ms": main_t["bound_ms"], "bound_by": main_t["bound_by"],
+            "library_ms": main_t["library_ms"],
+            "times_by_shape": {key: {k: t[k] for k in (
+                "kernel_ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms", "l2")} for key, t in times[name].items()}})
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device")
@@ -3346,6 +3533,7 @@ def main() -> None:
     phase_card()
     main_err = phase_kernels()
     times = phase_times()
+    checked = entry_totals()
     check_slice_outputs()
     launches = phase_slice(times)
     launches[MODEL_PATH], ref_rms = phase_model()
@@ -3388,7 +3576,9 @@ def main() -> None:
             "library_ms": main_t["library_ms"],
             "times_by_shape": {key: {k: t[k] for k in (
                 "kernel_ms", "plain_ms", "bound_ms", "bound_by",
-                "library_ms", "l2")} for key, t in times[name].items()}})
+                "library_ms", "l2")} for key, t in times[name].items()},
+            "entry_points": entry_points(name, checked, main_err,
+                                         times)})
     emit({"phase": "wall", "seconds": time.perf_counter() - t0})
     emit({"kernels": entries})
     emit({"ok": True, "device": {"platform": "gpu",

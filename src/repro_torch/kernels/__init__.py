@@ -9,6 +9,10 @@ KERNELS = {"matmul": matmul.launches, "copy": copy_stream.launches,
            "sort_rows": sort_bitonic.launches,
            "rmsnorm": rmsnorm.launches,
            "flash_attention": flash_attention.launches}
+# entry point -> (the kernel of ``KERNELS`` it belongs to, its launch
+# counter): the two halves of a norm over a row split across ranks
+ENTRY_POINTS = {"rmsnorm_sumsq": ("rmsnorm", rmsnorm.sumsq_launches),
+                "rmsnorm_scale": ("rmsnorm", rmsnorm.scale_launches)}
 
 
 def launch_counts() -> dict[str, int]:
@@ -16,6 +20,15 @@ def launch_counts() -> dict[str, int]:
     return {name: counter.count for name, counter in KERNELS.items()}
 
 
+def entry_launch_counts() -> dict[str, int]:
+    """Launches of each entry point of ``ENTRY_POINTS`` since its counter
+    was last reset."""
+    return {name: counter.count for name, (_, counter)
+            in ENTRY_POINTS.items()}
+
+
 def reset_launch_counts() -> None:
-    for counter in KERNELS.values():
+    """Every counter of ``KERNELS`` and ``ENTRY_POINTS`` to 0."""
+    for counter in (*KERNELS.values(),
+                    *(c for _, c in ENTRY_POINTS.values())):
         counter.reset()

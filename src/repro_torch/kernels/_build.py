@@ -51,6 +51,11 @@ SIGNATURES = {
                               _I, _I, _I, _F, _I, _P),
     # x, w, out, rows, d, x_dtype, w_dtype, eps, device, stream
     "repro_rmsnorm": (_P, _P, _P, _I, _I, _I, _I, _F, _I, _P),
+    # x, out, rows, d, x_dtype, device, stream
+    "repro_rmsnorm_sumsq": (_P, _P, _I, _I, _I, _I, _P),
+    # x, w, total, out, rows, d, d_full, x_dtype, w_dtype, eps, device,
+    # stream
+    "repro_rmsnorm_scale": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P),
 }
 
 _lock = threading.Lock()
@@ -60,16 +65,19 @@ build_log = ""                      # nvcc's output (ptxas register counts)
 
 
 class LaunchCounter:
-    """Launches of one kernel: a plain integer ``count``.  Worker threads
-    launch at once, so the increment takes a lock."""
+    """Launches of one kernel: a plain integer ``count`` since the last
+    ``reset``, and ``total`` since the process started, which no reset
+    clears.  Worker threads launch at once, so the increment takes a
+    lock."""
 
     def __init__(self) -> None:
-        self.count = 0
+        self.count = self.total = 0
         self._lock = threading.Lock()
 
     def add(self) -> None:
         with self._lock:
             self.count += 1
+            self.total += 1
 
     def reset(self) -> None:
         with self._lock:

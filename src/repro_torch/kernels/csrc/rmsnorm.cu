@@ -222,6 +222,118 @@ cudaError_t launch(const void* x, const void* w, void* out, int rows, int d,
   return cudaErrorInvalidValue;
 }
 
+// ---------------------------------------------------------------------------
+// The two halves of a norm whose row is split across ranks (the model's
+// partial-sum path): each rank's sum of squares over its own columns, an
+// all-reduce of those (rows,) fp32 sums outside, then the scale of its own
+// columns by the whole row's r.  A row is owned by one warp, which loops
+// over its 16-byte vectors kUnroll at a time (every load of a round before
+// the first use), 8 rows a block.  Both are bytes-bound, like the whole-row
+// kernel: sumsq reads x once and writes 4 bytes a row; scale reads x, w and
+// the totals once and writes the row once.  sumsq reads x through L2 with
+// the default policy (the scale reads it again right after); the scale's x
+// and out take the streaming hint, w the evict-last policy.
+
+constexpr int kUnroll = 4;  // vectors a lane has in flight
+
+template <typename TX>
+__global__ void __launch_bounds__(kMaxThreads)
+rmsnorm_sumsq_rows(const TX* __restrict__ x, float* __restrict__ out,
+                   int rows, int d) {
+  constexpr int N = Vec<TX>::n;
+  const int n_vec = d / N;
+  const int lane = threadIdx.x % 32;
+  const int row = blockIdx.x * (blockDim.x / 32) + threadIdx.x / 32;
+  if (row >= rows) return;
+  const uint4* xr = reinterpret_cast<const uint4*>(x + (int64_t)row * d);
+  float ss = 0.f;
+  for (int i0 = lane; i0 < n_vec; i0 += 32 * kUnroll) {
+    uint4 xc[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u)
+      if (i0 + 32 * u < n_vec) xc[u] = xr[i0 + 32 * u];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      if (i0 + 32 * u < n_vec) {
+        float f[N];
+        to_float(xc[u], f, TX());
+#pragma unroll
+        for (int k = 0; k < N; ++k) ss = fmaf(f[k], f[k], ss);
+      }
+    }
+  }
+  ss = warp_sum(ss);
+  if (lane == 0) out[row] = ss;
+}
+
+template <typename TX, typename TW>
+__global__ void __launch_bounds__(kMaxThreads)
+rmsnorm_scale_rows(const TX* __restrict__ x, const TW* __restrict__ w,
+                   const float* __restrict__ total, TX* __restrict__ out,
+                   int rows, int d, int d_full, float eps) {
+  constexpr int N = Vec<TX>::n;
+  constexpr int WV = N / Vec<TW>::n;  // w vectors under one x vector
+  const int n_vec = d / N;
+  const int lane = threadIdx.x % 32;
+  const int row = blockIdx.x * (blockDim.x / 32) + threadIdx.x / 32;
+  if (row >= rows) return;
+  // the whole-row kernel's arithmetic: rsqrt(sum / d + eps), (x * r) * w
+  const float r = rsqrtf(total[row] / (float)d_full + eps);
+  const uint4* wv = reinterpret_cast<const uint4*>(w);
+  const uint4* xr = reinterpret_cast<const uint4*>(x + (int64_t)row * d);
+  uint4* orow = reinterpret_cast<uint4*>(out + (int64_t)row * d);
+  const uint64_t policy = evict_last_policy();
+  for (int i0 = lane; i0 < n_vec; i0 += 32 * kUnroll) {
+    uint4 xc[kUnroll], wc[kUnroll][WV];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int i = i0 + 32 * u;
+      if (i < n_vec) {
+#pragma unroll
+        for (int c = 0; c < WV; ++c) wc[u][c] = load_evict_last(wv + i * WV + c, policy);
+        xc[u] = __ldcs(xr + i);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int i = i0 + 32 * u;
+      if (i < n_vec) {
+        float f[N], wf[N];
+        to_float(xc[u], f, TX());
+#pragma unroll
+        for (int c = 0; c < WV; ++c) to_float(wc[u][c], wf + c * (N / WV), TW());
+#pragma unroll
+        for (int k = 0; k < N; ++k) f[k] = (f[k] * r) * wf[k];
+        __stcs(orow + i, from_float(f, TX()));
+      }
+    }
+  }
+}
+
+constexpr int kRowsPerBlock = kMaxThreads / 32;  // a warp a row
+
+template <typename TX>
+cudaError_t launch_sumsq(const void* x, void* out, int rows, int d,
+                         cudaStream_t s) {
+  if (d <= 0 || d % Vec<TX>::n) return cudaErrorInvalidValue;
+  const int blocks = (rows + kRowsPerBlock - 1) / kRowsPerBlock;
+  rmsnorm_sumsq_rows<TX><<<blocks, kMaxThreads, 0, s>>>(
+      (const TX*)x, (float*)out, rows, d);
+  return cudaGetLastError();
+}
+
+template <typename TX, typename TW>
+cudaError_t launch_scale(const void* x, const void* w, const void* total,
+                         void* out, int rows, int d, int d_full, float eps,
+                         cudaStream_t s) {
+  if (d <= 0 || d % Vec<TX>::n || d_full < d) return cudaErrorInvalidValue;
+  const int blocks = (rows + kRowsPerBlock - 1) / kRowsPerBlock;
+  rmsnorm_scale_rows<TX, TW><<<blocks, kMaxThreads, 0, s>>>(
+      (const TX*)x, (const TW*)w, (const float*)total, (TX*)out, rows, d,
+      d_full, eps);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // dtype codes: 0 float32, 1 bfloat16.  Pairs (x, w): (0, 0), (1, 1), (1, 0).
@@ -238,5 +350,42 @@ extern "C" int repro_rmsnorm(const void* x, const void* w, void* out,
     return (int)launch<bf16, bf16>(x, w, out, rows, d, eps, device, s);
   if (x_dtype == 1 && w_dtype == 0)
     return (int)launch<bf16, float>(x, w, out, rows, d, eps, device, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// out (rows,) fp32: the sum of squares of each row of x (rows, d), fp32 or
+// bf16, over its d local columns.
+extern "C" int repro_rmsnorm_sumsq(const void* x, void* out, int rows, int d,
+                                   int x_dtype, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (rows <= 0) return (int)cudaGetLastError();
+  cudaStream_t s = (cudaStream_t)stream;
+  if (x_dtype == 0) return (int)launch_sumsq<float>(x, out, rows, d, s);
+  if (x_dtype == 1) return (int)launch_sumsq<bf16>(x, out, rows, d, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// out (rows, d) in x's dtype: x * rsqrt(total / d_full + eps) * w in fp32,
+// x (rows, d) a row's local columns, w (d,) their weights, total (rows,)
+// fp32 each whole row's sum of squares over its d_full columns.
+extern "C" int repro_rmsnorm_scale(const void* x, const void* w,
+                                   const void* total, void* out, int rows,
+                                   int d, int d_full, int x_dtype,
+                                   int w_dtype, float eps, int device,
+                                   void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (rows <= 0) return (int)cudaGetLastError();
+  cudaStream_t s = (cudaStream_t)stream;
+  if (x_dtype == 0 && w_dtype == 0)
+    return (int)launch_scale<float, float>(x, w, total, out, rows, d, d_full,
+                                           eps, s);
+  if (x_dtype == 1 && w_dtype == 1)
+    return (int)launch_scale<bf16, bf16>(x, w, total, out, rows, d, d_full,
+                                         eps, s);
+  if (x_dtype == 1 && w_dtype == 0)
+    return (int)launch_scale<bf16, float>(x, w, total, out, rows, d, d_full,
+                                          eps, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -14,6 +14,11 @@ launch raises.  The shape checks of the TPU kernels (tiling, ``block_rows``,
 power-of-two rows) hold on every path but ``"ref"``, as they do for the
 Pallas path of the JAX ops, so the CPU raises what the card would.
 
+``rmsnorm_sumsq`` and ``rmsnorm_scale`` are the two halves of ``rmsnorm``
+where a row is split across ranks (``models.layers.rmsnorm`` under a mesh);
+they are entry points of the rmsnorm kernel, not kernels of their own, so
+the registry below, the twin of the JAX package's, leaves them out.
+
 Implementation registry
 -----------------------
 :func:`available_impls` enumerates the interchangeable implementations
@@ -123,6 +128,30 @@ def rmsnorm(x, w, *, eps=1e-6, block_rows=256, force=None):
     if _records(x, w):
         return _rmsnorm.RMSNormFunction.apply(x, w, eps)
     return _rmsnorm.rmsnorm(x, w, eps=eps)
+
+
+def rmsnorm_sumsq(x, *, force=None):
+    """Each row's fp32 sum of squares over the last dim of ``x`` (rows,
+    d): the first half of a norm whose row is split across ranks."""
+    kernel = _use_kernel(x, force)
+    return _rmsnorm.sumsq(x) if kernel else _rmsnorm.plain_sumsq(x)
+
+
+def rmsnorm_scale(x, w, total, *, d_full, eps=1e-6, force=None):
+    """``x * rsqrt(total / d_full + eps) * w`` on x (rows, d) and w (d,),
+    ``total`` (rows,) each whole row's sum of squares over its ``d_full``
+    columns: the second half of a norm whose row is split across ranks."""
+    kernel = _use_kernel(x, force)
+    if force != "ref":
+        if w.shape != (x.shape[-1],):
+            raise ValueError(f"weight shape {tuple(w.shape)} != "
+                             f"({x.shape[-1]},)")
+        if total.shape != x.shape[:-1]:
+            raise ValueError(f"total shape {tuple(total.shape)} != "
+                             f"{tuple(x.shape[:-1])}")
+    if not kernel:
+        return _rmsnorm.plain_scale(x, w, total, d_full, eps=eps)
+    return _rmsnorm.scale(x, w, total, d_full, eps=eps)
 
 
 def flash_attention(q, k, v, *, causal=True, window=None, bq=256, bk=256,

@@ -61,10 +61,11 @@ What is counted, and how it differs from the reference's numbers:
 A decode cell's cache is at ``configs.decode_pos``, which the JSON records:
 the port's decode reads ``pos`` on the host.  Knobs of the reference's
 compiler (``NO_EFFECT``) change nothing in the port's eager models, so
-``--set`` refuses them.  So is ``ce_onehot`` on a mesh (``MESH_NO_EFFECT``):
-there the loss takes the one-hot gold logit whatever it says
-(``losses.lm_cross_entropy``), where the reference's default counts a
-gather.
+``--set`` refuses them.  ``ce_onehot`` means on a mesh what it means in the
+reference (``losses.lm_cross_entropy``): ``False``, the default, counts the
+all-gather of a device's fp32 logits over the vocab, as XLA lowers the
+reference's gather; ``True`` counts three all-reduces of (B, S) fp32 values
+and no gather of the logits.
 
 Results are written incrementally to ``<out>/<mesh>/<arch>__<shape>.json``
 so that an interrupted sweep resumes where it left off.
@@ -106,9 +107,6 @@ MESHES = {"single_pod": False, "multi_pod": True}  # name -> multi_pod
 # layer scan, its q-chunked and block-skipping attention
 NO_EFFECT = ("scan_layers", "attn_chunk", "dense_attn_max_seq",
              "swa_block_skip")
-# knobs that no model of the port reads on a mesh: on DTensor logits the
-# cross-entropy's gold logit is the one-hot masked sum whatever ce_onehot
-MESH_NO_EFFECT = ("ce_onehot",)
 # serve-time weight layout of decode_no_fsdp cells (dryrun.py:215-225):
 # contracting dims stay local, hidden dims absorb every mesh axis
 DECODE_NO_FSDP_RULES = {"embed": (), "ff": ("model", "data"),
@@ -128,11 +126,13 @@ COST_NOTE = (
     "every product of a layer but its last (whose output no backward "
     "reads), under 'dots' the products with batch dims. Eager code runs "
     "every layer, so the reference's 0/1-layer "
-    "accounting (an XLA scan quirk) is dropped. On a mesh the loss's gold "
-    "logit is always the one-hot masked sum over each vocab shard plus an "
-    "all-reduce of (B, S) values (DTensor has no rule for a gather along "
-    "the sharded vocab), where the reference's default ce_onehot=False "
-    "counts a gather.")
+    "accounting (an XLA scan quirk) is dropped. On a mesh the loss runs "
+    "the reference's program for its ce_onehot: False all-gathers the fp32 "
+    "logits over the vocab and takes the gold logit from whole rows; True "
+    "reduces each rank's vocab shard and all-reduces (B, S) fp32 values "
+    "(the max, the sum of exponentials, the gold logit), gathering no "
+    "logits. A norm whose row the mesh splits all-reduces (B, S) sums of "
+    "squares, and one more in its backward.")
 MEMORY_NOTE = (
     "per-device bytes of the local shards. temp: the peak over the step of "
     "the bytes in storages the step's ops made (saved activations, "
@@ -358,10 +358,9 @@ def state_bytes(cfg) -> dict:
             "opt_state": _nbytes(abstract_opt_state(aparams))}
 
 
-def apply_overrides(cfg, overrides: dict | None, *, meshed: bool = True):
-    """``cfg`` with ``--set`` overrides; a knob in ``NO_EFFECT``, or in
-    ``MESH_NO_EFFECT`` where the cell runs on a mesh (``meshed``), is
-    refused with its name."""
+def apply_overrides(cfg, overrides: dict | None):
+    """``cfg`` with ``--set`` overrides; a knob in ``NO_EFFECT`` is refused
+    with its name."""
     if not overrides:
         return cfg
     bad = sorted(k for k in overrides if k in NO_EFFECT)
@@ -369,12 +368,6 @@ def apply_overrides(cfg, overrides: dict | None, *, meshed: bool = True):
         raise ValueError(f"--set {', '.join(bad)}: no model of the port "
                          f"reads it (no scan or chunked attention in eager "
                          f"code), so it would change nothing")
-    bad = sorted(k for k in overrides if meshed and k in MESH_NO_EFFECT)
-    if bad:
-        raise ValueError(f"--set {', '.join(bad)}: no model of the port "
-                         f"reads it on a mesh (the loss takes the one-hot "
-                         f"gold logit on DTensor logits), so it would "
-                         f"change nothing")
     return dataclasses.replace(cfg, **overrides)
 
 
@@ -426,8 +419,7 @@ def dryrun_cell(arch: str, shape_name: str, mesh, *,
                 overrides: dict | None = None) -> dict:
     """One cell's record (``run_cell``'s, or the skip and its reason);
     ``mesh`` None runs it on one device."""
-    cfg = apply_overrides(get_config(arch), overrides,
-                          meshed=mesh is not None)
+    cfg = apply_overrides(get_config(arch), overrides)
     shape = SHAPES[shape_name]
     reason = cell_skip_reason(cfg, shape)
     if reason is not None:
@@ -469,7 +461,7 @@ def main(argv: list[str] | None = None) -> dict:
     ap.add_argument("--set", action="append", default=[], metavar="K=V",
                     help="ModelConfig override, e.g. --set "
                          "decode_no_fsdp=True (repeatable); the knobs in "
-                         "NO_EFFECT and MESH_NO_EFFECT are refused")
+                         "NO_EFFECT are refused")
     ap.add_argument("--out", default="experiments/dryrun_torch")
     args = ap.parse_args(argv)
 

@@ -20,7 +20,9 @@ the decode attention run their bodies on each rank's local shards
 (``parallel.sharding.on_local_shards``): the kernels on the card, the plain
 versions off it.  Attention keeps q's heads sharded as ``act_heads``
 resolves, as the reference's layer does under GSPMD; the decode attention
-reads each rank's shard of the cache where it lies.
+reads each rank's shard of the cache where it lies; a norm whose row the
+mesh splits all-reduces the pieces' sums of squares, the rmsnorm kernel's
+two split entry points on either side (``_split_rmsnorm``).
 """
 from __future__ import annotations
 
@@ -36,10 +38,11 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from ..kernels import ops
-from ..parallel.sharding import (constrain, current_ctx, is_shard,
-                                 is_sharded, logical_spec, on_local_shards,
-                                 placements, reentered, replicate_as,
-                                 shard_bounds)
+from ..kernels._build import wide
+from ..parallel.sharding import (all_reduce_over, constrain, current_ctx,
+                                 is_shard, is_sharded, logical_spec,
+                                 on_local_shards, placements, reentered,
+                                 replicate_as, shard_bounds)
 
 NEG_INF = -1e30
 # the products with no batch dims: ``x @ w`` with a 2-D ``w`` lowers to one
@@ -137,16 +140,20 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
     ``block_rows=rows`` keeps the Pallas path's tiling check satisfiable at a
     decode step's 1-4 rows (the JAX models never called the Pallas kernel,
     so there is no reference tiling).  Under a mesh each rank normalises
-    the rows of its own shard (``on_local_shards``): the rows keep their
-    sharding, and a normalised dim that is sharded (a branch output over
-    its heads, mamba2's gated norm over ``ff``) and the weight are gathered
-    first."""
+    the rows of its own shard (``on_local_shards``), and the rows keep
+    their sharding.  Where the normalised dim is sharded too (a branch
+    output over its heads, mamba2's gated norm over ``ff``), each rank
+    takes its own columns and ``w``'s, and the row is never gathered:
+    ``_split_rmsnorm``."""
     if is_sharded(x):
         from torch.distributed.tensor import Replicate
 
         last = x.ndim - 1
-        pls = [p if is_shard(p) and p.dim != last else Replicate()
-               for p in x.placements]
+        pls = [p if is_shard(p) else Replicate() for p in x.placements]
+        row_dims = [m for m, p in enumerate(pls) if is_shard(p)
+                    and p.dim == last]
+        if row_dims:
+            return _split_rmsnorm(x, w, eps, pls, row_dims)
         rep = [Replicate()] * x.device_mesh.ndim
         return on_local_shards(lambda xl, wl: _rmsnorm_rows(xl, wl, eps),
                                [(x, pls), (replicate_as(w, x), rep)],
@@ -160,6 +167,77 @@ def _rmsnorm_rows(x: torch.Tensor, w: torch.Tensor, eps: float
     x2 = x.reshape(-1, d)
     out = ops.rmsnorm(x2, w, eps=eps, block_rows=max(1, x2.shape[0]))
     return out.reshape(x.shape)
+
+
+def _split_rmsnorm(x, w, eps, pls, row_dims):
+    """The norm of DTensor rows whose last dim the mesh dims ``row_dims``
+    split, as GSPMD runs the reference's jnp norm on them: on each rank the
+    sum of squares of its own columns (``ops.rmsnorm_sumsq``), an
+    all-reduce of those (rows,) fp32 sums over ``row_dims``, and the scale
+    of its own columns by its own piece of ``w`` (``ops.rmsnorm_scale``);
+    the backward takes one more (rows,) all-reduce (``_SplitRMSNorm``).
+    ``w`` is laid out as x's last dim, a chunk of each rank's own."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    mesh, d_full = x.device_mesh, x.shape[-1]
+    # w's one dim split as x's last: the same placement type on each mesh
+    # dim of row_dims (a _StridedShard keeps its split factor)
+    wpls = [Replicate() if m not in row_dims else Shard(0)
+            if type(p) is Shard else type(p)(0, split_factor=p.split_factor)
+            for m, p in enumerate(pls)]
+
+    def all_reduce(t):
+        return all_reduce_over(t, "sum", mesh, row_dims)
+
+    def body(xl, wl):
+        x2 = xl.reshape(-1, xl.shape[-1]).contiguous()
+        if torch.is_grad_enabled() and (x2.requires_grad or wl.requires_grad):
+            out = _SplitRMSNorm.apply(x2, wl, eps, d_full, all_reduce)
+        else:
+            out = _split_rows(x2, wl, eps, d_full, all_reduce)[0]
+        return out.reshape(xl.shape)
+
+    return on_local_shards(body, [(x, pls), (replicate_as(w, x), wpls)],
+                           [pls])[0]
+
+
+def _split_rows(x, w, eps, d_full, all_reduce):
+    """(out, totals) of rows ``x`` (rows, d) whose columns are a piece of
+    rows of ``d_full``: the pieces' sums of squares all-reduced."""
+    total = all_reduce(ops.rmsnorm_sumsq(x))
+    return ops.rmsnorm_scale(x, w, total, d_full=d_full, eps=eps), total
+
+
+class _SplitRMSNorm(torch.autograd.Function):
+    """``_split_rows`` forward; backward in fp32 by the whole-row norm's
+    closed form (``kernels.rmsnorm.RMSNormFunction``), its row sums over
+    the pieces: r = rsqrt(total / d_full + eps) from the forward's totals,
+    the all-reduce of each piece's sum(x w g), and
+        dx = r (w g) - x r^3 sum(x w g) / d_full,
+        dw = sum over rows of g x r,
+    dw for the piece's own columns (a partial sum over the rows, which
+    ``on_local_shards`` reduces where the rows are sharded)."""
+
+    @staticmethod
+    def forward(ctx, x, w, eps, d_full, all_reduce):
+        out, total = _split_rows(x, w, eps, d_full, all_reduce)
+        ctx.save_for_backward(x, w, total)
+        ctx.eps, ctx.d_full, ctx.all_reduce = eps, d_full, all_reduce
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w, total = ctx.saved_tensors
+        xf, wf, gf = wide(x), wide(w), wide(g)
+        r = torch.rsqrt(wide(total) / ctx.d_full + ctx.eps)[:, None]
+        wg = wf * gf
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dot = ctx.all_reduce((xf * wg).sum(dim=-1))[:, None]
+            dx = (r * wg - xf * r ** 3 * dot / ctx.d_full).to(x.dtype)
+        if ctx.needs_input_grad[1]:
+            dw = (gf * xf * r).sum(dim=0).to(w.dtype)
+        return dx, dw, None, None, None
 
 
 def embed(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
@@ -339,7 +417,6 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     softmax over a sharded dim."""
     if not is_sharded(k_cache):
         return _decode_local(q, k_cache, v_cache, valid_mask)
-    from torch.distributed import _functional_collectives as funcol
     from torch.distributed.tensor import Replicate, Shard
 
     mesh, kpl = k_cache.device_mesh, tuple(k_cache.placements)
@@ -354,9 +431,7 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
           for p, d in zip(kpl, dims)]
 
     def all_reduce(t, op):
-        for m in slot_dims:
-            t = funcol.all_reduce(t, op, (mesh, m))
-        return t
+        return all_reduce_over(t, op, mesh, slot_dims)
 
     def body(ql, kl, vl, ml):
         return _decode_local(ql, kl, vl, ml,

@@ -234,13 +234,17 @@ def ssm_branch_step(h: torch.Tensor, conv_c: torch.Tensor,
         conv = F.silu(conv + conv_b.to(conv.dtype))
     xs_c, b_c, c_c = (conv[:, :d_inner], conv[:, d_inner:d_inner + n],
                       conv[:, d_inner + n:])
-    # a slice of the projection's sharded last dim: replicate its H heads
-    # where they do not divide over the mesh (DTensor shards them unevenly)
-    dt = constrain(dt, "batch", "act_heads")
+    # the step runs in the SSD cache's layout (SSD_NAMES: a rank holds
+    # every head of its batch shard), so the new state is written where
+    # the cache keeps it: the step's (B, d_inner) and (B, H) inputs are
+    # replicated over the heads, where a state updated over sharded heads
+    # would be gathered whole for the cache at every step
+    dt = constrain(dt, "batch", None)
     dt = F.softplus(dt.float() + dt_bias.float())
+    xs_c = constrain(xs_c, "batch", None)
     with _span("ssm.scan"):
-        y, new_ssd = ssd_decode_step(ssd_c, split_heads(xs_c, H), dt, a_log,
-                                     b_c, c_c, d_skip)
+        y, new_ssd = ssd_decode_step(ssd_c, xs_c.reshape(-1, H, head_dim),
+                                     dt, a_log, b_c, c_c, d_skip)
     y = merge_heads(y) * F.silu(z.float()).to(y.dtype)
     return y, (hist[:, 1:].to(ACT_DTYPE), new_ssd)
 

@@ -68,10 +68,10 @@ class ModelConfig:
     n_patches: int = 256                 # vlm stub patch count
     # --- execution knobs of the JAX package, kept so that configs carry
     # across unchanged; the port reads remat and remat_policy (the training
-    # forwards' recompute, layers.remat), ce_onehot (off a mesh only:
-    # launch.dryrun.MESH_NO_EFFECT), logits_chunk, swa_ring_buffer,
-    # ssd_shard_acts, shard_kv_seq and decode_no_fsdp, and no model of it
-    # reads the others (launch.dryrun.NO_EFFECT) ---
+    # forwards' recompute, layers.remat), ce_onehot (on a mesh True is
+    # the vocab-parallel loss: losses.lm_cross_entropy), logits_chunk,
+    # swa_ring_buffer, ssd_shard_acts, shard_kv_seq and decode_no_fsdp,
+    # and no model of it reads the others (launch.dryrun.NO_EFFECT) ---
     remat: bool = True
     remat_policy: str = "nothing"
     attn_chunk: int = 1024

@@ -270,11 +270,12 @@ class DecoderLM(BaseModel):
 
         if cfg.remat:
             chunk = remat(chunk)
-        tot = cnt = torch.zeros((), dtype=torch.float32, device=x.device)
+        tot = cnt = replicate_as(torch.zeros((), dtype=torch.float32,
+                                             device=x.device), x)
         for i in range(K):
             part = slice(i * cs, (i + 1) * cs)
-            mi = (mask[:, part] if mask is not None else
-                  torch.ones((B, cs), dtype=torch.float32, device=x.device))
+            mi = (mask[:, part] if mask is not None else replicate_as(
+                torch.ones((B, cs), dtype=torch.float32, device=x.device), x))
             nll = chunk(x[:, part], headc, targets[:, part], mi)
             tot = tot + nll * torch.clamp(mi.sum(), min=1.0)
             cnt = cnt + mi.sum()

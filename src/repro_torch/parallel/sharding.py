@@ -341,6 +341,20 @@ def shard_bounds(shape: Sequence[int], mesh, pls: Sequence,
     return offset[dim], offset[dim] + local[dim]
 
 
+def all_reduce_over(t: torch.Tensor, op: str, mesh, dims: Sequence[int]
+                    ) -> torch.Tensor:
+    """``t``, a local tensor, all-reduced with ``op`` ("sum", "max") over
+    the mesh dims ``dims``, one collective a dim, and waited for; ``t``
+    itself where ``dims`` is empty.  funcol's collectives record no graph:
+    a body that differentiates through one runs it inside an
+    ``autograd.Function`` (``models.layers``, ``models.losses``)."""
+    from torch.distributed import _functional_collectives as funcol
+
+    for m in dims:
+        t = funcol.all_reduce(t, op, (mesh, m))
+    return funcol.wait_tensor(t) if dims else t
+
+
 # ---------------------------------------------------------------------------
 # kernels on local shards
 # ---------------------------------------------------------------------------

@@ -406,6 +406,58 @@ def test_rmsnorm_kernel_at_its_geometry_edges(card, edge, x_dtype, w_dtype,
                                    rtol=tol, atol=tol)
 
 
+@pytest.mark.parametrize("x_dtype,w_dtype", [
+    (torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
+    (torch.bfloat16, torch.float32)])
+@pytest.mark.parametrize("rows,d,pieces", [(4000, 3072, 2), (4000, 3072, 16),
+                                           (1, 64, 1), (7, 1088, 4),
+                                           (33, 8192, 8), (2, 40, 5)])
+def test_split_rmsnorm_entry_points_match_plain(card, rows, d, pieces,
+                                                x_dtype, w_dtype):
+    """``sumsq`` and ``scale`` on the column pieces of (rows, d) against
+    their plain versions (fp32 sums at rtol 1e-5; the scale at the whole-row
+    kernel's tolerance), and the pieces side by side against the whole-row
+    kernel at the same tolerance; each launches once a piece."""
+    from repro_torch.kernels import entry_launch_counts
+
+    tol = 2e-5 if x_dtype == torch.float32 else 2e-2
+    x = _t((rows, d), x_dtype, 60, card)
+    w = _t((d,), w_dtype, 61, card)
+    xs = [p.contiguous() for p in x.chunk(pieces, -1)]
+    ws = [p.contiguous() for p in w.chunk(pieces)]
+    before = entry_launch_counts()
+    sums = [rmsnorm.sumsq(p) for p in xs]
+    for p, got in zip(xs, sums):
+        torch.testing.assert_close(got, rmsnorm.plain_sumsq(p), rtol=1e-5,
+                                   atol=0)
+    total = torch.stack(sums).sum(0)
+    outs = [rmsnorm.scale(p, wp, total, d, eps=1e-5)
+            for p, wp in zip(xs, ws)]
+    for p, wp, got in zip(xs, ws, outs):
+        assert got.dtype == x_dtype and got.shape == p.shape
+        torch.testing.assert_close(
+            got.float(), rmsnorm.plain_scale(p, wp, total, d, 1e-5).float(),
+            rtol=tol, atol=tol)
+    torch.testing.assert_close(torch.cat(outs, -1).float(),
+                               rmsnorm.rmsnorm(x, w, eps=1e-5).float(),
+                               rtol=tol, atol=tol)
+    torch.cuda.synchronize()
+    after = entry_launch_counts()
+    assert all(after[k] == before[k] + len(xs) for k in after)
+
+
+def test_split_rmsnorm_entry_points_reject_what_they_do_not_take(card):
+    x = _t((4, 64), torch.float32, 62, card)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        rmsnorm.sumsq(x[:, :62].contiguous())
+    with pytest.raises(ValueError, match="total"):
+        rmsnorm.scale(x, x[0], x[:, 0].contiguous().double(), 64)
+    with pytest.raises(ValueError, match="d_full"):
+        rmsnorm.scale(x, x[0], x[:, 0].contiguous(), 32)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        rmsnorm.scale(x, x[0].cpu(), x[:, 0].contiguous(), 64)
+
+
 def test_rmsnorm_kernel_at_its_widest_rows(card):
     for dtype in (torch.float32, torch.bfloat16):
         d = rmsnorm.max_width(dtype)

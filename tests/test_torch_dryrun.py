@@ -501,7 +501,7 @@ def test_skips_are_the_references(arch, shape):
 
 
 # ----------------------------------------------------------------- the CLI
-@pytest.mark.parametrize("knob", dryrun.NO_EFFECT + dryrun.MESH_NO_EFFECT)
+@pytest.mark.parametrize("knob", dryrun.NO_EFFECT)
 def test_a_knob_the_port_does_not_read_is_refused(knob, capsys, tmp_path):
     with pytest.raises(SystemExit) as e:
         dryrun.main(["--arch", "llama3.2-1b", "--shape", "prefill_32k",
@@ -580,8 +580,58 @@ def test_an_override_the_port_reads_is_taken(tmp_path):
     assert dataclasses.asdict(cfg)["decode_no_fsdp"] is True
     with pytest.raises(TypeError):
         dryrun.apply_overrides(cfg, {"no_such_knob": 1})
-    # off a mesh the loss reads ce_onehot, so it is taken there alone
-    assert dryrun.apply_overrides(cfg, {"ce_onehot": True},
-                                  meshed=False).ce_onehot is True
-    with pytest.raises(ValueError, match="ce_onehot"):
-        dryrun.apply_overrides(cfg, {"ce_onehot": True})
+    # the loss reads ce_onehot on a mesh too (test_ce_onehot_on_a_mesh_*)
+    assert dryrun.apply_overrides(cfg, {"ce_onehot": True}).ce_onehot is True
+
+
+def test_ce_onehot_on_a_mesh_reduces_and_never_gathers_the_vocab(mesh2x2):
+    """The smoke llama3.2-1b's train cell on the fake 2x2 world under both
+    losses.  ``ce_onehot=False`` all-gathers a device's fp32 logits over
+    the vocab (the reference's gather); ``True`` gathers no logits: its
+    all-gather bytes are lower by exactly that gather, and it adds three
+    all-reduces of a device's (B, S) fp32 values (the max, the sum of
+    exponentials and the gold logit), none in the backward.  The FLOPs are
+    one count under both."""
+    cfg = tconfigs.get_smoke_config("llama3.2-1b")
+    shape = SMALL["train"]
+    got = {onehot: dryrun.run_cell(dataclasses.replace(cfg,
+                                                       ce_onehot=onehot),
+                                   shape, mesh2x2)
+           for onehot in (False, True)}
+    rows = shape.global_batch // 2 * shape.seq_len   # the batch over data
+    logits = rows * cfg.padded_vocab * 4             # fp32, vocab whole
+    off, on = (got[k]["collectives"] for k in (False, True))
+    assert off["all-gather"] - on["all-gather"] == logits
+    assert on["all-reduce"] - off["all-reduce"] == 3 * rows * 4
+    assert on["count"] - off["count"] == 3 - 1
+    for key in ("matmul_flops", "matmul_flops_per_device"):
+        assert got[True][key] == got[False][key]
+
+
+def test_a_norm_over_a_sharded_row_reduces_partial_sums(mesh2x2):
+    """``layers.rmsnorm`` on meta DTensor rows (8, 16, 64), the batch over
+    data and the normalised dim over model, w laid out as that dim: the
+    forward issues one all-reduce, of a device's (4 * 16,) fp32 sums of
+    squares; the backward one more of the same rows (the sums of x w g),
+    and w's grad is left a partial sum over the rows' shards on data;
+    neither gathers."""
+    from repro_torch.models import layers
+
+    m = mesh2x2
+    x = _dt(m, (8, 16, 64), [Shard(0), Shard(2)]).requires_grad_()
+    w = _dt(m, (64,), [Replicate(), Shard(0)]).requires_grad_()
+    rows = 4 * 16
+    with use_sharding(m):
+        fwd = dryrun.StepCounter()
+        with fwd:
+            out = layers.rmsnorm(x, w, 1e-5)
+        assert out.placements == x.placements and out.shape == x.shape
+        bwd = dryrun.StepCounter()
+        with bwd:
+            dx, dw = torch.autograd.grad(out, (x, w), torch.ones_like(out))
+    zero = {k: 0 for k in dryrun.COLLECTIVES if k != "all-reduce"}
+    for counter in (fwd, bwd):
+        assert counter.collectives == {**zero, "all-reduce": rows * 4,
+                                       "count": 1}
+    assert dx.placements == x.placements
+    assert dw.placements == (Partial(), Shard(0))

@@ -6,6 +6,14 @@ the Pallas kernel bodies in interpret mode, as tests/test_kernels.py does.
 Both get the same numpy arrays.  Tolerances are test_kernels.py's: rmsnorm
 rtol=atol=2e-5 fp32 (summation order, rsqrt), 2e-2 bf16 (one bf16 rounding of
 the output); triad rtol=1e-5, atol=1e-6.
+
+The norm of a row split across ranks (``rmsnorm_sumsq``, an all-reduce of
+the pieces' sums, ``rmsnorm_scale``) recombines to the whole-row norm: fp32
+at rtol 1e-5 (the row's sum in another order), bf16 within one bf16 ulp
+(that sum moves the fp32 value by a few fp32 ulps, which one rounding to
+bf16 can carry across one bf16 step), against the port's whole-row op and
+JAX's ``repro.kernels.ref.rmsnorm``; its backward's grads match the whole
+row's at fp32 rtol 1e-5.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -15,7 +23,8 @@ import torch
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro.models import layers as jlayers
-from repro_torch.kernels import copy_stream, launch_counts, ops, ref, rmsnorm
+from repro_torch.kernels import (copy_stream, entry_launch_counts,
+                                 launch_counts, ops, ref, rmsnorm)
 from repro_torch.models import layers
 
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
@@ -86,6 +95,106 @@ def test_rmsnorm_rejects_what_the_pallas_kernel_rejects(case):
                                    ref.rmsnorm(x, w), rtol=0, atol=0)
 
 
+# --------------------------------------------- a row split across ranks --
+def _within_one_bf16_ulp(got: torch.Tensor, want: torch.Tensor) -> None:
+    """bf16 ``got`` and ``want`` differ by at most one bf16 step of the
+    larger magnitude (2^-7 of its power of two: 8 significand bits)."""
+    g, w = got.float(), want.float()
+    ulp = torch.ldexp(torch.ones_like(w),
+                      torch.frexp(torch.maximum(g.abs(), w.abs()))[1] - 8)
+    assert bool(((g - w).abs() <= ulp).all()), (g - w).abs().max().item()
+
+
+def _split_norm(x, w, pieces: int, eps: float):
+    """``ops.rmsnorm_sumsq`` on each of ``pieces`` column pieces of x, their
+    sums added as an all-reduce would, ``ops.rmsnorm_scale`` on each piece
+    by its piece of w, the pieces put back side by side."""
+    xs, ws = x.chunk(pieces, dim=-1), w.chunk(pieces)
+    total = sum(ops.rmsnorm_sumsq(xp.contiguous()) for xp in xs)
+    assert total.dtype == torch.float32 and total.shape == x.shape[:-1]
+    return torch.cat([ops.rmsnorm_scale(xp.contiguous(), wp, total,
+                                        d_full=x.shape[-1], eps=eps)
+                      for xp, wp in zip(xs, ws)], dim=-1)
+
+
+@pytest.mark.parametrize("pieces", [1, 2, 4])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_a_split_row_recombines_to_the_whole_row(pieces, dtype):
+    """The model's mix (x in ``dtype``, fp32 w, eps 1e-5) at mamba2's
+    gated-norm width cut to 256, split into 1, 2 and 4 column pieces."""
+    (x, xj), (w, wj) = (_pair((64, 256), dtype, 31),
+                        _pair((256,), "float32", 32, loc=1.0))
+    before = (launch_counts(), entry_launch_counts())
+    got = _split_norm(x, w, pieces, 1e-5)
+    assert (launch_counts(), entry_launch_counts()) == before
+    assert got.dtype == x.dtype and got.shape == x.shape
+    whole = ops.rmsnorm(x, w, eps=1e-5, block_rows=64)
+    for want in (whole, jref.rmsnorm(xj, wj, 1e-5)):
+        if dtype == "float32":
+            np.testing.assert_allclose(_np(got), _np(want), rtol=1e-5,
+                                       atol=0)
+        else:
+            _within_one_bf16_ulp(got, torch.from_numpy(_np(want)))
+
+
+class _SimulatedAllReduce:
+    """A piece's all-reduce of (rows,) sums over the pieces of a row, with
+    the pieces run one after another: each call returns the next of
+    ``totals``, the sums over all pieces the test computed first, and keeps
+    what its own piece put in, which the test then adds up."""
+
+    def __init__(self, totals):
+        self.totals, self.sent = list(totals), []
+
+    def __call__(self, t):
+        assert t.dtype == torch.float32 and t.dim() == 1
+        self.sent.append(t.detach().clone())
+        return self.totals[len(self.sent) - 1]
+
+
+@pytest.mark.parametrize("pieces", [2, 4])
+def test_a_split_rows_grads_match_the_whole_rows(pieces):
+    """``layers._SplitRMSNorm`` on each column piece, its two all-reduces
+    (the forward's sums of squares, the backward's sums of x w g)
+    simulated: the pieces' grads of x and w, side by side, against the
+    whole row's (``ops.rmsnorm``'s plain version under autograd) at fp32
+    rtol 1e-5, and what the pieces sent adds up to what they got."""
+    x, w, g = (torch.from_numpy(np.random.default_rng(s).standard_normal(
+        shape).astype(np.float32)) for s, shape in
+               ((33, (48, 128)), (34, (128,)), (35, (48, 128))))
+    w = w + 1.0
+    xw, ww = x.clone().requires_grad_(), w.clone().requires_grad_()
+    want = torch.autograd.grad(ops.rmsnorm(xw, ww, eps=1e-5, block_rows=48),
+                               (xw, ww), g)
+    sumsq = (x * x).sum(-1)
+    dot = (x * w * g).sum(-1)
+    got, reduces = [], []
+    for xp, wp, gp in zip(x.chunk(pieces, -1), w.chunk(pieces),
+                          g.chunk(pieces, -1)):
+        xp, wp = xp.contiguous().requires_grad_(), wp.requires_grad_()
+        reduce = _SimulatedAllReduce([sumsq, dot])
+        out = layers._SplitRMSNorm.apply(xp, wp, 1e-5, 128, reduce)
+        got.append(torch.autograd.grad(out, (xp, wp), gp.contiguous()))
+        reduces.append(reduce)
+    for k, total in enumerate((sumsq, dot)):
+        torch.testing.assert_close(sum(r.sent[k] for r in reduces), total,
+                                   rtol=1e-5, atol=1e-5)
+    for i, whole in enumerate(want):
+        np.testing.assert_allclose(
+            torch.cat([p[i] for p in got], dim=-1).numpy(), whole.numpy(),
+            rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("case", ["w-shape", "total-shape"])
+def test_the_split_halves_check_their_shapes(case):
+    x = _pair((8, 64), "float32", 36)[0]
+    w, total = x[0, :32] if case == "w-shape" else x[0], \
+        x[:4, 0] if case == "total-shape" else x[:, 0]
+    with pytest.raises(ValueError, match="weight shape" if case == "w-shape"
+                       else "total shape"):
+        ops.rmsnorm_scale(x, w, total, d_full=128)
+
+
 # ----------------------------------------------------------------- triad --
 @pytest.mark.parametrize("a", [0.0, 1.0, -2.5])
 def test_triad_matches_pallas(a):
@@ -125,24 +234,33 @@ def test_triad_rejects_what_the_pallas_kernel_rejects(case):
 # ----------------------------------------------------- wrappers on the CPU --
 @pytest.mark.parametrize("call", [
     lambda x: rmsnorm.rmsnorm(x, x[0]),
-    lambda x: copy_stream.triad(2.0, x, x)])
+    lambda x: copy_stream.triad(2.0, x, x),
+    lambda x: rmsnorm.sumsq(x),
+    lambda x: rmsnorm.scale(x, x[0], x[:, 0].contiguous(), 256)])
 def test_kernel_wrappers_refuse_cpu_tensors_and_count_nothing(call):
-    before = launch_counts()
+    before = launch_counts(), entry_launch_counts()
     with pytest.raises(ValueError, match="CUDA"):
         call(torch.zeros((128, 128)))
-    assert launch_counts() == before
+    assert (launch_counts(), entry_launch_counts()) == before
 
 
-@pytest.mark.parametrize("op", ["rmsnorm", "triad"])
+@pytest.mark.parametrize("op", ["rmsnorm", "triad", "rmsnorm_sumsq",
+                                "rmsnorm_scale"])
 def test_cpu_tensors_take_the_plain_version_and_force_cuda_raises(op):
     x = _pair((256, 128), "float32", 13)[0]
-    args = (x, x[0]) if op == "rmsnorm" else (0.5, x, x)
-    before = launch_counts()
-    got = getattr(ops, op)(*args)
-    assert launch_counts() == before
-    assert torch.equal(got, getattr(ref, op)(*args))
+    total = (x * x).sum(-1)
+    args, kw, plain = {
+        "rmsnorm": ((x, x[0]), {}, lambda: ref.rmsnorm(x, x[0])),
+        "triad": ((0.5, x, x), {}, lambda: ref.triad(0.5, x, x)),
+        "rmsnorm_sumsq": ((x,), {}, lambda: rmsnorm.plain_sumsq(x)),
+        "rmsnorm_scale": ((x, x[0], total), {"d_full": 128},
+                          lambda: rmsnorm.plain_scale(x, x[0], total, 128))}[op]
+    before = launch_counts(), entry_launch_counts()
+    got = getattr(ops, op)(*args, **kw)
+    assert (launch_counts(), entry_launch_counts()) == before
+    assert torch.equal(got, plain())
     with pytest.raises(ValueError, match="CUDA"):
-        getattr(ops, op)(*args, force="cuda")
+        getattr(ops, op)(*args, **kw, force="cuda")
 
 
 def test_max_width_is_the_register_cache():

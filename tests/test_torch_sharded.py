@@ -24,7 +24,11 @@ with one kv head too, serving only, mixtral's shifted and ring-buffer
 caches and hymba's caches, their slots sharded over ``model``; llama3.2-1b
 and hymba-1.5b recomputing each layer in the train step's backward (remat,
 under ``"nothing"`` and for llama ``"dots"`` too; the other cases and JAX
-run without, which changes no value); and hubert-xlarge's encode.
+run without, which changes no value); llama3.2-1b with ``ce_onehot``, the
+vocab-parallel cross-entropy, whole and in two loss chunks under remat;
+and hubert-xlarge's encode.  The ranks also count the all-gathers of
+activations around each call of the loss and the norms: none under
+``ce_onehot``, none in the norms of mamba2's and hymba's split rows.
 
 Every run takes fp32 activations (the port's ``ACT_DTYPE``, JAX's ``jnp``
 read with bfloat16 as float32, as tests/test_torch_train.py runs its fp32
@@ -51,6 +55,8 @@ import pytest
 import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_leaves
 
 from repro_torch.configs import get_smoke_config
 from repro_torch.models import (get_model, make_decode_step,
@@ -77,6 +83,13 @@ CASES = {
     "llama-remat-dots": ("llama3.2-1b", {"remat": True,
                                          "remat_policy": "dots"}, 16, True),
     "hymba-remat": ("hymba-1.5b", {"remat": True}, 40, True),
+    # the vocab-parallel cross-entropy: each rank's vocab shard reduced,
+    # (B, S) all-reduces, no logits gathered; whole and in 2 chunks under
+    # remat (each chunk's loss recomputed in the backward)
+    "llama-onehot": ("llama3.2-1b", {"ce_onehot": True}, 16, True),
+    "llama-onehot-chunk": ("llama3.2-1b", {"ce_onehot": True,
+                                           "logits_chunk": 2,
+                                           "remat": True}, 16, True),
     # one kv head: the rolling caches' slots shard over model
     "mixtral-1kv": ("mixtral-8x22b", {"n_kv_heads": 1}, 40, False),
     "mixtral-1kv-ring": ("mixtral-8x22b", {"n_kv_heads": 1,
@@ -85,6 +98,13 @@ CASES = {
     "hymba-1kv": ("hymba-1.5b", {"n_kv_heads": 1}, 40, False),
 }
 ENCODER, ENCODE_FRAMES = "hubert-xlarge", 24
+# case -> the calls that must gather no activation on the mesh: the loss
+# under ce_onehot, the norms where their rows are split (mamba2's gated
+# norm over ff, hymba's branch norms over the heads), which reduce partial
+# sums of squares instead
+NO_GATHER = {"llama-onehot": "loss", "llama-onehot-chunk": "loss",
+             "mamba2-780m": "norm", "hymba-1.5b": "norm",
+             "hymba-remat": "norm"}
 
 TOL = dict(rtol=1e-4, atol=1e-5)   # every quantity, fp32 activations
 
@@ -198,6 +218,54 @@ def _port_steps(case: str, arrays: dict, mesh=None) -> dict:
     return out
 
 
+class _Gathers(TorchDispatchMode):
+    """Counts, while open, the all-gathers DTensor issues (on the local
+    tensors) whose results are floating point with two dims or more:
+    activations, where a norm's weight has one dim and token ids are
+    integers."""
+
+    def __init__(self):
+        super().__init__()
+        self.n = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        from torch.distributed.tensor import DTensor
+
+        if any(issubclass(t, DTensor) for t in types):
+            return NotImplemented
+        out = func(*args, **(kwargs or {}))
+        if func._overloadpacket in (
+                torch.ops._c10d_functional.all_gather_into_tensor,
+                torch.ops._c10d_functional.all_gather_into_tensor_coalesced):
+            self.n += sum(t.dim() >= 2 and t.is_floating_point()
+                          for t in tree_leaves(out))
+        return out
+
+
+@contextlib.contextmanager
+def _counting_gathers(counts: dict):
+    """While open, every call of the models' cross-entropy and norms runs
+    under a ``_Gathers``, which adds to ``counts["loss"]`` and
+    ``counts["norm"]`` (a recomputed norm or loss chunk in the backward
+    too)."""
+    from repro_torch.models import hybrid, mamba2, transformer
+
+    def counted(fn, key):
+        def call(*args, **kwargs):
+            with _Gathers() as g:
+                out = fn(*args, **kwargs)
+            counts[key] += g.n
+            return out
+        return call
+
+    with pytest.MonkeyPatch.context() as mp_:
+        for mod in (transformer, mamba2, hybrid):
+            for name, key in (("lm_cross_entropy", "loss"),
+                              ("rmsnorm", "norm")):
+                mp_.setattr(mod, name, counted(getattr(mod, name), key))
+        yield
+
+
 def _rank_main(rank: int, tmp: str) -> None:
     """One of the 4 gloo ranks: every case on the (data, model) mesh,
     written to ``rank{rank}_{case}.npz``."""
@@ -213,8 +281,12 @@ def _rank_main(rank: int, tmp: str) -> None:
         with _fp32_activations():
             for case in (*CASES, ENCODER):
                 w = dict(np.load(tmp / f"weights_{case}.npz"))
-                np.savez(tmp / f"rank{rank}_{case}.npz",
-                         **_port_steps(case, w, mesh))
+                counts = {"loss": 0, "norm": 0}
+                with _counting_gathers(counts):
+                    out = _port_steps(case, w, mesh)
+                out.update({f"gathers:{k}": np.asarray(n)
+                            for k, n in counts.items()})
+                np.savez(tmp / f"rank{rank}_{case}.npz", **out)
     finally:
         dist.destroy_process_group()
 
@@ -337,7 +409,8 @@ def test_prefill_and_decode_match_unsharded_and_jax(runs, case):
     want = runs[case]["jax"]
     names = sorted(k for k in want if k.split(".")[0] in _steps())
     assert names == sorted(k for k in runs[case]["sharded"] if
-                           not k.startswith(("shape:", "want:", "train.")))
+                           not k.startswith(("shape:", "want:", "train.",
+                                             "gathers:")))
     _assert_close(runs, case, names)
     assert int(want["decode2.pos"]) == CASES[case][2] + DECODE_STEPS
 
@@ -374,6 +447,17 @@ def test_the_cache_keeps_its_shard_shape_at_every_step(runs, case):
     if case.startswith("mixtral-1kv"):
         # a rolling cache of the window's 32 slots, 16 on each model rank
         assert list(want["k"]) == [2, B // 2, 1, 32 // 2, 16]
+
+
+@pytest.mark.parametrize("case", sorted(NO_GATHER))
+def test_no_logits_and_no_norm_row_are_gathered(runs, case):
+    """Around the loss (``ce_onehot``: the vocab-parallel cross-entropy)
+    and the norms (rows split over model: partial sums of squares), in the
+    prefill, the decode steps and the train step with its backward's
+    recompute, no activation is all-gathered; the counter sees the
+    default loss's gather of the logits, the reference's program."""
+    assert int(runs[case]["sharded"][f"gathers:{NO_GATHER[case]}"]) == 0
+    assert int(runs["llama3.2-1b"]["sharded"]["gathers:loss"]) > 0
 
 
 def test_encode_matches_unsharded_and_jax(runs):
