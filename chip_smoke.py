@@ -79,7 +79,16 @@ that run it, and drives every ported path at full size:
   held against their plain versions at mamba2-780m's gated norm in 2 and
   16 column pieces, recombined against the whole-row kernel, and timed
   (``check_split_norm``).  No card path splits a row (one card shards
-  nothing), so they launch in those checks alone.
+  nothing), so they launch in those checks alone;
+* slice 15: the reference's long-sequence attention.  Above
+  ``dense_attn_max_seq`` the flash Function's backward runs in q chunks of
+  ``attn_chunk`` (over each chunk's causal and window slice of the keys
+  under ``swa_block_skip``), held against the dense backward at the remat
+  phase's attention (``check_chunked_backward``); the remat phase's peaks
+  at 2 x 4096 tokens now fall strictly from the unchunked to the chunked
+  loss, and a variant adds block skipping; the dry run adds
+  ``prefill_32k`` under ``--set swa_block_skip=True``, whose FLOPs are the
+  closed form over the chunks' key slices.
 
 Besides, it holds the RMSNorm kernel against its plain version at every
 edge of its geometry (``check_rmsnorm_edges``), and the decoder's loss
@@ -245,7 +254,9 @@ DRYRUN_CELLS = {("single_pod", "train_4k"): "ok",
                 ("single_pod", "long_500k"): "skip",
                 ("multi_pod", "decode_32k"): "ok",
                 # slice 14: the vocab-parallel loss (--set ce_onehot=True)
-                ("single_pod", "train_4k", "ce_onehot=True"): "ok"}
+                ("single_pod", "train_4k", "ce_onehot=True"): "ok",
+                # slice 15: block-skipping attention in q chunks of 1024
+                ("single_pod", "prefill_32k", "swa_block_skip=True"): "ok"}
 DRYRUN_TIMEOUT_S = 600
 # slice 12: serve:model's prefill and decode steps and one train step of the
 # train path, with and without a one-rank NCCL mesh (the sharded program)
@@ -254,24 +265,38 @@ SHARDED_PATH, SHARDED_DECODE = "sharded", 32
 # sequence under each variant (config changes), each remat variant held
 # against its twin without remat (REMAT_TWIN): the chunked loss sums its
 # chunks' bf16 head grads in another order, so it has a twin of its own
-# (off_chunk8).  At 2 x 4096 tokens the plain attention backward's fp32
-# (B, H, S, S) transients set the peak of both "nothing" variants (their
-# peaks were equal on an NVIDIA H100 80GB HBM3), so there the peaks fall
-# as REMAT_ORDER says ((a, b, strictly)), and the strict order of all four
-# is held at REMAT_LOSS_TOKENS, the same 8192 tokens as 16 rows of 512,
-# where the loss sets the peak (REMAT_LOSS_ORDER).  One variant, the
-# default, is held against the plain versions of the norm and attention
-# (REMAT_PLAIN_LAYERS deep, at the grads phase's 3e-2).
+# (off_chunk8).  At 2 x 4096 tokens the attention backward runs in q
+# chunks of 1024 (slice 15: the reference's attn_chunk above
+# dense_attn_max_seq), so its largest transient is a (2, 32, 1024, 4096)
+# fp32 chunk and no longer the (2, 32, 4096, 4096) scores that made the
+# two "nothing" variants' peaks equal: the peaks fall as REMAT_ORDER says
+# ((a, b, strictly)), strictly from the unchunked to the chunked loss.
+# The strict order of all four is held again at REMAT_LOSS_TOKENS, the
+# same 8192 tokens as 16 rows of 512, where attention is dense
+# (REMAT_LOSS_ORDER).  nothing_chunk8_skip adds block skipping
+# (swa_block_skip): each chunk's backward reads the keys up to its last
+# row, which rounds dq's bf16 rows otherwise (check_chunked_backward) and
+# so moves every grad by bf16 noise (2.55e-3 against off_chunk8 on an
+# NVIDIA H100 80GB HBM3), so it has a twin of its own (off_chunk8_skip).
+# One variant, the default, is held against the plain versions of the
+# norm and attention (REMAT_PLAIN_LAYERS deep, at the grads phase's
+# 3e-2).
 REMAT_PATH, REMAT_BATCH, REMAT_SEQ = "remat", 2, 4096
 REMAT_LOSS_TOKENS = (16, 512)
 REMAT_VARIANTS = {"off": {"remat": False},
                   "off_chunk8": {"remat": False, "logits_chunk": 8},
                   "nothing": {}, "dots": {"remat_policy": "dots"},
-                  "nothing_chunk8": {"logits_chunk": 8}}
+                  "nothing_chunk8": {"logits_chunk": 8},
+                  "off_chunk8_skip": {"remat": False, "logits_chunk": 8,
+                                      "swa_block_skip": True},
+                  "nothing_chunk8_skip": {"logits_chunk": 8,
+                                          "swa_block_skip": True}}
 REMAT_TWIN = {"nothing": "off", "dots": "off",
-              "nothing_chunk8": "off_chunk8", "off_chunk8": "off"}
+              "nothing_chunk8": "off_chunk8", "off_chunk8": "off",
+              "off_chunk8_skip": "off_chunk8",
+              "nothing_chunk8_skip": "off_chunk8_skip"}
 REMAT_ORDER = (("off", "dots", True), ("dots", "nothing", False),
-               ("nothing", "nothing_chunk8", False))
+               ("nothing", "nothing_chunk8", True))
 REMAT_LOSS_ORDER = (("off", "dots", True), ("dots", "nothing", False),
                     ("nothing", "nothing_chunk8", True))
 REMAT_GRAD_TOL = 1e-3   # relative Frobenius, each parameter against twin's
@@ -788,6 +813,7 @@ def check_flash() -> tuple[int, float, float]:
     for b, sq in ((REMAT_BATCH, REMAT_SEQ), REMAT_LOSS_TOKENS):
         cases.append(((b, hq, hkv, sq, sq, d), s.dtype, True, None, sq))
     cases += family_flash_cases() + example_flash_cases()
+    check_chunked_backward()
     worst = main = 0.0
     for i, case in enumerate(cases):
         (b, hq, hkv, sq, sk, d), dtype, causal, window, tile = case
@@ -810,6 +836,57 @@ def check_flash() -> tuple[int, float, float]:
         if case == serving:
             main = diff.max().item()
     return len(cases), main, worst
+
+
+# slice 15: the flash Function's chunk-wise backward against its dense one
+# on the same bf16 q, k, v and g, at the remat phase's attention (2 x 4096
+# tokens, llama3.2-1b's heads), in chunks of the reference's attn_chunk:
+# (causal, window, block_skip) cases, each grad within FLASH_BWD_TOL
+# relative Frobenius (both sum in fp32 and round to bf16 once; dk and dv
+# sum their chunks in another order)
+FLASH_BWD_CASES = ((True, None, False), (True, None, True),
+                   (True, 1024, False), (True, 1024, True))
+FLASH_BWD_CHUNK, FLASH_BWD_TOL = 1024, 2 ** -8
+
+
+def check_chunked_backward() -> dict:
+    """``FlashAttentionFunction`` with ``chunk=FLASH_BWD_CHUNK`` (the
+    kernel's forward, ``plain_backward``) against the same Function without
+    a chunk (the kernel's forward, the dense backward) on one bf16 draw of
+    q, k, v and g of the remat phase's attention, each case of
+    FLASH_BWD_CASES: dq, dk and dv within FLASH_BWD_TOL relative Frobenius,
+    each error printed.  Returns case -> grad -> error."""
+    cfg = get_config(ARCH)
+    q = tensor((REMAT_BATCH, cfg.n_heads, REMAT_SEQ, cfg.hd), torch.bfloat16,
+               140)
+    k, v = (tensor((REMAT_BATCH, cfg.n_kv_heads, REMAT_SEQ, cfg.hd),
+                   torch.bfloat16, seed) for seed in (141, 142))
+    g = tensor(tuple(q.shape), torch.bfloat16, 143)
+    errs = {}
+    for causal, window, skip in FLASH_BWD_CASES:
+        grads = {}
+        for chunk in (None, FLASH_BWD_CHUNK):
+            qkv = [t.clone().requires_grad_() for t in (q, k, v)]
+            out = flash_attention.FlashAttentionFunction.apply(
+                *qkv, causal, window, None, chunk, skip)
+            grads[chunk] = torch.autograd.grad(out, qkv, g)
+        label = (f"causal={causal} window={window} chunk={FLASH_BWD_CHUNK}"
+                 f" block_skip={skip}")
+        errs[label] = {name: ((a.float() - b.float()).norm()
+                              / b.float().norm()).item()
+                       for name, a, b in zip(("dq", "dk", "dv"),
+                                             grads[FLASH_BWD_CHUNK],
+                                             grads[None])}
+        del grads
+        if max(errs[label].values()) > FLASH_BWD_TOL:
+            raise AssertionError(f"flash chunk-wise backward {label}: "
+                                 f"relative Frobenius {errs[label]} > "
+                                 f"{FLASH_BWD_TOL}")
+    torch.cuda.empty_cache()
+    print(f"flash chunk-wise backward vs dense at {tuple(q.shape)} over "
+          f"{cfg.n_kv_heads} kv heads, bf16, relative Frobenius (bound "
+          f"{FLASH_BWD_TOL}): {json.dumps(errs)}", flush=True)
+    return errs
 
 
 def family_flash_cases() -> list:
@@ -3007,9 +3084,12 @@ def card_and_limit() -> str:
 @contextlib.contextmanager
 def plain_calls():
     """While open, each plain version of the norm and the attention counts
-    its calls into the yielded dict (kernel -> calls)."""
+    its calls into the yielded dict (kernel -> calls); a chunked plain
+    attention (``plain_chunked``) counts as one call."""
     calls = {"rmsnorm": 0, "flash_attention": 0}
-    saved = [(mod, mod.plain) for mod in (rmsnorm, flash_attention)]
+    saved = [(rmsnorm, "plain"), (flash_attention, "plain"),
+             (flash_attention, "plain_chunked")]
+    saved = [(mod, attr, getattr(mod, attr)) for mod, attr in saved]
 
     def counting(name, fn):
         def plain(*args, **kw):
@@ -3017,13 +3097,13 @@ def plain_calls():
             return fn(*args, **kw)
         return plain
 
-    rmsnorm.plain = counting("rmsnorm", rmsnorm.plain)
-    flash_attention.plain = counting("flash_attention", flash_attention.plain)
+    for mod, attr, fn in saved:
+        setattr(mod, attr, counting(mod.__name__.rsplit(".", 1)[1], fn))
     try:
         yield calls
     finally:
-        for mod, fn in saved:
-            mod.plain = fn
+        for mod, attr, fn in saved:
+            setattr(mod, attr, fn)
 
 
 def sharded_steps(model, params, prompt, steps, batch, mesh) -> dict:
@@ -3339,14 +3419,25 @@ def phase_remat() -> dict:
     return total
 
 
-def prefill_matmul_flops(cfg, batch: int, seq: int) -> int:
+def skip_pairs(seq: int, chunk: int) -> int:
+    """(row, key) pairs a (batch, head) of causal block-skipping attention
+    reads over ``seq`` rows in q chunks of ``chunk``: each chunk the keys up
+    to its last row (528 * 1024^2 at 32768 rows in chunks of 1024, against
+    1024 * 1024^2 dense)."""
+    return sum(chunk * min(a + chunk, seq) for a in range(0, seq, chunk))
+
+
+def prefill_matmul_flops(cfg, batch: int, seq: int,
+                         pairs: int | None = None) -> int:
     """World matmul FLOPs of a dense decoder's prefill from its config: the
-    layer weights on every token, dense attention over every key (4 B H
-    S^2 hd a layer), and the LM head on the last token."""
+    layer weights on every token, attention over every key (4 B H S^2 hd a
+    layer; ``pairs`` in place of S^2 under block skipping), and the LM head
+    on the last token."""
     L, M, H, KV, hd, F = (cfg.n_layers, cfg.d_model, cfg.n_heads,
                           cfg.n_kv_heads, cfg.hd, cfg.d_ff)
     layer_weights = L * (2 * M * H * hd + 2 * M * KV * hd + 3 * M * F)
-    return (2 * layer_weights * batch * seq + 4 * batch * H * seq * seq * hd
+    pairs = seq * seq if pairs is None else pairs
+    return (2 * layer_weights * batch * seq + 4 * batch * H * pairs * hd
             * L + 2 * batch * M * cfg.padded_vocab)
 
 
@@ -3403,6 +3494,21 @@ def phase_dryrun() -> dict:
     if got != want:
         raise AssertionError(f"dryrun: prefill_32k matmul FLOPs {got}, the "
                              f"closed form {want}")
+    # block skipping: the FLOPs of the chunks' key slices, as the
+    # reference counts them
+    cfg = get_config(ARCH)
+    skip_cell = cells["single_pod:prefill_32k:swa_block_skip=True"]
+    want_skip = prefill_matmul_flops(cfg, prefill.global_batch,
+                                     prefill.seq_len, skip_pairs(
+                                         prefill.seq_len, cfg.attn_chunk))
+    if skip_cell["matmul_flops"] != want_skip:
+        raise AssertionError(f"dryrun: prefill_32k under swa_block_skip "
+                             f"matmul FLOPs {skip_cell['matmul_flops']}, "
+                             f"the closed form {want_skip}")
+    prefill_temp = {k: cells[k]["memory"]["temp_size_bytes"] for k in (
+        "single_pod:prefill_32k", "single_pod:prefill_32k:swa_block_skip=True")}
+    print(f"dryrun prefill_32k a device: temp {json.dumps(prefill_temp)} B",
+          flush=True)
     # the vocab-parallel loss against the reference's default gather: a
     # device's temp and all-gather bytes both lower
     loss = {flag: {"temp_size_bytes": r["memory"]["temp_size_bytes"],
@@ -3421,7 +3527,9 @@ def phase_dryrun() -> dict:
           f"{on['temp_size_bytes']} B, all-gather {on['all_gather_bytes']} B "
           f"(ce_onehot=True)", flush=True)
     emit({"phase": "dryrun", "path": DRYRUN_PATH, "arch": ARCH,
-          "prefill_closed_form_flops": want, "cuda_initialized": False,
+          "prefill_closed_form_flops": want,
+          "prefill_skip_closed_form_flops": want_skip,
+          "cuda_initialized": False,
           "train_4k_loss": loss,
           "cells": {k: {f: r.get(f) for f in (
               "status", "reason", "chips", "matmul_flops",

@@ -10,10 +10,14 @@ and low part, K/V tiles double-buffered by cp.async; for fp32 fmaf without
 TF32).  ``plain`` is the dense PyTorch version, following ``ref.attention``
 (src/repro/kernels/ref.py:33-62), the reference the tests and
 ``chip_smoke.py`` hold the kernel to.  Both output 0 for a row that sees no
-key.  The tiling checks of the TPU kernel (``S % bq``, ``Sk % bk``) live in
-``ops.flash_attention``, which checks the heads once and then calls
-``launch`` or ``plain``, or ``FlashAttentionFunction`` (the launch with a
-plain backward) where a graph is being recorded.
+key.  ``plain_chunked`` is the same function one q chunk at a time, the
+twin of the reference model's q-chunked and block-skipping attention, and
+``plain_backward`` its grads chunk by chunk: neither makes an (S, Sk)
+tensor.  The tiling checks of the TPU kernel (``S % bq``, ``Sk % bk``) live
+in ``ops.flash_attention``, which checks the heads once and then calls
+``launch``, ``plain`` or ``plain_chunked``, or ``FlashAttentionFunction``
+(the launch with a plain backward, dense or chunk-wise) where a graph is
+being recorded.
 """
 from __future__ import annotations
 
@@ -45,6 +49,13 @@ def plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
           sm_scale: float | None = None) -> torch.Tensor:
     """Dense attention: q (B, Hq, S, D), k and v (B, Hkv, Sk, D).  Masks on
     absolute, top-left indices; a row that sees no key outputs 0."""
+    return _rows(q, k, v, 0, 0, causal, window, sm_scale)
+
+
+def _rows(q, k, v, q_lo: int, k_lo: int, causal: bool, window: int | None,
+          sm_scale: float | None) -> torch.Tensor:
+    """Attention of the rows q_lo.. (q) over the keys k_lo.. (k, v), masked
+    on those absolute indices, fp32 inside, cast to q's dtype."""
     _, hq, s, d = q.shape
     _, hkv, sk, _ = k.shape
     group = hq // hkv
@@ -55,9 +66,9 @@ def plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     # (s, sk) made from the scores, so a DTensor's mask is one on its mesh
     mask = scores.new_ones((s, sk), dtype=torch.bool)
     if causal:
-        mask = mask.tril()                   # col <= row
+        mask = mask.tril(q_lo - k_lo)                 # col <= row
     if window is not None:
-        mask = mask.triu(1 - window)         # col > row - window
+        mask = mask.triu(q_lo - k_lo - window + 1)    # col > row - window
     scores = torch.where(mask, scores, torch.full_like(scores, -1e30))
     p = torch.softmax(scores, dim=-1)
     out = torch.einsum("bhqk,bhkd->bhqd", p, vr)
@@ -65,27 +76,104 @@ def plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out.to(q.dtype)
 
 
+def chunk_keys(q_lo: int, sk: int, *, causal: bool, window: int | None,
+               chunk: int, block_skip: bool) -> tuple[int, int]:
+    """The keys lo..hi-1 that the q chunk starting at row ``q_lo`` reads:
+    all of them, or under ``block_skip`` the reference's static slice
+    (layers.py:141-145): up to the chunk's last row if causal, from its
+    first row's window start rounded down to a multiple of ``chunk``."""
+    if not block_skip:
+        return 0, sk
+    hi = min(q_lo + chunk, sk) if causal else sk
+    lo = 0
+    if window is not None:
+        lo = max(0, q_lo - (window - 1)) // chunk * chunk
+    return lo, hi
+
+
+def _chunks(s: int, chunk: int) -> range:
+    if chunk <= 0 or s % chunk:
+        raise ValueError(f"seq {s} not divisible by attn chunk {chunk}")
+    return range(0, s, chunk)
+
+
+def plain_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                  causal: bool = True, window: int | None = None,
+                  sm_scale: float | None = None, chunk: int,
+                  block_skip: bool = False) -> torch.Tensor:
+    """``plain`` one q chunk of ``chunk`` rows at a time, the twin of the
+    reference's ``_chunked_attention`` and ``_chunked_attention_skip``
+    (src/repro/models/layers.py:92-153): each chunk's fp32 scores span
+    the keys ``chunk_keys`` gives it, so the largest transient is (B, Hq,
+    chunk, Sk), never (B, Hq, S, Sk).  S must be a multiple of ``chunk``."""
+    outs = []
+    for a in _chunks(q.shape[2], chunk):
+        lo, hi = chunk_keys(a, k.shape[2], causal=causal, window=window,
+                            chunk=chunk, block_skip=block_skip)
+        outs.append(_rows(q[:, :, a:a + chunk], k[:, :, lo:hi],
+                          v[:, :, lo:hi], a, lo, causal, window, sm_scale))
+    return torch.cat(outs, dim=2)
+
+
+def plain_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   g: torch.Tensor, *, causal: bool = True,
+                   window: int | None = None, sm_scale: float | None = None,
+                   chunk: int, block_skip: bool = False) -> tuple:
+    """The grads (dq, dk, dv) of ``plain_chunked``'s output against ``g``,
+    one q chunk at a time: each chunk's attention recomputed from q, k and
+    v under ``enable_grad`` and differentiated, dq's rows written, dk and
+    dv summed in fp32 over the chunks and cast once at the end.  The
+    largest transient is a chunk's (B, Hq, chunk, Sk) fp32 scores."""
+    dq = torch.empty_like(q)
+    dk = k.new_zeros(k.shape, dtype=torch.promote_types(k.dtype,
+                                                        torch.float32))
+    dv = torch.zeros_like(dk)
+    for a in _chunks(q.shape[2], chunk):
+        lo, hi = chunk_keys(a, k.shape[2], causal=causal, window=window,
+                            chunk=chunk, block_skip=block_skip)
+        qc = q[:, :, a:a + chunk].detach().requires_grad_()
+        kc, vc = (_build.wide(t[:, :, lo:hi].detach()).requires_grad_()
+                  for t in (k, v))
+        with torch.enable_grad():
+            out = _rows(qc, kc, vc, a, lo, causal, window, sm_scale)
+        gq, gk, gv = torch.autograd.grad(out, (qc, kc, vc),
+                                         g[:, :, a:a + chunk])
+        dq[:, :, a:a + chunk] = gq
+        dk[:, :, lo:hi] += gk
+        dv[:, :, lo:hi] += gv
+    return dq, dk.to(k.dtype), dv.to(v.dtype)
+
+
 class FlashAttentionFunction(torch.autograd.Function):
-    """``launch`` (the kernel, one count) forward.  Backward: ``plain``
-    recomputed on the saved q, k and v under ``enable_grad`` (fp32 inside,
-    the same causal, window and GQA arguments) and differentiated.  A row
-    that sees no key outputs 0 through a ``where``, so it passes back no
-    gradient."""
+    """``launch`` (the kernel, one count) forward.  Backward: without a
+    ``chunk``, ``plain`` recomputed on the saved q, k and v under
+    ``enable_grad`` (fp32 inside, the same causal, window and GQA
+    arguments) and differentiated; with one, ``plain_backward``, chunk by
+    chunk.  A row that sees no key outputs 0 through a ``where``, so it
+    passes back no gradient."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, window, sm_scale):
+    def forward(ctx, q, k, v, causal, window, sm_scale, chunk=None,
+                block_skip=False):
         ctx.save_for_backward(q, k, v)
         ctx.args = dict(causal=causal, window=window, sm_scale=sm_scale)
+        ctx.chunks = None if chunk is None else dict(chunk=chunk,
+                                                     block_skip=block_skip)
         return launch(q, k, v, **ctx.args)
 
     @staticmethod
     def backward(ctx, g):
-        qkv = [t.detach().requires_grad_() for t in ctx.saved_tensors]
-        with torch.enable_grad():
-            out = plain(*qkv, **ctx.args)
-        grads = torch.autograd.grad(out, qkv, g)
+        if ctx.chunks is not None:
+            grads = plain_backward(*ctx.saved_tensors, g, **ctx.args,
+                                   **ctx.chunks)
+        else:
+            qkv = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+            with torch.enable_grad():
+                out = plain(*qkv, **ctx.args)
+            grads = torch.autograd.grad(out, qkv, g)
         return (*(gr if need else None for gr, need in
-                  zip(grads, ctx.needs_input_grad)), None, None, None)
+                  zip(grads, ctx.needs_input_grad)), None, None, None, None,
+                None)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

@@ -155,25 +155,34 @@ def rmsnorm_scale(x, w, total, *, d_full, eps=1e-6, force=None):
 
 
 def flash_attention(q, k, v, *, causal=True, window=None, bq=256, bk=256,
-                    sm_scale=None, force=None):
+                    sm_scale=None, chunk=None, block_skip=False, force=None):
     """Attention of q (B, Hq, S, D) over k, v (B, Hkv, Sk, D).  ``bq`` and
     ``bk`` are the TPU kernel's tiles: they are checked (``S % bq``,
     ``Sk % bk``) as the Pallas path checks them, but the CUDA kernel picks
-    its own tiles (64 q rows by 64 keys) and takes any S and Sk."""
+    its own tiles (64 q rows by 64 keys) and takes any S and Sk.  With a
+    ``chunk`` (S a multiple of it) the plain version and the backward run
+    ``chunk`` q rows at a time, over the keys ``block_skip`` leaves them
+    (``flash_attention.chunk_keys``); the kernel's forward is the same
+    either way, since it skips masked tiles by itself."""
     kernel = _use_kernel(q, force)
     if force != "ref":
         _flash.check_shapes(q, k, v)
         s, sk = q.shape[2], k.shape[2]
         if s % bq or sk % bk:
             raise ValueError(f"seq {s}/{sk} not tiled by bq={bq}/bk={bk}")
+        if chunk is not None and (chunk <= 0 or s % chunk):
+            raise ValueError(f"seq {s} not divisible by attn chunk {chunk}")
+    kw = dict(causal=causal, window=window, sm_scale=sm_scale)
     if not kernel:
-        return _flash.plain(q, k, v, causal=causal, window=window,
-                            sm_scale=sm_scale)
+        if chunk is None:
+            return _flash.plain(q, k, v, **kw)
+        return _flash.plain_chunked(q, k, v, **kw, chunk=chunk,
+                                    block_skip=block_skip)
     if _records(q, k, v):
         return _flash.FlashAttentionFunction.apply(q, k, v, causal, window,
-                                                   sm_scale)
-    return _flash.launch(q, k, v, causal=causal, window=window,
-                         sm_scale=sm_scale)
+                                                   sm_scale, chunk,
+                                                   block_skip)
+    return _flash.launch(q, k, v, **kw)
 
 
 # ---------------------------------------------------------------------------

@@ -16,8 +16,11 @@ a DTensor with the placements of its logical names.  The dry run never
 initialises CUDA: it counts the program of the production meshes on any
 host, as the reference lowers it on 512 fake host devices.  That is the
 design, not a CPU fallback.  The hand kernels launch on CUDA tensors only,
-so on meta every op takes its plain version: the counts are those of
-dense attention over every block and of the plain norms.
+so on meta every op takes its plain version: the counts are those of the
+plain norms and of the reference's attention, dense up to
+``dense_attn_max_seq`` and q-chunked above it, over every key or, under
+``swa_block_skip``, over each chunk's causal and window slice of the keys
+(``models.layers.attention``).
 
 What is counted, and how it differs from the reference's numbers:
 
@@ -48,21 +51,25 @@ What is counted, and how it differs from the reference's numbers:
     step's ops made (``StepCounter``): saved activations, transients and
     outputs, the arguments left out.  On meta the norms and attention take
     their plain versions, so a forward without remat saves what they save
-    (an (S, Sk) fp32 score tensor a layer among it), where the card's
-    kernels keep their inputs alone; under remat one layer's are live at a
-    time, as in the card's plain backward.  With no compiled
-    program there is no generated-code or alias size and no lower or
-    compile time: those keys are ``null``, never 0.
+    (a layer's fp32 softmax over (S, Sk), chunk by chunk above
+    ``dense_attn_max_seq``, as the reference's ``lax.scan`` keeps its
+    residuals), where the card's kernels keep their inputs alone; under
+    remat one layer's are live at a time, as in the card's plain backward.
+    A forward with no grad holds one chunk's scores at a time.  With no
+    compiled program there is no generated-code or alias size and no
+    lower or compile time: those keys are ``null``, never 0.
   * The reference compiles 0- and 1-layer variants of each model because
     XLA counts a scanned layer body once (``_combine_costs``,
     ``_cost_variants``).  Eager code runs every layer, so the port drops
     them; ``--no-cost-accounting`` is accepted and has no effect.
 
 A decode cell's cache is at ``configs.decode_pos``, which the JSON records:
-the port's decode reads ``pos`` on the host.  Knobs of the reference's
-compiler (``NO_EFFECT``) change nothing in the port's eager models, so
-``--set`` refuses them.  ``ce_onehot`` means on a mesh what it means in the
-reference (``losses.lm_cross_entropy``): ``False``, the default, counts the
+the port's decode reads ``pos`` on the host.  ``scan_layers``, XLA's layer
+scan (``NO_EFFECT``), changes nothing in the port's eager models, which run
+every layer, so ``--set`` refuses it; the attention knobs (``attn_chunk``,
+``dense_attn_max_seq``, ``swa_block_skip``) are taken, as are the others.
+``ce_onehot`` means on a mesh what it means in the reference
+(``losses.lm_cross_entropy``): ``False``, the default, counts the
 all-gather of a device's fp32 logits over the vocab, as XLA lowers the
 reference's gather; ``True`` counts three all-reduces of (B, S) fp32 values
 and no gather of the logits.
@@ -104,9 +111,8 @@ COLLECTIVES = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
                "collective-permute")
 MESHES = {"single_pod": False, "multi_pod": True}  # name -> multi_pod
 # ModelConfig knobs that only the reference's compiled models read: XLA's
-# layer scan, its q-chunked and block-skipping attention
-NO_EFFECT = ("scan_layers", "attn_chunk", "dense_attn_max_seq",
-             "swa_block_skip")
+# layer scan
+NO_EFFECT = ("scan_layers",)
 # serve-time weight layout of decode_no_fsdp cells (dryrun.py:215-225):
 # contracting dims stay local, hidden dims absorb every mesh axis
 DECODE_NO_FSDP_RULES = {"embed": (), "ff": ("model", "data"),
@@ -132,16 +138,24 @@ COST_NOTE = (
     "reduces each rank's vocab shard and all-reduces (B, S) fp32 values "
     "(the max, the sum of exponentials, the gold logit), gathering no "
     "logits. A norm whose row the mesh splits all-reduces (B, S) sums of "
-    "squares, and one more in its backward.")
+    "squares, and one more in its backward. Above dense_attn_max_seq (S a "
+    "multiple of attn_chunk) the plain attention runs attn_chunk q rows at "
+    "a time, as the reference's does, at the dense path's FLOPs; under "
+    "swa_block_skip each chunk reads only its causal and window slice of "
+    "the keys, and the FLOPs are that path's, as the reference counts "
+    "them.")
 MEMORY_NOTE = (
     "per-device bytes of the local shards. temp: the peak over the step of "
     "the bytes in storages the step's ops made (saved activations, "
     "transients, outputs; the arguments left out). On meta the norms and "
     "attention are plain, so a forward without remat saves what they save "
-    "(an (S, Sk) fp32 score tensor a layer among it), where the card's "
+    "(a layer's fp32 softmax over (S, Sk) among it), where the card's "
     "kernels keep their inputs alone; under remat one layer's at a time, "
-    "as in the card's plain backward. No compiled program, so no "
-    "generated-code or alias size")
+    "as in the card's plain backward. Above dense_attn_max_seq the plain "
+    "attention runs chunk by chunk, as the reference's does: a forward "
+    "with no grad holds one (B, H, attn_chunk, Sk) chunk of fp32 scores "
+    "at a time, never (S, Sk). No compiled program, so no generated-code "
+    "or alias size")
 
 
 def _collective_kinds() -> dict:
@@ -236,18 +250,20 @@ class StepCounter(TorchDispatchMode):
         self._live: dict = {}      # StorageWeakRef -> bytes
         self.live_bytes = self.peak_bytes = 0
 
-    def _made(self, out, alias: bool = False) -> None:
+    def _made(self, out, alias: bool = False, exact: bool = False) -> None:
         """Add the storages of ``out`` that ``live_bytes`` does not hold
-        yet (at 0 bytes where ``out`` is an ``alias`` of the op's input);
-        where the sum passes the peak, drop the storages no tensor holds
-        and raise the peak to what is left."""
+        yet (at 0 bytes where ``out`` is an ``alias`` of the op's input, at
+        the tensor's own bytes where ``exact``); where the sum passes the
+        peak, drop the storages no tensor holds and raise the peak to what
+        is left."""
         for t in _locals(out):
             if t.device.type == "cpu":   # host scalars (a cache's pos)
                 continue
             storage = t.untyped_storage()
             ref = StorageWeakRef(storage)
             if ref not in self._live and ref not in self._args:
-                self._live[ref] = 0 if alias else storage.nbytes()
+                self._live[ref] = 0 if alias else (
+                    _nbytes(t) if exact else storage.nbytes())
                 self.live_bytes += self._live[ref]
         if self.live_bytes > self.peak_bytes:
             for ref in [r for r in self._live if r.expired()]:
@@ -281,7 +297,10 @@ class StepCounter(TorchDispatchMode):
             if out is not NotImplemented:
                 return out
         out = func(*args, **kwargs)
-        self._made(out, alias=packet in self._wrappers)
+        # the all-to-all's meta kernel gathers the whole dim and returns a
+        # slice of it: a device receives the slice's bytes alone
+        self._made(out, alias=packet in self._wrappers,
+                   exact=packet is torch.ops._dtensor.shard_dim_alltoall)
         if flops is not None:
             n = int(flops(*args, **kwargs, out_val=out))
             self.local_flops += n
@@ -366,8 +385,8 @@ def apply_overrides(cfg, overrides: dict | None):
     bad = sorted(k for k in overrides if k in NO_EFFECT)
     if bad:
         raise ValueError(f"--set {', '.join(bad)}: no model of the port "
-                         f"reads it (no scan or chunked attention in eager "
-                         f"code), so it would change nothing")
+                         f"reads it (eager code runs every layer: there is "
+                         f"no layer scan), so it would change nothing")
     return dataclasses.replace(cfg, **overrides)
 
 
@@ -460,8 +479,8 @@ def main(argv: list[str] | None = None) -> dict:
                          "to skip)")
     ap.add_argument("--set", action="append", default=[], metavar="K=V",
                     help="ModelConfig override, e.g. --set "
-                         "decode_no_fsdp=True (repeatable); the knobs in "
-                         "NO_EFFECT are refused")
+                         "swa_block_skip=True (repeatable); scan_layers "
+                         "(NO_EFFECT) is refused")
     ap.add_argument("--out", default="experiments/dryrun_torch")
     args = ap.parse_args(argv)
 

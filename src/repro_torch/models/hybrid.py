@@ -158,7 +158,9 @@ class HymbaLM(BaseModel):
         cfg = self.cfg
         h = rmsnorm(x, p["norm.w"], cfg.norm_eps)
         qT, kT, vT = self._qkv(p, h, positions)
-        o = attention(qT, kT, vT, causal=True, window=window)
+        o = attention(qT, kT, vT, causal=True, window=window,
+                      dense_max_seq=cfg.dense_attn_max_seq,
+                      chunk=cfg.attn_chunk, block_skip=cfg.swa_block_skip)
         attn_out = merge_heads(o.transpose(1, 2))
         ssm_out, state = ssm_branch_full(h, chunk=cfg.ssm_chunk,
                                          shard_acts=cfg.ssd_shard_acts,

@@ -7,9 +7,13 @@ the CUDA kernel for a tensor on the card and takes its plain PyTorch version
 on the CPU:
   * ``rmsnorm`` runs the RMSNorm kernel, which computes exactly the JAX
     layer's function (fp32 inside, cast back to x's dtype);
-  * ``attention`` runs the flash-attention kernel.  The JAX layer computes the
-    same function in jnp, dense up to ``dense_max_seq`` and q-chunked above
-    it; the kernel takes any length, so the port has one path.
+  * ``attention`` runs the flash-attention kernel, which computes the JAX
+    layer's function at any length and skips masked tiles.  Its plain
+    version and its backward take the JAX layer's three paths: dense up to
+    ``dense_max_seq`` (or where ``chunk`` does not divide S), q-chunked
+    above it, and block-skipping under ``block_skip``, so that above
+    ``dense_max_seq`` no (S, S) score tensor is made, on the CPU, on meta
+    or in the card's backward.
 ``decode_attention``, ``swiglu`` and ``moe_ffn`` stay plain PyTorch, as the
 JAX package leaves them to XLA outside any Pallas kernel.  ``remat`` is the
 twin of the reference's ``jax.checkpoint`` around a layer: the models'
@@ -322,7 +326,9 @@ def merge_heads(o: torch.Tensor) -> torch.Tensor:
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-              causal: bool = True, window: int | None = None) -> torch.Tensor:
+              causal: bool = True, window: int | None = None,
+              dense_max_seq: int = 1024, chunk: int = 1024,
+              block_skip: bool = False) -> torch.Tensor:
     """GQA attention over a whole sequence, causal and within ``window``
     positions (a key at p is seen from rows p..p+window-1) where given.
     q: (B, Hq, S, D); k, v: (B, Hkv, S, D).  Positions are 0..S-1, as in
@@ -330,22 +336,31 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     layer's mask on positions; every row sees at least itself, so the JAX
     bias fill of -1e30 and the kernel agree.  ``bq = bk = S`` satisfy the
     TPU kernel's tiling check at any length; the CUDA kernel tiles by
-    itself.  Under a mesh see ``_sharded_attention``."""
-    if is_sharded(q):
-        return _sharded_attention(q, k, v, causal=causal, window=window)
+    itself.  The JAX layer's dispatch (layers.py:156-168): dense where
+    ``S <= dense_max_seq`` or ``S % chunk``, else ``chunk`` q rows at a
+    time, over the causal and window slice of the keys under
+    ``block_skip`` (``ops.flash_attention``'s ``chunk``).  Under a mesh
+    see ``_sharded_attention``."""
     s = q.shape[2]
+    kw = dict(causal=causal, window=window)
+    if s > dense_max_seq and s % chunk == 0:
+        kw.update(chunk=chunk, block_skip=block_skip)
+    if is_sharded(q):
+        return _sharded_attention(q, k, v, **kw)
     return ops.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
-                               causal=causal, window=window, bq=s, bk=s)
+                               bq=s, bk=s, **kw)
 
 
-def _sharded_attention(q, k, v, *, causal, window):
+def _sharded_attention(q, k, v, **kw):
     """``attention`` on each rank's local shards, as the reference's layer
     runs it under GSPMD (transformer.py:101-102): q over the batch and its
     heads as ``act_heads`` resolves, k and v over the same mesh dims where
     their heads divide them and replicated elsewhere (8 kv heads on 16
     ranks; 25 or 36 heads replicate q too).  A rank then takes the kv
     heads its own q heads use: one slice where its q heads fall in one kv
-    head or cover whole ones, one kv head a q head (group 1) otherwise."""
+    head or cover whole ones, one kv head a q head (group 1) otherwise.
+    The sequence is never split here, so a q chunk (``kw``'s ``chunk``)
+    is one of the local rows."""
     from torch.distributed.tensor import Replicate
 
     mesh, (_, hq, s, _), hkv = q.device_mesh, q.shape, k.shape[1]
@@ -370,8 +385,7 @@ def _sharded_attention(q, k, v, *, causal, window):
         elif pick is not None:
             kl, vl = kl[:, pick], vl[:, pick]
         return ops.flash_attention(ql.contiguous(), kl.contiguous(),
-                                   vl.contiguous(), causal=causal,
-                                   window=window, bq=s, bk=s)
+                                   vl.contiguous(), bq=s, bk=s, **kw)
 
     return on_local_shards(body, [(q, qp), (k, kp), (v, kp)], [qp])[0]
 

@@ -70,8 +70,10 @@ class ModelConfig:
     # across unchanged; the port reads remat and remat_policy (the training
     # forwards' recompute, layers.remat), ce_onehot (on a mesh True is
     # the vocab-parallel loss: losses.lm_cross_entropy), logits_chunk,
-    # swa_ring_buffer, ssd_shard_acts, shard_kv_seq and decode_no_fsdp,
-    # and no model of it reads the others (launch.dryrun.NO_EFFECT) ---
+    # attn_chunk, dense_attn_max_seq and swa_block_skip (the q-chunked and
+    # block-skipping attention of layers.attention), swa_ring_buffer,
+    # ssd_shard_acts, shard_kv_seq and decode_no_fsdp; no model of it
+    # reads scan_layers, XLA's layer scan (launch.dryrun.NO_EFFECT) ---
     remat: bool = True
     remat_policy: str = "nothing"
     attn_chunk: int = 1024

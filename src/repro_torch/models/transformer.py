@@ -164,7 +164,9 @@ class DecoderLM(BaseModel):
         S = x.shape[1]
         h = rmsnorm(x, p["attn_norm.w"], cfg.norm_eps)
         qT, kT, vT = self._qkv(p, h, positions, shard=True)
-        o = attention(qT, kT, vT, causal=cfg.causal, window=cfg.window)
+        o = attention(qT, kT, vT, causal=cfg.causal, window=cfg.window,
+                      dense_max_seq=cfg.dense_attn_max_seq,
+                      chunk=cfg.attn_chunk, block_skip=cfg.swa_block_skip)
         o = merge_heads(o.transpose(1, 2))
         x = constrain(x + (o @ p["attn.wo"].to(o.dtype)),
                       "batch", "seq", "act_embed")

@@ -32,7 +32,7 @@ from repro.optimizer import AdamWState
 from repro.parallel.sharding import use_sharding as jax_use_sharding
 from repro_torch import configs as tconfigs
 from repro_torch.launch import dryrun
-from repro_torch.launch.mesh import fake_world
+from repro_torch.launch.mesh import fake_world, make_production_mesh
 from repro_torch.models import (get_model, make_decode_step, make_encode_step,
                                 make_prefill_step, make_train_step)
 from repro_torch.optimizer import abstract_opt_state
@@ -237,12 +237,22 @@ def test_a_dtensor_on_the_card_raises_and_never_runs_plain(mesh2x2,
 
 
 # --------------------------------------------------------- the counted cells
+def _skip_pairs(S: int, chunk: int) -> int:
+    """(row, key) pairs of a causal block-skipping attention over S rows
+    per (batch, head): each q chunk of ``chunk`` rows reads the keys up to
+    its last row (the reference's ``_chunked_attention_skip``), so the
+    sum over chunks i of chunk * (hi_i - lo_i)."""
+    return sum(chunk * min(a + chunk, S) for a in range(0, S, chunk))
+
+
 def _llama_smoke_flops(kind: str, B: int, S: int, data: int = 1,
-                       model: int = 1, remat="nothing") -> int:
+                       model: int = 1, remat="nothing",
+                       pairs: int | None = None) -> int:
     """Matmul FLOPs of the smoke llama3.2-1b from its config: the layer
-    weights on every token, dense attention over every key (4 B H S^2 hd
-    a layer: scores and values), and the LM head (the last token alone in
-    a prefill).  A train step's backward takes two matmuls a forward one:
+    weights on every token, attention over every key (4 B H S^2 hd a layer:
+    scores and values; ``pairs`` in place of S^2 where the attention skips
+    blocks, ``_skip_pairs``), and the LM head (the last token alone in a
+    prefill).  A train step's backward takes two matmuls a forward one:
     3x the forward, and recomputes as ``remat`` (the policy, or False)
     says: under ``"nothing"`` the layers' forward again but each layer's
     last product (the FFN's down projection, 2 B S F M a layer, whose
@@ -261,32 +271,44 @@ def _llama_smoke_flops(kind: str, B: int, S: int, data: int = 1,
     layer_weights = L * (2 * M * H * hd + 2 * M * KV * hd + 3 * M * F)
     if kind == "decode":   # one token over a cache of S slots
         return 2 * layer_weights * B + 4 * B * H * S * hd * L + 2 * B * M * V
-    fwd = 2 * layer_weights * B * S + 4 * B * H * S * S * hd * L
+    pairs = S * S if pairs is None else pairs
+    fwd = 2 * layer_weights * B * S + 4 * B * H * pairs * hd * L
     if kind == "prefill":
         return fwd + 2 * B * M * V
     recompute = {"nothing": fwd - 2 * B * S * F * M * L,
-                 "dots": 4 * B * H * S * S * hd * L, False: 0}[remat]
+                 "dots": 4 * B * H * pairs * hd * L, False: 0}[remat]
     return 3 * (fwd + 2 * B * S * M * V) + recompute
 
 
+# block-skipping attention over SMALL's 64 tokens in 4 chunks of 16
+SKIP = dict(swa_block_skip=True, attn_chunk=16, dense_attn_max_seq=16)
+
+
 @pytest.mark.parametrize("on_mesh", [False, True], ids=["no_mesh", "2x2"])
-@pytest.mark.parametrize("kind,remat", [
-    ("prefill", "nothing"), ("train", "nothing"), ("decode", "nothing"),
-    ("train", "dots"), ("train", False)],
-    ids=["prefill", "train", "decode", "train-dots", "train-no_remat"])
-def test_matmul_flops_equal_the_closed_form(kind, remat, on_mesh):
+@pytest.mark.parametrize("kind,remat,attn", [
+    ("prefill", "nothing", {}), ("train", "nothing", {}),
+    ("decode", "nothing", {}), ("train", "dots", {}), ("train", False, {}),
+    ("prefill", "nothing", SKIP), ("train", "nothing", SKIP),
+    ("train", "dots", SKIP)],
+    ids=["prefill", "train", "decode", "train-dots", "train-no_remat",
+         "prefill-skip", "train-skip", "train-dots-skip"])
+def test_matmul_flops_equal_the_closed_form(kind, remat, attn, on_mesh):
     """The world's FLOPs are the closed form's on either; on the 2x2 mesh a
     device runs its own share of every matmul and of attention, heads and
     batch sharded (the norms and attention on local shards, counted into
     the world's by the pieces the mesh splits them into, the recomputed
     bodies as the first ones).  A train step recomputes as its remat
-    policy says (the default ``"nothing"``, ``"dots"``, or none)."""
-    cfg = tconfigs.get_smoke_config("llama3.2-1b")
+    policy says (the default ``"nothing"``, ``"dots"``, or none).  Under
+    ``swa_block_skip`` (``-skip``) attention reads ``_skip_pairs`` (row,
+    key) pairs in place of S^2, the ``"dots"`` recompute included."""
+    cfg = dataclasses.replace(tconfigs.get_smoke_config("llama3.2-1b"),
+                              **attn)
     cfg = dataclasses.replace(cfg, remat=False) if remat is False else \
         dataclasses.replace(cfg, remat_policy=remat)
     shape = SMALL[kind]
+    pairs = _skip_pairs(shape.seq_len, SKIP["attn_chunk"]) if attn else None
     want = _llama_smoke_flops(kind, shape.global_batch, shape.seq_len,
-                              remat=remat)
+                              remat=remat, pairs=pairs)
     if on_mesh:
         with fake_world(4):
             mesh = DeviceMesh("cpu", torch.arange(4).reshape(2, 2),
@@ -295,7 +317,7 @@ def test_matmul_flops_equal_the_closed_form(kind, remat, on_mesh):
         assert got["chips"] == 4 and got["collectives"]["count"] > 0
         assert got["matmul_flops_per_device"] == _llama_smoke_flops(
             kind, shape.global_batch, shape.seq_len, data=2, model=2,
-            remat=remat)
+            remat=remat, pairs=pairs)
     else:
         got = dryrun.run_cell(cfg, shape, None)
         assert got["matmul_flops_per_device"] == want
@@ -503,6 +525,8 @@ def test_skips_are_the_references(arch, shape):
 # ----------------------------------------------------------------- the CLI
 @pytest.mark.parametrize("knob", dryrun.NO_EFFECT)
 def test_a_knob_the_port_does_not_read_is_refused(knob, capsys, tmp_path):
+    """``scan_layers``, XLA's layer scan, has no counterpart in eager code:
+    ``--set`` refuses it and writes nothing."""
     with pytest.raises(SystemExit) as e:
         dryrun.main(["--arch", "llama3.2-1b", "--shape", "prefill_32k",
                      "--set", f"{knob}=True", "--out", str(tmp_path)])
@@ -528,6 +552,63 @@ def test_remat_knobs_are_taken(knob, value, remat, monkeypatch, tmp_path):
     shape = SMALL["train"]
     assert res["matmul_flops"] == _llama_smoke_flops(
         "train", shape.global_batch, shape.seq_len, remat=remat)
+
+
+# knob -> (the smoke config's attention before the --set, the value set,
+# the (row, key) pairs a (batch, head) of SMALL's train cell reads after it)
+ATTENTION_KNOBS = {
+    "swa_block_skip": (dict(attn_chunk=16, dense_attn_max_seq=16), True,
+                       _skip_pairs(64, 16)),
+    "attn_chunk": (SKIP, 32, _skip_pairs(64, 32)),
+    "dense_attn_max_seq": (SKIP, 64, 64 * 64),
+}
+
+
+@pytest.mark.parametrize("knob", sorted(ATTENTION_KNOBS))
+def test_attention_knobs_are_taken(knob, monkeypatch, tmp_path):
+    """``--set`` of each of the reference's three attention knobs reaches
+    the model and is recorded in ``overrides``: the smoke train cell's
+    FLOPs are the closed form's for the attention the knob leaves (block
+    skipping turned on, a wider chunk, or the dense path up to 64), not
+    the ones before it."""
+    before, value, pairs = ATTENTION_KNOBS[knob]
+    smoke = dataclasses.replace(tconfigs.get_smoke_config("llama3.2-1b"),
+                                **before)
+    monkeypatch.setattr(dryrun, "get_config", lambda arch: smoke)
+    monkeypatch.setitem(dryrun.SHAPES, "train_4k", SMALL["train"])
+    assert dryrun.main(["--arch", "llama3.2-1b", "--shape", "train_4k",
+                        "--single-pod", "--set", f"{knob}={value}",
+                        "--out", str(tmp_path)])["ok"] == 1
+    res = json.loads((tmp_path / "single_pod" /
+                      "llama3.2-1b__train_4k.json").read_text())
+    assert res["overrides"] == {knob: repr(value)}
+    b, s = SMALL["train"].global_batch, SMALL["train"].seq_len
+    was = _skip_pairs(s, 16) if before is SKIP else s * s
+    assert pairs != was
+    assert res["matmul_flops"] == _llama_smoke_flops("train", b, s,
+                                                     pairs=pairs)
+
+
+def test_a_long_prefill_holds_one_chunk_of_scores_at_a_time():
+    """Fault D's repair in the dry run: llama3.2-1b's prefill_32k on the
+    16x16 mesh, under the reference's defaults (attention in q chunks of
+    1024 above 1024 tokens), holds at most a tenth of the temp bytes a
+    device holds under the dense program (``dense_attn_max_seq=32768``,
+    three (2, 2, 32768, 32768) fp32 score tensors at once), at equal
+    matmul FLOPs: chunking by q rows alone leaves the products whole."""
+    with fake_world(256):
+        mesh = make_production_mesh(multi_pod=False, device_type="cpu")
+        chunked = dryrun.dryrun_cell("llama3.2-1b", "prefill_32k", mesh)
+        dense = dryrun.dryrun_cell("llama3.2-1b", "prefill_32k", mesh,
+                                   overrides={"dense_attn_max_seq": 32768})
+    assert chunked["status"] == dense["status"] == "ok"
+    assert chunked["matmul_flops"] == dense["matmul_flops"]
+    assert chunked["matmul_flops_per_device"] == \
+        dense["matmul_flops_per_device"]
+    temp = chunked["memory"]["temp_size_bytes"]
+    dense_temp = dense["memory"]["temp_size_bytes"]
+    assert dense_temp >= 3 * 2 * 2 * 32768 ** 2 * 4
+    assert 10 * temp <= dense_temp
 
 
 def test_main_writes_a_cell_resumes_and_recomputes_with_force(tmp_path,

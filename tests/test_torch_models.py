@@ -75,7 +75,11 @@ def _patches(cfg, b: int, seed: int = 6):
 # positional cache and 40 into a rolling one, shifted or a ring buffer;
 # moonshot routes 8 experts; internvl2 takes patch_embeds in place of its
 # first 8 positions and masks them out of the loss; logits_chunk = 4 takes
-# the loss over 4 chunks of the sequence
+# the loss over 4 chunks of the sequence.  The -chunked-skip cases take the
+# block-skipping branch (swa_block_skip): the llama smoke at chunk 64 over
+# 128 tokens, mixtral at chunk 16 over 80 within its window of 32, where the
+# last two chunks skip the keys before 16 and 32 (its prefill of 79 tokens
+# falls back to the dense branch, as JAX's does)
 CASES = {
     "llama-dense": ("llama3.2-1b", {}, 17),
     "llama-chunked": ("llama3.2-1b", dict(dense_attn_max_seq=64,
@@ -88,6 +92,10 @@ CASES = {
     "moonshot": ("moonshot-v1-16b-a3b", {}, 17),
     "internvl2-patch": ("internvl2-2b", {}, 17),
     "llama-logits-chunk": ("llama3.2-1b", dict(logits_chunk=4), 16),
+    "llama-chunked-skip": ("llama3.2-1b", dict(
+        dense_attn_max_seq=64, attn_chunk=64, swa_block_skip=True), 128),
+    "mixtral-chunked-skip": ("mixtral-8x22b", dict(
+        dense_attn_max_seq=16, attn_chunk=16, swa_block_skip=True), 80),
 }
 
 
