@@ -88,7 +88,12 @@ that run it, and drives every ported path at full size:
   at 2 x 4096 tokens now fall strictly from the unchunked to the chunked
   loss, and a variant adds block skipping; the dry run adds
   ``prefill_32k`` under ``--set swa_block_skip=True``, whose FLOPs are the
-  closed form over the chunks' key slices.
+  closed form over the chunks' key slices;
+* slice 16: fault E.  The flash Function's dense backward, like the plain
+  attention on and off a mesh, sums dk and dv over the GQA group and the
+  q chunks in fp32 and rounds them to bf16 once, as the reference does,
+  so ``check_chunked_backward`` holds the chunk-wise backward to the dense
+  one at 2e-4 relative Frobenius, where it took 2^-8 before.
 
 Besides, it holds the RMSNorm kernel against its plain version at every
 edge of its geometry (``check_rmsnorm_edges``), and the decoder's loss
@@ -842,11 +847,14 @@ def check_flash() -> tuple[int, float, float]:
 # on the same bf16 q, k, v and g, at the remat phase's attention (2 x 4096
 # tokens, llama3.2-1b's heads), in chunks of the reference's attn_chunk:
 # (causal, window, block_skip) cases, each grad within FLASH_BWD_TOL
-# relative Frobenius (both sum in fp32 and round to bf16 once; dk and dv
-# sum their chunks in another order)
+# relative Frobenius.  Both backwards sum dk and dv over the GQA group and
+# the chunks in fp32 and round them to bf16 once (slice 16, fault E: the
+# dense one had summed a group's bf16 grads, 2.7e-3 away), so they differ
+# only where their fp32 sums, taken in another order, round a value to
+# either side of a bf16 tie
 FLASH_BWD_CASES = ((True, None, False), (True, None, True),
                    (True, 1024, False), (True, 1024, True))
-FLASH_BWD_CHUNK, FLASH_BWD_TOL = 1024, 2 ** -8
+FLASH_BWD_CHUNK, FLASH_BWD_TOL = 1024, 2e-4
 
 
 def check_chunked_backward() -> dict:

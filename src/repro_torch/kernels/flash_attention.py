@@ -55,14 +55,16 @@ def plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 def _rows(q, k, v, q_lo: int, k_lo: int, causal: bool, window: int | None,
           sm_scale: float | None) -> torch.Tensor:
     """Attention of the rows q_lo.. (q) over the keys k_lo.. (k, v), masked
-    on those absolute indices, fp32 inside, cast to q's dtype."""
-    _, hq, s, d = q.shape
+    on those absolute indices, fp32 inside, cast to q's dtype.  As the
+    reference's ``_dense_attention`` (src/repro/models/layers.py:78-89),
+    q's heads are grouped as (Hkv, group) and contracted with the widened
+    k and v, never repeated: autograd sums dk and dv over the group in
+    fp32, and they are rounded once, to k's and v's dtype."""
+    b, hq, s, d = q.shape
     _, hkv, sk, _ = k.shape
-    group = hq // hkv
     scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(d)
-    kr = _build.wide(k.repeat_interleave(group, dim=1))
-    vr = _build.wide(v.repeat_interleave(group, dim=1))
-    scores = torch.einsum("bhqd,bhkd->bhqk", _build.wide(q), kr) * scale
+    qg = _build.wide(q).reshape(b, hkv, hq // hkv, s, d)
+    scores = torch.einsum("bhgqd,bhkd->bhgqk", qg, _build.wide(k)) * scale
     # (s, sk) made from the scores, so a DTensor's mask is one on its mesh
     mask = scores.new_ones((s, sk), dtype=torch.bool)
     if causal:
@@ -71,9 +73,9 @@ def _rows(q, k, v, q_lo: int, k_lo: int, causal: bool, window: int | None,
         mask = mask.triu(q_lo - k_lo - window + 1)    # col > row - window
     scores = torch.where(mask, scores, torch.full_like(scores, -1e30))
     p = torch.softmax(scores, dim=-1)
-    out = torch.einsum("bhqk,bhkd->bhqd", p, vr)
+    out = torch.einsum("bhgqk,bhkd->bhgqd", p, _build.wide(v))
     out = torch.where(mask.any(dim=-1)[:, None], out, torch.zeros_like(out))
-    return out.to(q.dtype)
+    return out.reshape(b, hq, s, d).to(q.dtype)
 
 
 def chunk_keys(q_lo: int, sk: int, *, causal: bool, window: int | None,
@@ -105,7 +107,11 @@ def plain_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     reference's ``_chunked_attention`` and ``_chunked_attention_skip``
     (src/repro/models/layers.py:92-153): each chunk's fp32 scores span
     the keys ``chunk_keys`` gives it, so the largest transient is (B, Hq,
-    chunk, Sk), never (B, Hq, S, Sk).  S must be a multiple of ``chunk``."""
+    chunk, Sk), never (B, Hq, S, Sk).  S must be a multiple of ``chunk``.
+    k and v are widened once, before the loop, as the reference's ``kf``
+    and ``vf``: autograd sums their chunks' grads in fp32 and rounds
+    them once."""
+    k, v = _build.wide(k), _build.wide(v)
     outs = []
     for a in _chunks(q.shape[2], chunk):
         lo, hi = chunk_keys(a, k.shape[2], causal=causal, window=window,
@@ -150,7 +156,12 @@ class FlashAttentionFunction(torch.autograd.Function):
     ``enable_grad`` (fp32 inside, the same causal, window and GQA
     arguments) and differentiated; with one, ``plain_backward``, chunk by
     chunk.  A row that sees no key outputs 0 through a ``where``, so it
-    passes back no gradient."""
+    passes back no gradient.  Either backward sums dk and dv over the GQA
+    group and the chunks in fp32 and casts them once, to k's and v's
+    dtype.  k and v may come wider than q (fp32 beside bf16 q, as the
+    sharded attention hands them, so that their grads come back unrounded
+    and are summed across ranks before their cast): the kernel then takes
+    them cast to q's dtype, which holds their values."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, sm_scale, chunk=None,
@@ -159,7 +170,7 @@ class FlashAttentionFunction(torch.autograd.Function):
         ctx.args = dict(causal=causal, window=window, sm_scale=sm_scale)
         ctx.chunks = None if chunk is None else dict(chunk=chunk,
                                                      block_skip=block_skip)
-        return launch(q, k, v, **ctx.args)
+        return launch(q, k.to(q.dtype), v.to(q.dtype), **ctx.args)
 
     @staticmethod
     def backward(ctx, g):

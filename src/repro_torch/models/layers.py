@@ -46,7 +46,7 @@ from ..kernels._build import wide
 from ..parallel.sharding import (all_reduce_over, constrain, current_ctx,
                                  is_shard, is_sharded, logical_spec,
                                  on_local_shards, placements, reentered,
-                                 replicate_as, shard_bounds)
+                                 replicate_as, shard_bounds, widened)
 
 NEG_INF = -1e30
 # the products with no batch dims: ``x @ w`` with a 2-D ``w`` lowers to one
@@ -360,7 +360,10 @@ def _sharded_attention(q, k, v, **kw):
     heads its own q heads use: one slice where its q heads fall in one kv
     head or cover whole ones, one kv head a q head (group 1) otherwise.
     The sequence is never split here, so a q chunk (``kw``'s ``chunk``)
-    is one of the local rows."""
+    is one of the local rows.  Where a graph is recorded, k and v enter
+    widened to fp32 (``widened``): the pick's backward sums a kv head's
+    grads over its q heads in fp32, the ranks that share a kv head sum
+    theirs in fp32, and each grad is rounded to bf16 once, after both."""
     from torch.distributed.tensor import Replicate
 
     mesh, (_, hq, s, _), hkv = q.device_mesh, q.shape, k.shape[1]
@@ -377,6 +380,8 @@ def _sharded_attention(q, k, v, **kw):
             pick = slice(h0 // g, (h1 - 1) // g + 1)
         else:
             pick = [h // g for h in range(h0, h1)]
+    if torch.is_grad_enabled() and (k.requires_grad or v.requires_grad):
+        k, v = widened(k, kp), widened(v, kp)
 
     def body(ql, kl, vl):
         if isinstance(pick, list):

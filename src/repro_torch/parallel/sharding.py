@@ -274,6 +274,36 @@ class _Constrain(torch.autograd.Function):
             None
 
 
+class _Widened(torch.autograd.Function):
+    """``x`` redistributed to ``target`` placements and widened to float32
+    (float64 stays).  Backward: the grad, in the wide type, is taken back
+    to x's own placements (a ``Partial`` sum across the ranks reduced
+    there) and only then cast to x's dtype, so that each of its values is
+    rounded once, after every sum, as GSPMD reduces the reference's fp32
+    einsum before its one cast."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, target):
+        ctx.mesh, ctx.pls, ctx.dtype = mesh, tuple(x.placements), x.dtype
+        return x.redistribute(mesh, target).to(
+            torch.promote_types(x.dtype, torch.float32))
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad.redistribute(ctx.mesh, ctx.pls).to(ctx.dtype), None, \
+            None
+
+
+def widened(x: torch.Tensor, target: Sequence) -> torch.Tensor:
+    """DTensor ``x`` at ``target`` placements in float32, its grad summed
+    across the ranks in float32 and cast to x's dtype once
+    (``_Widened``); ``x`` itself where it is float32 or wider already."""
+    target = tuple(target)
+    if torch.promote_types(x.dtype, torch.float32) == x.dtype:
+        return x
+    return _Widened.apply(x, x.device_mesh, target)
+
+
 def constrain(x: torch.Tensor, *names: str | None,
               shape: Sequence[int] | None = None) -> torch.Tensor:
     """A DTensor redistributed to the named placements under a mesh, its
