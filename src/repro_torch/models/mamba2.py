@@ -33,7 +33,10 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from ..parallel.sharding import constrain, replicate_as
+from ..parallel.sharding import (act_mesh_dim, blocked_columns, constrain,
+                                 from_blocks, is_shard, on_local_shards,
+                                 replicate_as, shard_last_over,
+                                 split_blocked, to_blocks, whole_over)
 from .layers import (_span, embed, merge_heads, remat, rmsnorm,
                      split_heads)
 from .losses import lm_cross_entropy
@@ -173,6 +176,61 @@ def split_proj(proj: torch.Tensor, d_inner: int, n: int):
             proj[..., 2 * d_inner + 2 * n:])
 
 
+def _offsets(widths) -> list:
+    return [sum(widths[:i]) for i in range(len(widths))]
+
+
+def proj_blocks(h: torch.Tensor, in_proj: torch.Tensor, widths, m: int
+                ) -> list:
+    """``h @ in_proj`` under a mesh as its blocks of ``widths`` (z, x, B,
+    C, dt), none gathered: the blocks whose widths divide mesh dim ``m``
+    come from one product by in_proj's columns in the blocked order
+    (``blocked_columns``), each split over ``m``; any other block from a
+    product by its own columns, whole on each rank (gathered where DTensor
+    splits the product unevenly).  Otherwise only the weight moves
+    (gathered over ``m``), where slicing the product of the stored column
+    order would gather it whole once a slice."""
+    T = h.device_mesh.size(m)
+    w = whole_over(in_proj.to(h.dtype), m)
+    spans = list(zip(_offsets(widths), widths))
+    split = [i for i, n in enumerate(widths) if n % T == 0]
+    got = {}
+    if split:
+        wb = blocked_columns(w, [spans[i] for i in split], m)
+        got = dict(zip(split, split_blocked(
+            h @ wb, [widths[i] for i in split], m)))
+    return [got[i] if i in got else whole_over(h @ w[..., o:o + n], m)
+            for i, (o, n) in enumerate(spans)]
+
+
+def conv_blocks(blocks, conv_w: torch.Tensor, conv_b: torch.Tensor, fn,
+                m: int, out_ndim: int) -> list:
+    """``fn(block, its conv weight columns, its bias)``, a tensor of
+    ``out_ndim`` dims, for each of ``blocks`` (x, B, C), whose last dims
+    take the conv's channels in turn.  ``fn`` runs on each rank's local
+    shards (``on_local_shards``): a depthwise conv mixes no channels, and
+    DTensor 2.11 cannot pad a tensor split on another dim.  A block split
+    over mesh dim ``m`` meets its weight columns split there too (the
+    weights cast to the blocks' dtype, as ``causal_conv`` casts them, and
+    gathered over ``m`` first: they are small)."""
+    from torch.distributed.tensor import Shard
+
+    dtype = blocks[0].dtype
+    cw, cb = whole_over(conv_w.to(dtype), m), whole_over(conv_b.to(dtype), m)
+    widths = [t.shape[-1] for t in blocks]
+    out = []
+    for t, o, n in zip(blocks, _offsets(widths), widths):
+        w, b = cw[..., o:o + n], cb[o:o + n]
+        if is_shard(t.placements[m]):
+            w, b = shard_last_over(w, m), shard_last_over(b, m)
+        pls = tuple(t.placements)
+        out_pls = [Shard(out_ndim - 1) if is_shard(p) and p.dim == t.ndim - 1
+                   else p for p in pls]
+        out.append(on_local_shards(fn, [(t, pls), (w, w.placements),
+                                        (b, b.placements)], [out_pls])[0])
+    return out
+
+
 def causal_conv(xbc: torch.Tensor, w: torch.Tensor, bias: torch.Tensor
                 ) -> torch.Tensor:
     """silu(depthwise causal conv of xbc (B, S, C) by w (K, C) + bias), in
@@ -187,6 +245,14 @@ def causal_conv(xbc: torch.Tensor, w: torch.Tensor, bias: torch.Tensor
     return F.silu(conv + bias.to(conv.dtype))
 
 
+def conv_step(hist: torch.Tensor, w: torch.Tensor, bias: torch.Tensor
+              ) -> torch.Tensor:
+    """The conv's one output of a decode step: silu(the K inputs hist (B,
+    K, C) by w (K, C) + bias) (mamba2.py:296-300)."""
+    conv = torch.einsum("bkc,kc->bc", hist, w.to(hist.dtype))
+    return F.silu(conv + bias.to(conv.dtype))
+
+
 def ssm_branch_full(h: torch.Tensor, in_proj: torch.Tensor,
                     conv_w: torch.Tensor, conv_b: torch.Tensor,
                     a_log: torch.Tensor, dt_bias: torch.Tensor,
@@ -195,24 +261,41 @@ def ssm_branch_full(h: torch.Tensor, in_proj: torch.Tensor,
     """The SSM branch over a whole sequence, up to the gate: h (B, S, M)
     -> (y * silu(z) (B, S, d_inner) in h's dtype, (conv state (B, K - 1,
     conv_dim) in ``ACT_DTYPE``, SSD state (B, H, N, P) fp32)).
-    mamba2.py:180-198 and hybrid.py:85-107 are this function."""
+    mamba2.py:180-198 and hybrid.py:85-107 are this function.
+
+    Under a mesh the branch keeps in_proj's blocks and the conv's outputs
+    split over ``act_ff``'s mesh dim (``proj_blocks``, ``conv_blocks``);
+    B and C are gathered once each, for the SSD, which every head reads,
+    and the conv state takes the cache's column order by one all-to-all
+    of its K - 1 rows (``from_blocks``)."""
     S = h.shape[1]
     H = d_inner // head_dim
-    proj = h @ in_proj.to(h.dtype)
-    z, xs, b, c, dt = split_proj(proj, d_inner, n)
-    xbc = torch.cat([xs, b, c], dim=-1)                   # (B, S, conv_dim)
-    with _span("ssm.conv"):
-        conv = causal_conv(xbc, conv_w, conv_b)
-    xs, b, c = (conv[..., :d_inner], conv[..., d_inner:d_inner + n],
-                conv[..., d_inner + n:])
+    K = conv_w.shape[0]
+    m = act_mesh_dim("act_ff", h)
+    if m is None:
+        proj = h @ in_proj.to(h.dtype)
+        z, xs, b, c, dt = split_proj(proj, d_inner, n)
+        xbc = torch.cat([xs, b, c], dim=-1)               # (B, S, conv_dim)
+        with _span("ssm.conv"):
+            conv = causal_conv(xbc, conv_w, conv_b)
+        xs, b, c = (conv[..., :d_inner], conv[..., d_inner:d_inner + n],
+                    conv[..., d_inner + n:])
+        tail = xbc[:, -(K - 1):]
+    else:
+        z, xs, b, c, dt = proj_blocks(h, in_proj,
+                                      (d_inner, d_inner, n, n, H), m)
+        tail = from_blocks([t[:, -(K - 1):] for t in (xs, b, c)], m)
+        with _span("ssm.conv"):
+            xs, b, c = conv_blocks((xs, b, c), conv_w, conv_b, causal_conv,
+                                   m, out_ndim=3)
+        b, c = whole_over(b, m), whole_over(c, m)
     dt = constrain(dt, "batch", "seq", "act_heads")   # as ssm_branch_step
     dt = F.softplus(dt.float() + dt_bias.float())
     with _span("ssm.scan"):
         y, final = ssd_chunked(split_heads(xs, H), dt, a_log, b, c, d_skip,
                                chunk=min(chunk, S), shard_acts=shard_acts)
     y = merge_heads(y) * F.silu(z.float()).to(y.dtype)
-    K = conv_w.shape[0]
-    return y, (xbc[:, -(K - 1):].to(ACT_DTYPE), final)
+    return y, (tail.to(ACT_DTYPE), final)
 
 
 def ssm_branch_step(h: torch.Tensor, conv_c: torch.Tensor,
@@ -223,17 +306,32 @@ def ssm_branch_step(h: torch.Tensor, conv_c: torch.Tensor,
                     head_dim: int):
     """One decode step of the SSM branch, up to the gate: h (B, M) ->
     (y * silu(z) (B, d_inner), (new conv state, new SSD state)).
-    mamba2.py:293-309 and hybrid.py:203-223 are this function."""
+    mamba2.py:293-309 and hybrid.py:203-223 are this function.  Under a
+    mesh, as ``ssm_branch_full``: the cached conv state is taken to the
+    blocks' layout and back by an all-to-all of its K - 1 rows
+    (``to_blocks``, ``from_blocks``), and the conv runs on each block."""
     H = d_inner // head_dim
-    proj = h @ in_proj.to(h.dtype)                       # (B, d_in_proj)
-    z, xs, b, c, dt = split_proj(proj, d_inner, n)
-    xbc = torch.cat([xs, b, c], dim=-1)                   # (B, conv_dim)
-    hist = torch.cat([conv_c, xbc[:, None]], dim=1)       # (B, K, conv_dim)
-    with _span("ssm.conv"):
-        conv = torch.einsum("bkc,kc->bc", hist, conv_w.to(hist.dtype))
-        conv = F.silu(conv + conv_b.to(conv.dtype))
-    xs_c, b_c, c_c = (conv[:, :d_inner], conv[:, d_inner:d_inner + n],
-                      conv[:, d_inner + n:])
+    m = act_mesh_dim("act_ff", h)
+    if m is None:
+        proj = h @ in_proj.to(h.dtype)                   # (B, d_in_proj)
+        z, xs, b, c, dt = split_proj(proj, d_inner, n)
+        xbc = torch.cat([xs, b, c], dim=-1)               # (B, conv_dim)
+        hist = torch.cat([conv_c, xbc[:, None]], dim=1)   # (B, K, conv_dim)
+        with _span("ssm.conv"):
+            conv = conv_step(hist, conv_w, conv_b)
+        xs_c, b_c, c_c = (conv[:, :d_inner], conv[:, d_inner:d_inner + n],
+                          conv[:, d_inner + n:])
+        hist = hist[:, 1:]
+    else:
+        z, xs, b, c, dt = proj_blocks(h, in_proj,
+                                      (d_inner, d_inner, n, n, H), m)
+        hists = [torch.cat([old, new[:, None]], dim=1) for old, new in
+                 zip(to_blocks(conv_c, (d_inner, n, n), m), (xs, b, c))]
+        with _span("ssm.conv"):
+            xs_c, b_c, c_c = conv_blocks(hists, conv_w, conv_b, conv_step,
+                                         m, out_ndim=2)
+        hist = from_blocks([t[:, 1:] for t in hists], m)
+        b_c, c_c = whole_over(b_c, m), whole_over(c_c, m)
     # the step runs in the SSD cache's layout (SSD_NAMES: a rank holds
     # every head of its batch shard), so the new state is written where
     # the cache keeps it: the step's (B, d_inner) and (B, H) inputs are
@@ -246,7 +344,7 @@ def ssm_branch_step(h: torch.Tensor, conv_c: torch.Tensor,
         y, new_ssd = ssd_decode_step(ssd_c, xs_c.reshape(-1, H, head_dim),
                                      dt, a_log, b_c, c_c, d_skip)
     y = merge_heads(y) * F.silu(z.float()).to(y.dtype)
-    return y, (hist[:, 1:].to(ACT_DTYPE), new_ssd)
+    return y, (hist.to(ACT_DTYPE), new_ssd)
 
 
 # ---------------------------------------------------------------------------

@@ -233,6 +233,10 @@ def logical_sharding(shape: Sequence[int], names: Sequence[str | None],
     return ctx.mesh, placements(logical_spec(shape, names, ctx), ctx.mesh)
 
 
+def _global_stride(shape: Sequence[int]) -> tuple:
+    return tuple(math.prod(shape[d + 1:]) for d in range(len(shape)))
+
+
 def abstract_tensor(shape: Sequence[int], dtype: torch.dtype, sharding=None
                     ) -> torch.Tensor:
     """The port's ``jax.ShapeDtypeStruct``: a meta tensor of ``shape`` and
@@ -248,10 +252,10 @@ def abstract_tensor(shape: Sequence[int], dtype: torch.dtype, sharding=None
     for i, pl in enumerate(pls):
         if isinstance(pl, (Shard, _StridedShard)):
             local[pl.dim] //= mesh.size(i)
-    stride = [math.prod(shape[d + 1:]) for d in range(len(shape))]
     return DTensor.from_local(
         torch.empty(local, dtype=dtype, device="meta"), mesh, pls,
-        run_check=False, shape=torch.Size(shape), stride=tuple(stride))
+        run_check=False, shape=torch.Size(shape),
+        stride=_global_stride(shape))
 
 
 class _Constrain(torch.autograd.Function):
@@ -497,6 +501,220 @@ def on_local_shards(fn, inputs: Sequence[tuple], out_placements: Sequence
                        if any(is_shard(x.placements[m]) for x in xs))
     return _OnLocalShards.apply(fn, mesh, tuple(map(tuple, out_placements)),
                                 split_dims, *xs)
+
+
+# ---------------------------------------------------------------------------
+# column blocks of a fused projection (in_proj -> z, x, B, C, dt)
+# ---------------------------------------------------------------------------
+def act_mesh_dim(name: str, like: torch.Tensor) -> int | None:
+    """The mesh dim that the logical activation axis ``name`` shards over
+    (the first axis of its rule larger than 1) where ``like`` is a DTensor
+    under a mesh context; None elsewhere."""
+    if not is_sharded(like):
+        return None
+    ctx, names = current_ctx(), list(like.device_mesh.mesh_dim_names)
+    for ax in ctx.rules.get(name, ()):
+        if ax in names and ctx.axis_size(ax) > 1:
+            return names.index(ax)
+    return None
+
+
+def _with_placement(t: torch.Tensor, mesh_dim: int, pl) -> torch.Tensor:
+    """DTensor ``t`` redistributed to ``pl`` on ``mesh_dim``, its other
+    placements kept, its local shard contiguous (``_Constrain``'s reason)."""
+    pls = list(t.placements)
+    if pls[mesh_dim] == pl:
+        return t
+    pls[mesh_dim] = pl
+    return t.redistribute(t.device_mesh, pls).contiguous()
+
+
+def whole_over(t: torch.Tensor, mesh_dim: int) -> torch.Tensor:
+    """DTensor ``t`` replicated over ``mesh_dim`` (gathered where it is
+    split there), its other placements kept."""
+    from torch.distributed.tensor import Replicate
+
+    return _with_placement(t, mesh_dim, Replicate())
+
+
+def shard_last_over(t: torch.Tensor, mesh_dim: int) -> torch.Tensor:
+    """DTensor ``t`` with its last dim split over ``mesh_dim``, its other
+    placements kept: each rank's piece of a replicated ``t``, no collective."""
+    from torch.distributed.tensor import Shard
+
+    return _with_placement(t, mesh_dim, Shard(t.ndim - 1))
+
+
+def blocked_columns(w: torch.Tensor, blocks: Sequence[tuple[int, int]],
+                    mesh_dim: int) -> torch.Tensor:
+    """The columns (last dim) of DTensor ``w`` in the blocks (offset,
+    width) in turn, reordered so that the shard of each rank r over
+    ``mesh_dim`` holds r's contiguous piece of every block, block after
+    block, as Megatron lays out a fused QKV: a product by it splits into
+    the blocks' shards with no collective (``split_blocked``).  ``w`` is
+    gathered over ``mesh_dim`` first: a weight, small beside what the
+    product makes.  Every width must divide by the mesh dim's size."""
+    T = w.device_mesh.size(mesh_dim)
+    w = whole_over(w, mesh_dim)
+    wb = torch.cat([w[..., o:o + n].unflatten(-1, (T, n // T))
+                    for o, n in blocks], dim=-1).flatten(-2)
+    return shard_last_over(wb, mesh_dim)
+
+
+class _SplitBlocked(torch.autograd.Function):
+    """The blocks of a DTensor whose last dim is split over ``mesh_dim``
+    in ``blocked_columns``' order: each a DTensor of its own width split
+    the same way, cut from the local shard (contiguous copies; nothing is
+    saved).  Backward: the blocks' grads, laid out as their outputs, are
+    joined on each rank."""
+
+    @staticmethod
+    def forward(ctx, x, widths, mesh_dim):
+        from torch.distributed.tensor import DTensor
+
+        mesh, pls = x.device_mesh, tuple(x.placements)
+        T = mesh.size(mesh_dim)
+        local = x.to_local()
+        ctx.mesh, ctx.pls, ctx.shape = mesh, pls, x.shape
+        ctx.dtype, ctx.device = local.dtype, local.device
+        ctx.local_shapes, outs, o = [], [], 0
+        for n in widths:
+            piece = local.narrow(-1, o, n // T).contiguous()
+            o += n // T
+            shape = (*x.shape[:-1], n)
+            ctx.local_shapes.append(piece.shape)
+            outs.append(DTensor.from_local(
+                piece, mesh, pls, run_check=False, shape=torch.Size(shape),
+                stride=_global_stride(shape)))
+        return tuple(outs)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        from torch.distributed.tensor import DTensor
+
+        parts = [g.redistribute(ctx.mesh, ctx.pls).to_local()
+                 if g is not None else
+                 torch.zeros(s, dtype=ctx.dtype, device=ctx.device)
+                 for g, s in zip(grads, ctx.local_shapes)]
+        return DTensor.from_local(
+            torch.cat(parts, dim=-1), ctx.mesh, ctx.pls, run_check=False,
+            shape=ctx.shape, stride=_global_stride(ctx.shape)), None, None
+
+
+def split_blocked(x: torch.Tensor, widths: Sequence[int], mesh_dim: int
+                  ) -> tuple:
+    """The blocks of ``widths`` of DTensor ``x``, whose last dim holds them
+    in ``blocked_columns``' order split over ``mesh_dim``: each block a
+    DTensor split there too, with no collective.  ``x`` is first taken to
+    that layout (nothing moves where it is in it, as after a product by
+    ``blocked_columns``' weight)."""
+    return _SplitBlocked.apply(shard_last_over(x, mesh_dim), tuple(widths),
+                               mesh_dim)
+
+
+@functools.cache
+def _exchange_plan(src: tuple, dst: tuple, rank: int) -> tuple:
+    """How rank ``rank`` takes a tensor's last dim from layout ``src`` to
+    ``dst`` (each a tuple, a rank, of the global columns it holds, in
+    order) by one all-to-all: (the local columns to send, in order, and how
+    many go to each rank; how many come from each rank; the order that
+    puts what came, concatenated, into ``dst[rank]``'s).  A rank sends each
+    other rank the columns that both hold, in the order the receiver keeps
+    them."""
+    pos = {c: i for i, c in enumerate(src[rank])}
+    send, send_n = [], []
+    for cols in dst:
+        got = [pos[c] for c in cols if c in pos]
+        send += got
+        send_n.append(len(got))
+    mine = {c: i for i, c in enumerate(dst[rank])}
+    came, recv_n = [], []
+    for cols in src:
+        got = sorted(mine[c] for c in cols if c in mine)
+        came += got
+        recv_n.append(len(got))
+    order = sorted(range(len(came)), key=came.__getitem__)
+    return tuple(send), tuple(send_n), tuple(recv_n), tuple(order)
+
+
+def _layouts(widths: Sequence[int], T: int) -> tuple[tuple, tuple]:
+    """(natural, blocked): a rank each, the global columns of the
+    concatenated blocks that its shard holds, split in T equal pieces
+    whole, or block by block (``blocked_columns``' order)."""
+    total = sum(widths)
+    offs = [sum(widths[:i]) for i in range(len(widths))]
+    natural = tuple(tuple(range(r * total // T, (r + 1) * total // T))
+                    for r in range(T))
+    blocked = tuple(tuple(c for o, n in zip(offs, widths)
+                          for c in range(o + r * n // T,
+                                         o + (r + 1) * n // T))
+                    for r in range(T))
+    return natural, blocked
+
+
+def _exchange(local: torch.Tensor, plan: tuple, mesh, mesh_dim: int
+              ) -> torch.Tensor:
+    """``local``'s last dim taken to another layout by ``plan``
+    (``_exchange_plan``'s), one all-to-all over ``mesh_dim``; the grad
+    flows back the same way."""
+    from torch.distributed import _functional_collectives as funcol
+
+    send, send_n, recv_n, order = plan
+    dev = local.device
+    buf = local.movedim(-1, 0).index_select(
+        0, torch.tensor(send, dtype=torch.long, device=dev)).contiguous()
+    got = funcol.wait_tensor(funcol.all_to_all_single_autograd(
+        buf, list(recv_n), list(send_n), (mesh, mesh_dim)))
+    return got.index_select(0, torch.tensor(
+        order, dtype=torch.long, device=dev)).movedim(0, -1)
+
+
+def to_blocks(x: torch.Tensor, widths: Sequence[int], mesh_dim: int
+              ) -> tuple:
+    """DTensor ``x``'s last dim, the blocks of ``widths`` concatenated, as
+    the blocks: each split over ``mesh_dim`` where ``x`` is split there in
+    T equal pieces whole, by one all-to-all of a rank's shard and no
+    gather; each block replicated there where ``x`` is, or where a width
+    does not divide by T (``x`` is then gathered)."""
+    T = x.device_mesh.size(mesh_dim)
+    offs = [sum(widths[:i]) for i in range(len(widths))]
+    pls = tuple(x.placements)
+    if not is_shard(pls[mesh_dim]) or any(n % T for n in widths):
+        x = whole_over(x, mesh_dim)
+        return tuple(x[..., o:o + n] for o, n in zip(offs, widths))
+    natural, blocked = _layouts(widths, T)
+    r = x.device_mesh.get_coordinate()[mesh_dim]
+    plan = _exchange_plan(natural, blocked, r)
+    mesh = x.device_mesh
+
+    def body(local):
+        out = _exchange(local, plan, mesh, mesh_dim)
+        return tuple(out.narrow(-1, o // T, n // T).contiguous()
+                     for o, n in zip(offs, widths))
+
+    return on_local_shards(body, [(x, pls)], [pls] * len(widths))
+
+
+def from_blocks(blocks: Sequence[torch.Tensor], mesh_dim: int
+                ) -> torch.Tensor:
+    """The inverse of ``to_blocks``: DTensors split alike over
+    ``mesh_dim`` on their last dims concatenated there, the result split
+    over ``mesh_dim`` in T equal pieces, by one all-to-all of a rank's
+    pieces and no gather.  Where a block is replicated over ``mesh_dim``
+    the blocks are concatenated whole (each gathered)."""
+    first = blocks[0]
+    pls = tuple(first.placements)
+    if not all(is_shard(b.placements[mesh_dim]) for b in blocks):
+        return torch.cat([whole_over(b, mesh_dim) for b in blocks], dim=-1)
+    mesh, T = first.device_mesh, first.device_mesh.size(mesh_dim)
+    widths = [b.shape[-1] for b in blocks]
+    natural, blocked = _layouts(widths, T)
+    plan = _exchange_plan(blocked, natural, mesh.get_coordinate()[mesh_dim])
+
+    def body(*locals_):
+        return _exchange(torch.cat(locals_, dim=-1), plan, mesh, mesh_dim)
+
+    return on_local_shards(body, [(b, pls) for b in blocks], [pls])[0]
 
 
 def write_slots(cache: torch.Tensor, value: torch.Tensor, start: int,

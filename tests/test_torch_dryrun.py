@@ -716,3 +716,55 @@ def test_a_norm_over_a_sharded_row_reduces_partial_sums(mesh2x2):
                                        "count": 1}
     assert dx.placements == x.placements
     assert dw.placements == (Partial(), Shard(0))
+
+
+def _mamba2_smoke_train_gathers(B: int, S: int, data: int, model: int
+                                ) -> int:
+    """All-gather bytes a device of the smoke mamba2-780m's train step
+    (remat "nothing": each layer's forward once more in the backward) on a
+    (data, model) mesh, from its config.  in_proj's blocks and the conv's
+    outputs stay split over ``model`` (``mamba2.proj_blocks``,
+    ``conv_blocks``): no activation of the branch is gathered but B and C,
+    once each a pass, for the SSD.  Every other term is a weight's, the
+    loss's logits or the token ids."""
+    cfg = tconfigs.get_smoke_config("mamba2-780m")
+    L, M, V, K = cfg.n_layers, cfg.d_model, cfg.padded_vocab, cfg.ssm_conv
+    DI, N, H = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
+    D, C = 2 * DI + 2 * N + H, DI + 2 * N         # in_proj's and conv's
+    bf16, fp32, passes = 2, 4, 2                  # forward and recompute
+    Bd = B // data
+    return (Bd * S * V * fp32                     # logits, vocab whole
+            + B * S * 4                           # token ids, int32
+            # in_proj: over model into the blocked order, then its FSDP
+            # gather over data in the product, each pass; the backward
+            # gathers it over data again for the input's grad, and takes
+            # its grad (a partial sum over data, every row) back over model
+            + passes * L * (M // data) * D * bf16
+            + passes * L * M * (D // model) * bf16
+            + L * M * (D // model) * bf16
+            + L * M * D * bf16
+            # B and C, each pass
+            + passes * L * 2 * Bd * S * N * bf16
+            # conv weight and bias over model each pass, their grads back
+            + (passes + 1) * L * (K + 1) * C * bf16
+            # out_proj's and the head's FSDP gathers, forward and backward
+            # (out_proj is each layer's last product: not recomputed)
+            + 2 * L * (DI // model) * M * bf16
+            + 2 * M * (V // model) * bf16)
+
+
+def test_a_mamba2_train_step_gathers_its_closed_form(mesh2x2):
+    """Fault F: the smoke mamba2-780m's train step on the fake 2x2 world
+    all-gathers ``_mamba2_smoke_train_gathers``' bytes.  in_proj's 296
+    columns shard 148 a rank; the blocks' edges (128, 256, 272, 288) cut
+    the shards, so a slice of the product in its stored column order would
+    gather the whole product, once a block, and the conv's output once a
+    block again (2728448 bytes where this form gives 669056).  The world's
+    FLOPs are the unsharded step's."""
+    cfg = tconfigs.get_smoke_config("mamba2-780m")
+    shape = SMALL["train"]
+    got = dryrun.run_cell(cfg, shape, mesh2x2)
+    assert got["collectives"]["all-gather"] == _mamba2_smoke_train_gathers(
+        shape.global_batch, shape.seq_len, data=2, model=2)
+    assert got["matmul_flops"] == dryrun.run_cell(cfg, shape,
+                                                  None)["matmul_flops"]

@@ -15,7 +15,8 @@ on_local_shards``).
 
 The cases: the smoke llama3.2-1b (4 q and 2 kv heads: both shard over
 ``model``), mixtral-8x22b (MoE; a 40-token prompt past its 32-token window,
-so the cache rolls), mamba2-780m (across a chunk edge), hymba-1.5b (a
+so the cache rolls), mamba2-780m (across a chunk edge; and with blocks of
+in_proj that do not divide ``model``), hymba-1.5b (a
 positional global layer beside a rolling windowed one), and llama3.2-1b
 with 1 kv head (q heads sharded, the kv head whole on every model rank; the
 cache's slots shard over ``model``, so decode combines its softmax across
@@ -45,8 +46,10 @@ than test_torch_models.py's bf16 bounds (logits 3e-2, caches one bf16
 ulp).  The card's one-rank mesh holds the bf16 run (``chip_smoke.py``'s
 ``sharded`` phase).
 """
+import collections
 import contextlib
 import dataclasses
+import math
 import time
 from pathlib import Path
 
@@ -56,6 +59,7 @@ import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
 from torch.utils._python_dispatch import TorchDispatchMode
+from torch.distributed.tensor import Shard
 from torch.utils._pytree import tree_leaves
 
 from repro_torch.configs import get_smoke_config
@@ -83,6 +87,11 @@ CASES = {
     "llama-remat-dots": ("llama3.2-1b", {"remat": True,
                                          "remat_policy": "dots"}, 16, True),
     "hymba-remat": ("hymba-1.5b", {"remat": True}, 40, True),
+    # blocks that do not divide model: B and C (3 columns) and dt (one
+    # head) each their own product, whole on each rank, x gathered for the
+    # one head, the conv state's columns gathered to and from the blocks
+    "mamba2-odd": ("mamba2-780m", {"ssm_state": 3, "ssm_head_dim": 128},
+                   24, True),
     # the vocab-parallel cross-entropy: each rank's vocab shard reduced,
     # (B, S) all-reduces, no logits gathered; whole and in 2 chunks under
     # remat (each chunk's loss recomputed in the backward)
@@ -218,15 +227,23 @@ def _port_steps(case: str, arrays: dict, mesh=None) -> dict:
     return out
 
 
+# the (global shape, placements) of each DTensor that DTensor is
+# redistributing, innermost last (``_naming_redistributions``)
+_REDISTRIBUTING: list = []
+
+
 class _Gathers(TorchDispatchMode):
     """Counts, while open, the all-gathers DTensor issues (on the local
     tensors) whose results are floating point with two dims or more:
     activations, where a norm's weight has one dim and token ids are
-    integers."""
+    integers.  Also keeps, for each, the (global shape, placements) of the
+    DTensor whose redistribution issued it (None where none was under
+    way) and the bytes it gathered: ``seen``."""
 
     def __init__(self):
         super().__init__()
         self.n = 0
+        self.seen = []
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         from torch.distributed.tensor import DTensor
@@ -237,9 +254,75 @@ class _Gathers(TorchDispatchMode):
         if func._overloadpacket in (
                 torch.ops._c10d_functional.all_gather_into_tensor,
                 torch.ops._c10d_functional.all_gather_into_tensor_coalesced):
-            self.n += sum(t.dim() >= 2 and t.is_floating_point()
-                          for t in tree_leaves(out))
+            for t in tree_leaves(out):
+                if t.dim() >= 2 and t.is_floating_point():
+                    self.n += 1
+                    self.seen.append((_REDISTRIBUTING[-1] if
+                                      _REDISTRIBUTING else None,
+                                      t.numel() * t.element_size()))
         return out
+
+
+@contextlib.contextmanager
+def _naming_redistributions():
+    """While open, DTensor's redistributions (of an op's inputs, and
+    ``redistribute``'s) push the (global shape, placements) of the DTensor
+    they move onto ``_REDISTRIBUTING`` while they run."""
+    import torch.distributed.tensor._dispatch as dispatch
+    import torch.distributed.tensor._redistribute as redistribute
+
+    orig = redistribute.redistribute_local_tensor
+
+    def named(local, current_spec, *args, **kwargs):
+        _REDISTRIBUTING.append((tuple(current_spec.shape),
+                                tuple(current_spec.placements)))
+        try:
+            return orig(local, current_spec, *args, **kwargs)
+        finally:
+            _REDISTRIBUTING.pop()
+
+    with pytest.MonkeyPatch.context() as mp_:
+        for mod in (dispatch, redistribute):
+            mp_.setattr(mod, "redistribute_local_tensor", named)
+        yield
+
+
+def _ssm_account(g: _Gathers, h, step: bool, d_inner: int, n: int,
+                 head_dim: int, **_) -> dict:
+    """What one call of the SSM branch on ``h`` gathered (``g``), against
+    what it may gather.  An activation is a tensor whose first dim is the
+    batch, split over ``data``; the weights' gathers (over ``model``, and
+    FSDP's over ``data``) are left out.  ``bad``: gathers of an activation
+    of the in_proj output's or the conv output's shape; ``unknown``:
+    gathers issued by no redistribution.  ``bytes``: the activations
+    gathered; ``allow``: B and C, and where the SSD heads do not divide
+    ``model`` x and dt whole on each rank, and in a decode step x and dt,
+    which the SSD cache's layout replicates."""
+    mesh = h.device_mesh
+    names = list(mesh.mesh_dim_names)
+    data, T = (mesh.size(names.index(a)) for a in ("data", "model"))
+    lead = tuple(h.shape[:-1])
+    H = d_inner // head_dim
+    conv_dim, d_in_proj = d_inner + 2 * n, 2 * d_inner + 2 * n + H
+    rows = math.prod(lead) // data
+    padded = -(-H // T) * T
+    if step:
+        allow = d_inner + 2 * n + padded
+    else:
+        allow = 2 * n + (d_inner + padded if H % T else 0)
+    out = {"bad": 0, "unknown": 0, "bytes": 0,
+           "allow": rows * allow * h.element_size()}
+    for spec, nbytes in g.seen:
+        if spec is None:
+            out["unknown"] += 1
+            continue
+        shape, pls = spec
+        batch = pls[names.index("data")]
+        if shape[0] != lead[0] or type(batch) is not Shard or batch.dim:
+            continue   # a weight
+        out["bad"] += shape in (lead + (d_in_proj,), lead + (conv_dim,))
+        out["bytes"] += nbytes
+    return out
 
 
 @contextlib.contextmanager
@@ -247,7 +330,9 @@ def _counting_gathers(counts: dict):
     """While open, every call of the models' cross-entropy and norms runs
     under a ``_Gathers``, which adds to ``counts["loss"]`` and
     ``counts["norm"]`` (a recomputed norm or loss chunk in the backward
-    too)."""
+    too); every call of the SSM branch (``mamba2.ssm_branch_full`` and
+    ``ssm_branch_step``, mamba2's and hymba's) to ``counts["ssm"]``, and
+    its ``_ssm_account`` to ``counts["ssm:<key>"]``."""
     from repro_torch.models import hybrid, mamba2, transformer
 
     def counted(fn, key):
@@ -255,14 +340,22 @@ def _counting_gathers(counts: dict):
             with _Gathers() as g:
                 out = fn(*args, **kwargs)
             counts[key] += g.n
+            if key == "ssm":
+                for k, v in _ssm_account(
+                        g, args[0], fn.__name__ == "ssm_branch_step",
+                        **kwargs).items():
+                    counts[f"ssm:{k}"] += v
             return out
         return call
 
-    with pytest.MonkeyPatch.context() as mp_:
+    with pytest.MonkeyPatch.context() as mp_, _naming_redistributions():
         for mod in (transformer, mamba2, hybrid):
             for name, key in (("lm_cross_entropy", "loss"),
                               ("rmsnorm", "norm")):
                 mp_.setattr(mod, name, counted(getattr(mod, name), key))
+        for mod in (mamba2, hybrid):
+            for name in ("ssm_branch_full", "ssm_branch_step"):
+                mp_.setattr(mod, name, counted(getattr(mod, name), "ssm"))
         yield
 
 
@@ -281,10 +374,10 @@ def _rank_main(rank: int, tmp: str) -> None:
         with _fp32_activations():
             for case in (*CASES, ENCODER):
                 w = dict(np.load(tmp / f"weights_{case}.npz"))
-                counts = {"loss": 0, "norm": 0}
+                counts = collections.Counter(loss=0, norm=0, ssm=0)
                 with _counting_gathers(counts):
                     out = _port_steps(case, w, mesh)
-                out.update({f"gathers:{k}": np.asarray(n)
+                out.update({k if ":" in k else f"gathers:{k}": np.asarray(n)
                             for k, n in counts.items()})
                 np.savez(tmp / f"rank{rank}_{case}.npz", **out)
     finally:
@@ -410,7 +503,7 @@ def test_prefill_and_decode_match_unsharded_and_jax(runs, case):
     names = sorted(k for k in want if k.split(".")[0] in _steps())
     assert names == sorted(k for k in runs[case]["sharded"] if
                            not k.startswith(("shape:", "want:", "train.",
-                                             "gathers:")))
+                                             "gathers:", "ssm:")))
     _assert_close(runs, case, names)
     assert int(want["decode2.pos"]) == CASES[case][2] + DECODE_STEPS
 
@@ -464,3 +557,27 @@ def test_encode_matches_unsharded_and_jax(runs):
     """hubert-xlarge's encode (the frames frontend, attention not
     causal)."""
     _assert_close(runs, ENCODER, ["encode.logits"])
+
+
+# the SSM cases whose blocks all divide model (mamba2-odd's gather what
+# does not)
+SSM_CASES = sorted(c for c in CASES if CASES[c][0] in ("mamba2-780m",
+                                                        "hymba-1.5b")
+                   and c != "mamba2-odd")
+
+
+@pytest.mark.parametrize("case", SSM_CASES)
+def test_the_ssm_branch_gathers_no_projection_and_no_conv_output(runs,
+                                                                  case):
+    """Fault F: in the prefill, the decode steps and the train step (with
+    remat's recompute where the case asks), the SSM branch gathers no
+    tensor of in_proj's output's shape or the conv's output's: in_proj's
+    blocks and the conv's outputs stay split over ``model``.  It gathers
+    B and C once each a pass for the SSD, in a decode step x and dt for
+    the SSD cache's layout, and no more activation bytes than those
+    (``_ssm_account``); every gather is a redistribution's."""
+    got = runs[case]["sharded"]
+    assert int(got["gathers:ssm"]) > 0
+    assert int(got["ssm:bad"]) == 0
+    assert int(got["ssm:unknown"]) == 0
+    assert 0 < int(got["ssm:bytes"]) <= int(got["ssm:allow"])

@@ -1,0 +1,130 @@
+#!/usr/bin/env python3
+"""Which source lines of the port's models issue a dry-run cell's
+collectives, and how many bytes each; and where a device's matmul FLOPs
+are spent.
+
+Runs one cell of ``repro_torch.launch.dryrun`` (meta DTensors on a fake
+world, no device) with a counter that charges each collective's bytes (one
+device's, as the dry run counts them) to the innermost frame under
+``repro_torch/models/`` that was running when DTensor issued it.  A
+collective issued by the autograd engine outside any such frame (a
+backward's own redistributions) is charged to ``<backward>``; a backward
+that ``models.loss_and_grads`` runs is charged to its line.  The FLOPs
+are charged the same way.  Prints the cell's totals, then the sites by
+bytes and by FLOPs, and writes them as JSON with ``--json``.
+
+Usage:
+  PYTHONPATH=src python tools/collective_sites.py --arch mamba2-780m \\
+      --shape train_4k [--multi-pod] [--set remat=False] [--top 15]
+"""
+from __future__ import annotations
+
+import argparse
+import collections
+import json
+import pathlib
+import sys
+
+from repro_torch.configs import SHAPES, get_config
+from repro_torch.launch import dryrun
+from repro_torch.launch.mesh import fake_world, make_production_mesh
+
+MODELS = "repro_torch/models/"
+
+
+def _site() -> str:
+    f = sys._getframe(2)
+    while f is not None:
+        name = f.f_code.co_filename.replace("\\", "/")
+        if MODELS in name:
+            short = name[name.index(MODELS):]
+            return f"{short}:{f.f_lineno} ({f.f_code.co_name})"
+        f = f.f_back
+    return "<backward>"
+
+
+class SiteCounter(dryrun.StepCounter):
+    """``StepCounter`` that also charges each collective to its site,
+    ``sites[site] = [bytes, count]``, and each device's matmul FLOPs,
+    ``flops[site]``."""
+
+    def __init__(self, args=()):
+        super().__init__(args)
+        self.sites = collections.defaultdict(lambda: [0, 0])
+        self.flops = collections.Counter()
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        before = dict(self.collectives)
+        local = self.local_flops
+        out = super().__torch_dispatch__(func, types, args, kwargs)
+        if self.collectives["count"] != before["count"]:
+            moved = sum(self.collectives[k] - before[k]
+                        for k in dryrun.COLLECTIVES)
+            entry = self.sites[_site()]
+            entry[0] += moved
+            entry[1] += 1
+        if self.local_flops != local:
+            self.flops[_site()] += self.local_flops - local
+        return out
+
+
+def main(argv=None) -> dict:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--shape", required=True, choices=sorted(SHAPES))
+    ap.add_argument("--multi-pod", action="store_true",
+                    help="the 2x16x16 mesh (default: 16x16)")
+    ap.add_argument("--set", action="append", default=[], metavar="K=V")
+    ap.add_argument("--top", type=int, default=15)
+    ap.add_argument("--json", type=pathlib.Path)
+    args = ap.parse_args(argv)
+
+    cfg = dryrun.apply_overrides(get_config(args.arch),
+                                 dryrun.parse_overrides(args.set))
+    counters = []
+
+    class Recorded(SiteCounter):
+        def __init__(self, a=()):
+            super().__init__(a)
+            counters.append(self)
+
+    dryrun.StepCounter = Recorded
+    with fake_world(512 if args.multi_pod else 256):
+        mesh = make_production_mesh(multi_pod=args.multi_pod,
+                                    device_type="cpu")
+        res = dryrun.run_cell(cfg, SHAPES[args.shape], mesh)
+    sites, flops = counters[-1].sites, counters[-1].flops
+    gib = 2 ** 30
+    kinds = {k: v for k, v in res["collectives"].items() if k != "count"}
+    mesh = "2x16x16" if args.multi_pod else "16x16"
+    print(f"{args.arch} {args.shape} {mesh} {args.set}: collectives "
+          f"{sum(kinds.values()) / gib} GiB in "
+          f"{res['collectives']['count']} ops a device; "
+          f"{ {k: v / gib for k, v in kinds.items()} } GiB; "
+          f"matmul_flops {res['matmul_flops']} "
+          f"({res['matmul_flops_per_device']} a device); temp "
+          f"{res['memory']['temp_size_bytes']} B; trace "
+          f"{res['trace_s']:.1f} s")
+    for site, (b, n) in sorted(sites.items(), key=lambda kv: -kv[1][0]
+                               )[:args.top]:
+        print(f"  {b / gib:10.4f} GiB {n:6d} ops  {site}")
+    print("  a device's matmul FLOPs by site:")
+    for site, n in flops.most_common(args.top):
+        print(f"  {n:22d}  {site}")
+    out = {"arch": args.arch, "shape": args.shape,
+           "multi_pod": args.multi_pod, "set": args.set,
+           "collectives": res["collectives"],
+           "matmul_flops": res["matmul_flops"],
+           "matmul_flops_per_device": res["matmul_flops_per_device"],
+           "temp_size_bytes": res["memory"]["temp_size_bytes"],
+           "trace_s": res["trace_s"],
+           "sites": {k: {"bytes": b, "ops": n}
+                     for k, (b, n) in sites.items()},
+           "flops_per_device_by_site": dict(flops)}
+    if args.json:
+        args.json.write_text(json.dumps(out, indent=1))
+    return out
+
+
+if __name__ == "__main__":
+    main()
