@@ -93,7 +93,13 @@ that run it, and drives every ported path at full size:
   attention on and off a mesh, sums dk and dv over the GQA group and the
   q chunks in fp32 and rounds them to bf16 once, as the reference does,
   so ``check_chunked_backward`` holds the chunk-wise backward to the dense
-  one at 2e-4 relative Frobenius, where it took 2^-8 before.
+  one at 2e-4 relative Frobenius, where it took 2^-8 before;
+* slice 18: fault G.  The dry run adds mamba2-780m's and hymba-1.5b's
+  16x16 ``train_4k`` and ``prefill_32k``, whose SSD scan runs on each
+  rank's local shards and whose hymba prefill writes its K and V caches
+  in place, so that the host's torch runs them; a line a cell gives a
+  device's collective bytes, the world's and a device's FLOPs and the
+  temp bytes, and the phase prints its seconds.
 
 Besides, it holds the RMSNorm kernel against its plain version at every
 edge of its geometry (``check_rmsnorm_edges``), and the decoder's loss
@@ -178,6 +184,7 @@ from repro_torch.runtime_ft import (ElasticFleet,  # noqa: E402
                                     StragglerDetector)
 
 N_TASKS, DEGREE, SEED = 3000, 3.03, 1
+ARCH = "llama3.2-1b"  # the model of serve:model and of the zoo's transformer
 PTT_FLOOR = 0.8  # a PTT time must cover this share of its kernel's time
 
 # kernel -> (source, the Pallas kernel it replaces, the DAG class it serves
@@ -251,17 +258,24 @@ MULTI_IMPL_TRACE = "serve:backlog"
 GRAD_SYNC_PATH, EXAMPLES_PATH = "grad_sync", "examples"
 # slice 11: python -m repro_torch.launch.dryrun on llama3.2-1b's four cells
 # of the 16x16 mesh and its decode on the 2x16x16 one, each status the
-# reference's (cell_skip_reason); launches no kernel
+# reference's (cell_skip_reason); launches no kernel.  A cell is (arch,
+# mesh, shape, --set overrides)
 DRYRUN_PATH = "dryrun"
-DRYRUN_CELLS = {("single_pod", "train_4k"): "ok",
-                ("single_pod", "prefill_32k"): "ok",
-                ("single_pod", "decode_32k"): "ok",
-                ("single_pod", "long_500k"): "skip",
-                ("multi_pod", "decode_32k"): "ok",
+DRYRUN_CELLS = {(ARCH, "single_pod", "train_4k"): "ok",
+                (ARCH, "single_pod", "prefill_32k"): "ok",
+                (ARCH, "single_pod", "decode_32k"): "ok",
+                (ARCH, "single_pod", "long_500k"): "skip",
+                (ARCH, "multi_pod", "decode_32k"): "ok",
                 # slice 14: the vocab-parallel loss (--set ce_onehot=True)
-                ("single_pod", "train_4k", "ce_onehot=True"): "ok",
+                (ARCH, "single_pod", "train_4k", "ce_onehot=True"): "ok",
                 # slice 15: block-skipping attention in q chunks of 1024
-                ("single_pod", "prefill_32k", "swa_block_skip=True"): "ok"}
+                (ARCH, "single_pod", "prefill_32k", "swa_block_skip=True"):
+                "ok",
+                # slice 18: the SSM families' train and prefill steps, the
+                # SSD scan on each rank's local shards (fault G)
+                **{(arch, "single_pod", shape): "ok"
+                   for arch in ("mamba2-780m", "hymba-1.5b")
+                   for shape in ("train_4k", "prefill_32k")}}
 DRYRUN_TIMEOUT_S = 600
 # slice 12: serve:model's prefill and decode steps and one train step of the
 # train path, with and without a one-rank NCCL mesh (the sharded program)
@@ -336,8 +350,7 @@ KERNEL_PATHS = {"matmul": MIXED_PATHS + SERVE_PATHS
 MAIN_SHAPE = {"matmul": "mixed_mode", "copy": "mixed_mode",
               "triad": "stream", "sort_rows": "mixed_mode",
               "rmsnorm": "serve:model", "flash_attention": "serve"}
-ARCH = "llama3.2-1b"  # the model of serve:model and of the zoo's transformer
-D_MODEL = 2048        # its width (configs/llama3_2_1b.py)
+D_MODEL = 2048        # ARCH's width (configs/llama3_2_1b.py)
 MODEL_BATCH, MODEL_PROMPT = 4, 64  # serve --arch's defaults (serve:model)
 # launch.train's defaults (train), and the orchestrated run's cut (4 steps
 # of 2 microbatches, train_orchestrated)
@@ -3453,38 +3466,40 @@ def phase_dryrun() -> dict:
     """dryrun: ``python -m repro_torch.launch.dryrun`` on DRYRUN_CELLS, one
     subprocess a cell, all at once, into a temporary ``--out``: a fake
     world of 256 or 512 ranks cannot share this process with grad_sync's
-    NCCL group.  Every cell's status is the reference's, the prefill's
-    world matmul FLOPs equal the closed form of llama3.2-1b's config, and
-    no subprocess initialised CUDA.  Launches no kernel in this process.
-    Returns kernel -> launches."""
+    NCCL group.  Every cell's status is the reference's, llama3.2-1b's
+    prefill's world matmul FLOPs equal the closed form of its config, and
+    no subprocess initialised CUDA.  A line a cell: a device's collective
+    bytes, the world's and a device's matmul FLOPs and temp bytes, and the
+    phase's seconds.  Launches no kernel in this process.  Returns kernel
+    -> launches."""
     from repro_torch.configs import SHAPES
 
     kernels.reset_launch_counts()
+    t0 = time.perf_counter()
     env = {**os.environ, "PYTHONPATH": str(
         Path(__file__).resolve().parent / "src")}
     with tempfile.TemporaryDirectory() as out:
         # a cell with --set writes under a directory of its own: its JSON
         # has the default cell's name
-        dirs = {cell: Path(out) / ("_".join(cell[2:]) or "default")
-                for cell in DRYRUN_CELLS}
+        dirs = {cell: Path(out) / "_".join(cell) for cell in DRYRUN_CELLS}
         runs = {cell: subprocess.Popen(
             [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
-             ARCH, "--shape", cell[1], "--" + cell[0].replace("_", "-"),
+             cell[0], "--shape", cell[2], "--" + cell[1].replace("_", "-"),
              "--out", str(dirs[cell]),
-             *(a for kv in cell[2:] for a in ("--set", kv))], env=env,
+             *(a for kv in cell[3:] for a in ("--set", kv))], env=env,
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
             for cell in DRYRUN_CELLS}
         cells = {}
         try:
             for cell, run in runs.items():
-                mesh, shape = cell[:2]
+                arch, mesh, shape = cell[:3]
                 stdout, stderr = run.communicate(timeout=DRYRUN_TIMEOUT_S)
                 if run.returncode != 0 or \
                         "cuda_initialized=False" not in stdout:
                     raise AssertionError(
                         f"dryrun: {cell} exited {run.returncode}: "
                         f"{stdout[-2000:]} {stderr[-2000:]}")
-                res = json.loads((dirs[cell] / mesh / f"{ARCH}__{shape}.json"
+                res = json.loads((dirs[cell] / mesh / f"{arch}__{shape}.json"
                                   ).read_text())
                 if res["status"] != DRYRUN_CELLS[cell]:
                     raise AssertionError(f"dryrun: {cell}: {res}")
@@ -3494,18 +3509,28 @@ def phase_dryrun() -> dict:
                 if run.poll() is None:
                     run.kill()
                     run.communicate()
+    seconds = time.perf_counter() - t0
     launched = kernels.launch_counts()
+    for name, r in cells.items():
+        if r["status"] == "ok":
+            coll = sum(v for k, v in r["collectives"].items()
+                       if k != "count")
+            print(f"dryrun {name}: collectives {coll} B a device, matmul "
+                  f"FLOPs {r['matmul_flops']} world, "
+                  f"{r['matmul_flops_per_device']} a device, temp "
+                  f"{r['memory']['temp_size_bytes']} B", flush=True)
+    llama = f"{ARCH}:single_pod"
     prefill = SHAPES["prefill_32k"]
     want = prefill_matmul_flops(get_config(ARCH), prefill.global_batch,
                                 prefill.seq_len)
-    got = cells["single_pod:prefill_32k"]["matmul_flops"]
+    got = cells[f"{llama}:prefill_32k"]["matmul_flops"]
     if got != want:
         raise AssertionError(f"dryrun: prefill_32k matmul FLOPs {got}, the "
                              f"closed form {want}")
     # block skipping: the FLOPs of the chunks' key slices, as the
     # reference counts them
     cfg = get_config(ARCH)
-    skip_cell = cells["single_pod:prefill_32k:swa_block_skip=True"]
+    skip_cell = cells[f"{llama}:prefill_32k:swa_block_skip=True"]
     want_skip = prefill_matmul_flops(cfg, prefill.global_batch,
                                      prefill.seq_len, skip_pairs(
                                          prefill.seq_len, cfg.attn_chunk))
@@ -3514,7 +3539,7 @@ def phase_dryrun() -> dict:
                              f"matmul FLOPs {skip_cell['matmul_flops']}, "
                              f"the closed form {want_skip}")
     prefill_temp = {k: cells[k]["memory"]["temp_size_bytes"] for k in (
-        "single_pod:prefill_32k", "single_pod:prefill_32k:swa_block_skip=True")}
+        f"{llama}:prefill_32k", f"{llama}:prefill_32k:swa_block_skip=True")}
     print(f"dryrun prefill_32k a device: temp {json.dumps(prefill_temp)} B",
           flush=True)
     # the vocab-parallel loss against the reference's default gather: a
@@ -3523,9 +3548,9 @@ def phase_dryrun() -> dict:
                    "all_gather_bytes": r["collectives"]["all-gather"],
                    "all_reduce_bytes": r["collectives"]["all-reduce"]}
             for flag, r in (("ce_onehot=False",
-                             cells["single_pod:train_4k"]),
+                             cells[f"{llama}:train_4k"]),
                             ("ce_onehot=True",
-                             cells["single_pod:train_4k:ce_onehot=True"]))}
+                             cells[f"{llama}:train_4k:ce_onehot=True"]))}
     off, on = loss["ce_onehot=False"], loss["ce_onehot=True"]
     if not (on["temp_size_bytes"] < off["temp_size_bytes"] and
             on["all_gather_bytes"] < off["all_gather_bytes"]):
@@ -3534,10 +3559,11 @@ def phase_dryrun() -> dict:
           f"all-gather {off['all_gather_bytes']} B (ce_onehot=False); temp "
           f"{on['temp_size_bytes']} B, all-gather {on['all_gather_bytes']} B "
           f"(ce_onehot=True)", flush=True)
+    print(f"dryrun: {len(cells)} cells in {seconds:.3f} s", flush=True)
     emit({"phase": "dryrun", "path": DRYRUN_PATH, "arch": ARCH,
           "prefill_closed_form_flops": want,
           "prefill_skip_closed_form_flops": want_skip,
-          "cuda_initialized": False,
+          "cuda_initialized": False, "seconds": seconds,
           "train_4k_loss": loss,
           "cells": {k: {f: r.get(f) for f in (
               "status", "reason", "chips", "matmul_flops",

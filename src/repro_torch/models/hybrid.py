@@ -247,23 +247,29 @@ class HymbaLM(BaseModel):
         """(last-token logits (B, 1, V), cache), ``pos`` the prompt length S
         (hybrid.py:198-227).  A windowed layer whose prompt reaches its
         window W keeps the last W positions; any other layer's K and V are
-        padded with zeros to ``max_len`` (default S + 64) where that is
-        longer than S."""
+        written into a zero cache of ``max_len`` slots (default S + 64;
+        S where ``max_len`` is shorter), laid out by ``KV_NAMES``, each rank
+        writing its own slots (``write_slots``), where the reference pads
+        them with zeros: the same values, and no pad of a tensor split over
+        the mesh."""
         tokens = batch["tokens"]
-        S = tokens.shape[1]
-        max_len = max_len or S + 64
+        B, S = tokens.shape
+        length = max(max_len or S + 64, S)
+        cfg = self.cfg
         ks, vs, convs, ssds = [], [], [], []
         x = None
         for i, x, ((k, v), (conv, ssd)) in self._layers(params, tokens):
             win = self.window(i)
             if win is not None and S >= win:
-                k, v = k[:, :, -win:], v[:, :, -win:]
-            elif max_len > S:
-                pad = (0, 0, 0, max_len - S)
-                k = torch.nn.functional.pad(k, pad)
-                v = torch.nn.functional.pad(v, pad)
-            ks.append(constrain(k.contiguous(), *KV_NAMES))
-            vs.append(constrain(v.contiguous(), *KV_NAMES))
+                ks.append(constrain(k[:, :, -win:].contiguous(), *KV_NAMES))
+                vs.append(constrain(v[:, :, -win:].contiguous(), *KV_NAMES))
+            else:
+                shape = (B, cfg.n_kv_heads, length, cfg.hd)
+                for cache, new in ((ks, k), (vs, v)):
+                    t = cache_tensor(shape, KV_NAMES, new.dtype,
+                                     tokens.device)
+                    write_slots(t, new, 0)
+                    cache.append(t)
             convs.append(conv)
             ssds.append(ssd)
         logits = self._head(params, x, last=True)

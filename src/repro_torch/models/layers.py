@@ -46,7 +46,8 @@ from ..kernels._build import wide
 from ..parallel.sharding import (all_reduce_over, constrain, current_ctx,
                                  is_shard, is_sharded, logical_spec,
                                  on_local_shards, placements, reentered,
-                                 replicate_as, shard_bounds, widened)
+                                 replicate_as, rows_of, shard_bounds,
+                                 widened)
 
 NEG_INF = -1e30
 # the products with no batch dims: ``x @ w`` with a 2-D ``w`` lowers to one
@@ -485,6 +486,50 @@ def _span(name: str):
     return contextlib.nullcontext()
 
 
+def _by_rows(fn, *ts: torch.Tensor, n_out: int) -> tuple:
+    """``fn(*ts)``, a tuple of ``n_out`` tensors whose first dim is the
+    batch, as the first of ``ts``; on DTensors under a mesh on each rank's
+    rows (``on_local_shards``), the inputs and outputs split over the batch
+    as ``ts[0]`` is and replicated on every other mesh dim.  For the MoE's
+    routing, a row at a time: DTensor 2.11 has no placement-keeping rule
+    for an in-place ``scatter_`` of a tensor split over the batch, and the
+    backward of ``topk`` scatters a DTensor into a plain tensor."""
+    if not is_sharded(ts[0]):
+        return fn(*ts)
+    pls = rows_of(ts[0])
+    return on_local_shards(fn, [(t, pls) for t in ts], [pls] * n_out)
+
+
+def _expert_slots(top_ids: torch.Tensor, e: int, c: int) -> tuple:
+    """Each assignment's destination among the E * C slots (a dropped
+    one's: a spare slot of its own past them) and whether it was kept, (B,
+    S * k) each, from the top-k expert ids (B, S, k), token-major."""
+    b, s, k = top_ids.shape
+    dev = top_ids.device
+    flat_ids = top_ids.reshape(b, s * k)
+    sid, order = torch.sort(flat_ids, dim=-1, stable=True)
+    # rank within expert: position - first position of this expert id
+    experts = torch.arange(e, device=dev).expand(b, e).contiguous()
+    first = torch.searchsorted(sid, experts)
+    flat = torch.arange(s * k, device=dev)
+    rank = flat - first.gather(1, sid)
+    slot = torch.empty_like(rank).scatter_(1, order, rank)  # flat order
+    kept = slot < c
+    flat = flat.expand(b, s * k)
+    return torch.where(kept, flat_ids * c + slot, e * c + flat), kept
+
+
+def _slot_tokens(dest: torch.Tensor, s: int, k: int, e: int, c: int
+                 ) -> tuple:
+    """The token of each of the E * C slots (B, E * C) from the
+    assignments' destinations; an empty slot reads row s, zeros."""
+    b = dest.shape[0]
+    flat = torch.arange(s * k, device=dest.device).expand(b, s * k)
+    tok = torch.full((b, e * c + s * k), s, dtype=torch.long,
+                     device=dest.device)
+    return tok.scatter_(1, dest, flat // k)[:, :e * c],
+
+
 def moe_ffn(x: torch.Tensor, router_w: torch.Tensor, we1: torch.Tensor,
             we3: torch.Tensor, we2: torch.Tensor, *, n_experts: int,
             top_k: int, capacity: int, shard_acts: bool = True
@@ -527,32 +572,20 @@ def moe_ffn(x: torch.Tensor, router_w: torch.Tensor, we1: torch.Tensor,
     """
     b, s, m = x.shape
     e, c, k = n_experts, capacity, top_k
-    dev = x.device
     with _span("moe.router"):
         with _no_batch_dims():
             logits = torch.einsum("bsm,me->bse", x.float(),
                                   router_w.float())
         gates = torch.softmax(logits, dim=-1)                    # (B,S,E)
-        top_w, top_ids = torch.topk(gates, k, dim=-1)            # (B,S,k)
+        top_w, top_ids = _by_rows(lambda g: torch.topk(g, k, dim=-1),
+                                  gates, n_out=2)                # (B,S,k)
         top_w = top_w / torch.clamp(top_w.sum(-1, keepdim=True), min=1e-9)
     with _span("moe.sort"):
-        flat_ids = top_ids.reshape(b, s * k)
-        sid, order = torch.sort(flat_ids, dim=-1, stable=True)
-        # rank within expert: position - first position of this expert id
-        experts = replicate_as(
-            torch.arange(e, device=dev).expand(b, e).contiguous(), x)
-        first = torch.searchsorted(sid, experts)
-        flat = replicate_as(torch.arange(s * k, device=dev), x)
-        rank = flat - first.gather(1, sid)
-        slot = torch.empty_like(rank).scatter_(1, order, rank)  # flat order
-        kept = slot < c
-        flat = flat.expand(b, s * k)
-        dest = torch.where(kept, flat_ids * c + slot, e * c + flat)
+        dest, kept = _by_rows(lambda ids: _expert_slots(ids, e, c),
+                              top_ids, n_out=2)
     with _span("moe.dispatch"):
-        # the token of each (expert, slot); an empty slot reads row s, zeros
-        tok = replicate_as(torch.full((b, e * c + s * k), s,
-                                      dtype=torch.long, device=dev), x)
-        tok = tok.scatter_(1, dest, flat // k)[:, :e * c]
+        tok, = _by_rows(lambda d: _slot_tokens(d, s, k, e, c), dest,
+                        n_out=1)
         xz = torch.cat([x, x.new_zeros(b, 1, m)], dim=1)
         xin = xz.gather(1, tok[..., None].expand(b, e * c, m))
         xin = xin.reshape(b, e, c, m)

@@ -30,12 +30,14 @@ with a TypeError (ROADMAP.md, Queue 3, fault 6).
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
 
 from ..parallel.sharding import (act_mesh_dim, blocked_columns, constrain,
-                                 from_blocks, is_shard, on_local_shards,
-                                 replicate_as, shard_last_over,
+                                 from_blocks, is_shard, is_sharded,
+                                 on_local_shards, rows_of, shard_last_over,
                                  split_blocked, to_blocks, whole_over)
 from .layers import (_span, embed, merge_heads, remat, rmsnorm,
                      split_heads)
@@ -82,18 +84,30 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
     0)``: the same values, and no inf * 0 in the backward where the masked
     exponent overflows.
 
-    ``shard_acts`` (``cfg.ssd_shard_acts``) constrains the intra-chunk
-    temporaries to the batch sharding, as the reference's does
-    (mamba2.py:75-84)."""
+    Under a mesh the scan runs on each rank's (batch, heads) piece
+    (``_ssd_sharded``).  ``shard_acts`` (``cfg.ssd_shard_acts``) is taken
+    and changes nothing: the reference constrains the intra-chunk
+    temporaries to the batch sharding (mamba2.py:75-84), and the port's are
+    each rank's local piece, split over the batch and the heads, already."""
+    if is_sharded(x):
+        return _ssd_sharded(x, dt, a_log, b, c, d_skip, chunk)
+    return _ssd(x, dt, a_log, b, c, d_skip, chunk=chunk)
+
+
+def _pad_tail(t: torch.Tensor, pad: int) -> torch.Tensor:
+    """t (B, L, ...) zero-padded by ``pad`` positions after L."""
+    return F.pad(t, (0, 0) * (t.ndim - 2) + (0, pad))
+
+
+def _ssd(x, dt, a_log, b, c, d_skip, cb=None, *, chunk: int):
+    """``ssd_chunked``'s body on plain tensors; ``cb`` the chunks' C . B
+    products (B, nc, q, q) where the caller made them."""
     bsz, L, H, P = x.shape
     N = b.shape[-1]
     L_orig = L
     if L % chunk:
         pad = chunk - L % chunk
-        x = F.pad(x, (0, 0, 0, 0, 0, pad))
-        dt = F.pad(dt, (0, 0, 0, pad))
-        b = F.pad(b, (0, 0, 0, pad))
-        c = F.pad(c, (0, 0, 0, pad))
+        x, dt, b, c = (_pad_tail(t, pad) for t in (x, dt, b, c))
         L += pad
     nc, q = L // chunk, chunk
 
@@ -109,18 +123,13 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
     # ---- intra-chunk: y_i = sum_{j <= i} (C_i . B_j) decay(i<-j) dt_j x_j
     Lh = La.transpose(2, 3)                              # (B, nc, H, q)
     ii = torch.arange(q, device=x.device)
-    causal = replicate_as(ii[:, None] >= ii[None, :], x)
+    causal = ii[:, None] >= ii[None, :]
     decay = torch.exp((Lh[..., :, None] - Lh[..., None, :]).masked_fill(
         ~causal, float("-inf")))                         # (B, nc, H, i, j)
-    if shard_acts:
-        decay = constrain(decay, "batch", None, None, None, None)
-    cb = torch.einsum("bcin,bcjn->bcij", cr, br)         # (B, nc, q, q)
+    if cb is None:
+        cb = torch.einsum("bcin,bcjn->bcij", cr, br)     # (B, nc, q, q)
     w = cb[:, :, None] * decay * dtr.transpose(2, 3)[:, :, :, None, :]
-    if shard_acts:
-        w = constrain(w, "batch", None, None, None, None)
     y_intra = torch.matmul(w, xr.transpose(2, 3))        # (B, nc, H, q, P)
-    if shard_acts:
-        y_intra = constrain(y_intra, "batch", None, None, None, None)
 
     # ---- chunk states: S_c = sum_j exp(La_last - La_j) dt_j B_j x_j^T
     last = La[:, :, -1:, :]                              # (B, nc, 1, H)
@@ -144,6 +153,48 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
     y = (y_intra + y_inter).transpose(2, 3).reshape(bsz, L, H, P)
     y = y + d_skip.float()[None, None, :, None] * x.float()
     return y[:, :L_orig].to(x.dtype), state
+
+
+def _ssd_sharded(x, dt, a_log, b, c, d_skip, chunk: int):
+    """``ssd_chunked`` on DTensors: ``_ssd`` on each rank's local shards
+    (``on_local_shards``), its heads split over the heads' mesh dim where
+    H divides it and whole on each rank where not, its batch as x's, B and
+    C whole over the heads' dim.  Heads never mix, and every head reads the
+    same B and C.  DTensor 2.11 refuses three of the scan's ops on a tensor
+    split over two mesh dims: the tail's ``F.pad``, ``torch.matmul``'s view
+    that merges the split batch and heads, and the ``flip`` of cumsum's
+    backward; a local shard is a plain tensor.
+
+    The chunks' C . B products read no head, so a rank of every heads
+    piece would compute the same ones, and a count of the world's FLOPs
+    (``local_split``) would take them once a piece.  They are made first,
+    on DTensors split over the batch alone (the tail's pad on local
+    shards), and passed in: the world computes them once.  The backward
+    needs nothing of its own: B's, C's and the products' grads come back
+    as partial sums over the heads' dim, x's and dt's as shards."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    mesh, (bsz, L, H, P), N = x.device_mesh, x.shape, b.shape[-1]
+    batch = rows_of(x)
+    heads = [Replicate()] * mesh.ndim
+    x_pls, state_pls = list(batch), list(batch)
+    m = act_mesh_dim("act_heads", x)
+    if m is not None and H % mesh.size(m) == 0:
+        x_pls[m], state_pls[m], heads[m] = Shard(2), Shard(1), Shard(0)
+    pad = -L % chunk
+    bp, cp = b, c
+    if pad:
+        bp, cp = on_local_shards(lambda b, c: (_pad_tail(b, pad),
+                                               _pad_tail(c, pad)),
+                                 [(b, batch), (c, batch)], [batch, batch])
+    nc = (L + pad) // chunk
+    cb = torch.einsum("bcin,bcjn->bcij",
+                      cp.reshape(bsz, nc, chunk, N).float(),
+                      bp.reshape(bsz, nc, chunk, N).float())
+    return on_local_shards(
+        functools.partial(_ssd, chunk=chunk),
+        [(x, x_pls), (dt, x_pls), (a_log, heads), (b, batch), (c, batch),
+         (d_skip, heads), (cb, batch)], [x_pls, state_pls])
 
 
 def ssd_decode_step(state: torch.Tensor, x_t: torch.Tensor,

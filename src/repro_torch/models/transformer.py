@@ -38,7 +38,7 @@ from __future__ import annotations
 
 import torch
 
-from ..parallel.sharding import (constrain, replicate_as, roll_slots,
+from ..parallel.sharding import (constrain, replicate_as, roll, roll_slots,
                                  write_slots)
 from .layers import (apply_rope, attention, decode_attention, embed,
                      merge_heads, moe_ffn, remat, rmsnorm, split_heads,
@@ -304,8 +304,7 @@ class DecoderLM(BaseModel):
             if rolling:
                 k, v = k[:, :, -W:], v[:, :, -W:]
                 if cfg.swa_ring_buffer:
-                    k = torch.roll(k, S % W, dims=2)
-                    v = torch.roll(v, S % W, dims=2)
+                    k, v = roll(k, S % W, 2), roll(v, S % W, 2)
             write_slots(cache["k"], k, 0, layer=i)
             write_slots(cache["v"], v, 0, layer=i)
         top, _ = split_params(params)

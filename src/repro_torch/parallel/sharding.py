@@ -101,29 +101,9 @@ def current_ctx() -> ShardingCtx | None:
     return _CTX.get()
 
 
-@functools.cache
-def _register_strategies() -> None:
-    """DTensor sharding rules, once a process, for the ops that model code
-    runs and DTensor has none for: ``searchsorted`` (the MoE's first slot
-    of each expert) searches each row on its own, so any dim but the last
-    shards, the same on the sorted rows, the values and the output."""
-    from torch.distributed.tensor import Replicate, Shard
-    from torch.distributed.tensor.experimental import register_sharding
-
-    @register_sharding(torch.ops.aten.searchsorted.Tensor)
-    def _searchsorted(sorted_sequence, values, **_):
-        out = [([Replicate()], [Replicate(), Replicate()])]
-        for d in range(sorted_sequence.ndim - 1):
-            out.append(([Shard(d)], [Shard(d), Shard(d)]))
-        return out
-
-
 @contextlib.contextmanager
 def use_sharding(mesh, rules: dict[str, tuple[str, ...]] | None = None):
-    """Install a sharding context for model code; on a ``DeviceMesh`` the
-    port's own DTensor rules too (``_register_strategies``)."""
-    if getattr(mesh, "mesh_dim_names", None) is not None:
-        _register_strategies()
+    """Install a sharding context for model code."""
     with reentered(ShardingCtx(mesh=mesh, rules=dict(rules or
                                                       LOGICAL_RULES))) as ctx:
         yield ctx
@@ -375,6 +355,15 @@ def shard_bounds(shape: Sequence[int], mesh, pls: Sequence,
     return offset[dim], offset[dim] + local[dim]
 
 
+def rows_of(t: torch.Tensor) -> list:
+    """Placements of DTensor ``t``'s rows: its splits of dim 0 (the batch)
+    kept, replicated on every other mesh dim."""
+    from torch.distributed.tensor import Replicate
+
+    return [p if is_shard(p) and p.dim == 0 else Replicate()
+            for p in t.placements]
+
+
 def all_reduce_over(t: torch.Tensor, op: str, mesh, dims: Sequence[int]
                     ) -> torch.Tensor:
     """``t``, a local tensor, all-reduced with ``op`` ("sum", "max") over
@@ -438,6 +427,9 @@ class _OnLocalShards(torch.autograd.Function):
             _SPLIT.reset(token)
         outs = (outs,) if isinstance(outs, torch.Tensor) else tuple(outs)
         if any(need):
+            # an output no loss reads (the SSD's final state in a train
+            # step) takes no grad: None, where a zero would be a plain tensor
+            ctx.set_materialize_grads(False)
             ctx.mesh, ctx.out_pls, ctx.split = mesh, out_pls, split
             graph = ins[0].new_empty(0)
             graph.local_graph = ins, outs
@@ -746,6 +738,18 @@ def write_slots(cache: torch.Tensor, value: torch.Tensor, start: int,
             local_v[:, :, a - start:b - start]
 
 
+def roll(t: torch.Tensor, shifts: int, dim: int) -> torch.Tensor:
+    """``torch.roll(t, shifts, dims=dim)``; on a DTensor whose ``dim`` no
+    mesh dim splits, each rank rolls its own shard (``on_local_shards``):
+    DTensor 2.11 has no rule for ``roll``."""
+    if not is_sharded(t) or any(is_shard(p) and p.dim == dim
+                                for p in t.placements):
+        return torch.roll(t, shifts, dims=dim)
+    pls = tuple(t.placements)
+    return on_local_shards(lambda x: torch.roll(x, shifts, dims=dim),
+                           [(t, pls)], [pls])[0]
+
+
 def roll_slots(cache: torch.Tensor, dim: int) -> torch.Tensor:
     """``torch.roll(cache, -1, dims=dim)``: the slots shift left by one and
     the first comes last.  Where a DTensor's ``dim`` is sharded, each rank
@@ -761,7 +765,7 @@ def roll_slots(cache: torch.Tensor, dim: int) -> torch.Tensor:
     mesh, pls = cache.device_mesh, tuple(cache.placements)
     slot_dims = [m for m, p in enumerate(pls) if is_shard(p) and p.dim == dim]
     if not slot_dims:
-        return torch.roll(cache, -1, dims=dim)
+        return roll(cache, -1, dim)
     if any(type(pls[m]) is not Shard for m in slot_dims):
         raise NotImplementedError(f"dim {dim} split by a strided shard")
     coord = mesh.get_coordinate()

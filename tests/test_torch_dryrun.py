@@ -726,7 +726,8 @@ def _mamba2_smoke_train_gathers(B: int, S: int, data: int, model: int
     outputs stay split over ``model`` (``mamba2.proj_blocks``,
     ``conv_blocks``): no activation of the branch is gathered but B and C,
     once each a pass, for the SSD.  Every other term is a weight's, the
-    loss's logits or the token ids."""
+    loss's logits, the token ids or, since the scan runs on local shards
+    (fault G), the grads of the SSD's scalars a head."""
     cfg = tconfigs.get_smoke_config("mamba2-780m")
     L, M, V, K = cfg.n_layers, cfg.d_model, cfg.padded_vocab, cfg.ssm_conv
     DI, N, H = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
@@ -750,7 +751,11 @@ def _mamba2_smoke_train_gathers(B: int, S: int, data: int, model: int
             # out_proj's and the head's FSDP gathers, forward and backward
             # (out_proj is each layer's last product: not recomputed)
             + 2 * L * (DI // model) * M * bf16
-            + 2 * M * (V // model) * bf16)
+            + 2 * M * (V // model) * bf16
+            # the grads of the SSD's a_log and d_skip: the scan runs on
+            # each rank's heads (local shards), so each comes back split
+            # over model and is gathered to its replicated layout
+            + 2 * L * H * fp32)
 
 
 def test_a_mamba2_train_step_gathers_its_closed_form(mesh2x2):
@@ -759,7 +764,7 @@ def test_a_mamba2_train_step_gathers_its_closed_form(mesh2x2):
     columns shard 148 a rank; the blocks' edges (128, 256, 272, 288) cut
     the shards, so a slice of the product in its stored column order would
     gather the whole product, once a block, and the conv's output once a
-    block again (2728448 bytes where this form gives 669056).  The world's
+    block again (2728448 bytes where this form gives 669184).  The world's
     FLOPs are the unsharded step's."""
     cfg = tconfigs.get_smoke_config("mamba2-780m")
     shape = SMALL["train"]

@@ -29,7 +29,11 @@ run without, which changes no value); llama3.2-1b with ``ce_onehot``, the
 vocab-parallel cross-entropy, whole and in two loss chunks under remat;
 and hubert-xlarge's encode.  The ranks also count the all-gathers of
 activations around each call of the loss and the norms: none under
-``ce_onehot``, none in the norms of mamba2's and hymba's split rows.
+``ce_onehot``, none in the norms of mamba2's and hymba's split rows.  And
+they run ``mamba2.ssd_chunked`` alone on its local shards (fault G), heads
+split over ``model`` and whole on each rank, with a tail short of a chunk
+and without: y, the final state and the grads of its six inputs against
+the unsharded port and ``jax.grad`` of the reference's.
 
 Every run takes fp32 activations (the port's ``ACT_DTYPE``, JAX's ``jnp``
 read with bfloat16 as float32, as tests/test_torch_train.py runs its fp32
@@ -116,6 +120,20 @@ NO_GATHER = {"llama-onehot": "loss", "llama-onehot-chunk": "loss",
              "hymba-remat": "norm"}
 
 TOL = dict(rtol=1e-4, atol=1e-5)   # every quantity, fp32 activations
+
+# ``mamba2.ssd_chunked`` alone, on local shards: case -> (heads, length).
+# 4 heads split over model, 3 whole on each model rank; 40 positions end
+# in a tail short of the 16-position chunk, 32 do not
+SSD_CASES = {"ssd-heads-split": (4, 40), "ssd-heads-whole": (3, 40),
+             "ssd-heads-split-no-tail": (4, 32)}
+SSD_P, SSD_N, SSD_CHUNK = 8, 8, 16
+# each argument's logical names, and the cotangents' (y's, the state's)
+SSD_ARGS = {"x": ("batch", "seq", "act_heads", None),
+            "dt": ("batch", "seq", "act_heads"), "a_log": (None,),
+            "b": ("batch", "seq", None), "c": ("batch", "seq", None),
+            "d_skip": (None,)}
+SSD_COTANGENTS = {"gy": SSD_ARGS["x"], "gs": ("batch", "act_heads", None,
+                                              None)}
 
 
 @contextlib.contextmanager
@@ -359,6 +377,68 @@ def _counting_gathers(counts: dict):
         yield
 
 
+def _ssd_inputs(case: str) -> dict:
+    """Numpy inputs of ``ssd_chunked`` from a seed (dt softplus'd), and the
+    cotangents of y and the final state."""
+    H, L = SSD_CASES[case]
+    rng = np.random.default_rng(5)
+
+    def normal(*shape):
+        return rng.standard_normal(shape).astype(np.float32)
+
+    return {"x": normal(B, L, H, SSD_P),
+            "dt": np.logaddexp(0, normal(B, L, H)).astype(np.float32),
+            "a_log": 0.5 * normal(H), "b": normal(B, L, SSD_N),
+            "c": normal(B, L, SSD_N), "d_skip": normal(H),
+            "gy": normal(B, L, H, SSD_P), "gs": normal(B, H, SSD_N, SSD_P)}
+
+
+def _port_ssd(case: str, mesh=None) -> dict:
+    """``mamba2.ssd_chunked`` of ``case`` under ``mesh`` (None: unsharded):
+    y, the final state and the grads of its six arguments of the loss
+    sum(y * gy) + sum(state * gs), each gathered; under a mesh y's and the
+    state's local shapes (``shape:...``)."""
+    from repro_torch.models.mamba2 import ssd_chunked
+
+    arrays = _ssd_inputs(case)
+    out = {}
+    with use_sharding(mesh):
+        ins = {k: place(torch.from_numpy(arrays[k]), names).detach()
+               .requires_grad_() for k, names in SSD_ARGS.items()}
+        gy, gs = (place(torch.from_numpy(arrays[k]), names)
+                  for k, names in SSD_COTANGENTS.items())
+        y, state = ssd_chunked(*ins.values(), chunk=SSD_CHUNK)
+        ((y * gy).sum() + (state * gs).sum()).backward()
+    out["y"], out["state"] = _np(y), _np(state)
+    out.update({f"grad.{k}": _np(t.grad) for k, t in ins.items()})
+    if mesh is not None:
+        for k, t in (("y", y), ("state", state)):
+            out[f"shape:{k}"] = np.asarray(t.to_local().shape)
+    return out
+
+
+def _jax_ssd(case: str) -> dict:
+    """``repro.models.mamba2.ssd_chunked`` of ``case`` in fp32: y, the final
+    state and ``jax.grad`` of ``_port_ssd``'s loss."""
+    import jax
+    import jax.numpy as jnp
+
+    from repro.models.mamba2 import ssd_chunked as jax_ssd_chunked
+
+    arrays = _ssd_inputs(case)
+
+    def loss(*args):
+        y, state = jax_ssd_chunked(*args, chunk=SSD_CHUNK)
+        return ((y * arrays["gy"]).sum() + (state * arrays["gs"]).sum(),
+                (y, state))
+
+    grads, (y, state) = jax.jit(jax.grad(
+        loss, argnums=tuple(range(len(SSD_ARGS))), has_aux=True))(
+        *(jnp.asarray(arrays[k]) for k in SSD_ARGS))
+    return {"y": _np(y), "state": _np(state),
+            **{f"grad.{k}": _np(g) for k, g in zip(SSD_ARGS, grads)}}
+
+
 def _rank_main(rank: int, tmp: str) -> None:
     """One of the 4 gloo ranks: every case on the (data, model) mesh,
     written to ``rank{rank}_{case}.npz``."""
@@ -380,6 +460,9 @@ def _rank_main(rank: int, tmp: str) -> None:
                 out.update({k if ":" in k else f"gathers:{k}": np.asarray(n)
                             for k, n in counts.items()})
                 np.savez(tmp / f"rank{rank}_{case}.npz", **out)
+        for case in SSD_CASES:
+            np.savez(tmp / f"rank{rank}_{case}.npz",
+                     **_port_ssd(case, mesh))
     finally:
         dist.destroy_process_group()
 
@@ -463,6 +546,8 @@ def runs(tmp_path_factory) -> dict:
         for case, (jm, jp) in models.items():
             out[case] = {"jax": _jax_steps(case, jm, jp), "port": _port_steps(
                 case, {k: np.asarray(v) for k, v in jp.items()})}
+    for case in SSD_CASES:
+        out[case] = {"jax": _jax_ssd(case), "port": _port_ssd(case)}
     deadline = time.monotonic() + RANKS_TIMEOUT_S
     while not ranks.join(timeout=5):
         if time.monotonic() > deadline:
@@ -581,3 +666,21 @@ def test_the_ssm_branch_gathers_no_projection_and_no_conv_output(runs,
     assert int(got["ssm:bad"]) == 0
     assert int(got["ssm:unknown"]) == 0
     assert 0 < int(got["ssm:bytes"]) <= int(got["ssm:allow"])
+
+
+@pytest.mark.parametrize("case", sorted(SSD_CASES))
+def test_the_ssd_on_local_shards_matches_unsharded_and_jax(runs, case):
+    """Fault G: ``ssd_chunked`` on DTensors runs on each rank's local
+    shards, its heads split over model where they divide it (4 heads) and
+    whole on each rank where not (3), with a tail short of a chunk and
+    without: y, the final state and the grads of x, dt, a_log, B, C and
+    d_skip in fp32 against the unsharded port and JAX's ``jax.grad``, at
+    ``TOL``.  y and the state keep the batch split over data and the heads'
+    layout."""
+    H, L = SSD_CASES[case]
+    _assert_close(runs, case, ["y", "state", *(f"grad.{k}"
+                                              for k in SSD_ARGS)])
+    got = runs[case]["sharded"]
+    heads = H // 2 if H % 2 == 0 else H
+    assert list(got["shape:y"]) == [B // 2, L, heads, SSD_P]
+    assert list(got["shape:state"]) == [B // 2, heads, SSD_N, SSD_P]
