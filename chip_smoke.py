@@ -99,7 +99,19 @@ that run it, and drives every ported path at full size:
   rank's local shards and whose hymba prefill writes its K and V caches
   in place, so that the host's torch runs them; a line a cell gives a
   device's collective bytes, the world's and a device's FLOPs and the
-  temp bytes, and the phase prints its seconds.
+  temp bytes, and the phase prints its seconds;
+* slice 19: fault H.  A collective's result lives on behind funcol's
+  autograd wrapper, which the dry run counted at 0 bytes while letting the
+  result's storage go: a sharded layer whose output leaves an all-reduce
+  was not counted.  The dry run's storages at the peak of llama3.2-1b's
+  16x16 ``train_4k``, charged to their ops
+  (``tools/collective_sites.py``), hold each layer's residual once
+  (``phase_dryrun``); on the one-rank NCCL mesh the card's bytes of such
+  a result against the dry run's count of the same ops, and the bytes
+  the sharded train forward keeps for its backward and its train step's
+  peak above its start against the unsharded step's (``phase_sharded``);
+  and the train phase prints what was allocated at its start beside its
+  peak.
 
 Besides, it holds the RMSNorm kernel against its plain version at every
 edge of its geometry (``check_rmsnorm_edges``), and the decoder's loss
@@ -277,9 +289,19 @@ DRYRUN_CELLS = {(ARCH, "single_pod", "train_4k"): "ok",
                    for arch in ("mamba2-780m", "hymba-1.5b")
                    for shape in ("train_4k", "prefill_32k")}}
 DRYRUN_TIMEOUT_S = 600
+# slice 19: fault H.  At the peak of llama3.2-1b's 16x16 train_4k the
+# storages of the residual's local size ((B / data) x S x d_model, bf16):
+# each layer's input, which remat keeps, the last layer's output (the final
+# norm's input) and the final norm's output (the head product's input),
+# n_layers + DRYRUN_RESIDUALS_EXTRA, charged to their ops by
+# tools/collective_sites.py
+DRYRUN_PEAK_SHAPE, DRYRUN_DATA, DRYRUN_RESIDUALS_EXTRA = "train_4k", 16, 2
 # slice 12: serve:model's prefill and decode steps and one train step of the
 # train path, with and without a one-rank NCCL mesh (the sharded program)
 SHARDED_PATH, SHARDED_DECODE = "sharded", 32
+# slice 19: the rows of the all-reduced partial sum whose card bytes are
+# held against the dry run's count (wrapped_result_bytes): 16 MiB in bf16
+WRAPPED_ROWS = 4096
 # slice 13: one loss_and_grads of the full llama3.2-1b at train_4k's
 # sequence under each variant (config changes), each remat variant held
 # against its twin without remat (REMAT_TWIN): the chunked loss sums its
@@ -1747,6 +1769,7 @@ def phase_train() -> dict:
     launches."""
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.memory_allocated()
     kernels.reset_launch_counts()
     out = train.run(ARCH, steps=TRAIN_STEPS, batch=TRAIN_BATCH,
                     seq=TRAIN_SEQ, lr=TRAIN_LR, device="cuda")
@@ -1782,6 +1805,9 @@ def phase_train() -> dict:
     state = check_state_bytes(model)
     warm_s = sum(step_s[1:])
     tokens = TRAIN_BATCH * TRAIN_SEQ
+    print(f"{TRAIN_PATH}: allocated at the start {start / 2 ** 30} GiB, peak "
+          f"{peak / 2 ** 30} GiB, {(peak - start) / 2 ** 30} GiB above the "
+          f"start", flush=True)
     emit({"phase": "train", "path": TRAIN_PATH, "arch": ARCH,
           "params": model.param_count(), "steps": TRAIN_STEPS,
           "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "losses": losses,
@@ -1792,6 +1818,8 @@ def phase_train() -> dict:
           "tokens_per_s_with_first_step": tokens * TRAIN_STEPS / sum(step_s),
           "share_of_elements_moved_least": min(moved.values()),
           "launches": launched, "peak_memory_gib": peak / 2 ** 30,
+          "start_allocated_gib": start / 2 ** 30,
+          "peak_above_start_gib": (peak - start) / 2 ** 30,
           "state_bytes": state})
     return launched
 
@@ -3127,6 +3155,57 @@ def plain_calls():
             setattr(mod, attr, fn)
 
 
+def forward_holds(model, params, batch) -> int:
+    """The bytes the card holds after ``model.loss`` on ``batch`` with
+    autograd recording, above what it held before: what the train forward
+    keeps for its backward (under remat each layer's input) and the loss.
+    Its launches are no path's: the counters are reset before each call."""
+    with torch.enable_grad():
+        leaves = {k: p.detach().requires_grad_() for k, p in params.items()}
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        loss, _ = model.loss(leaves, batch)
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated() - before
+    del loss
+    return held
+
+
+def wrapped_result_bytes(mesh) -> dict:
+    """Fault H's op on the card: a (WRAPPED_ROWS, d_model) bf16 tensor
+    all-reduced over ``mesh``'s ``data`` group by funcol (its autograd
+    wrapper over the result; DTensor issues no collective over a dim of
+    one rank) and the result doubled.  The bytes allocated above the start
+    while both live, on the card and as ``dryrun.StepCounter`` counts the
+    same two ops on meta, are both two results' bytes (a count that let
+    the wrapped result go reads one)."""
+    import torch.distributed._functional_collectives as funcol
+
+    shape = (WRAPPED_ROWS, get_config(ARCH).d_model)
+    group = mesh.get_group("data")
+    x = torch.ones(shape, dtype=torch.bfloat16, device="cuda")
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    y = funcol.all_reduce(x, "sum", group)
+    z = y * 2
+    torch.cuda.synchronize()
+    card = torch.cuda.memory_allocated() - before
+    del x, y, z
+    meta = torch.empty(shape, dtype=torch.bfloat16, device="meta")
+    counter = dryrun.StepCounter((meta,))
+    with counter:
+        y = funcol.all_reduce(meta, "sum", group)
+        z = y * 2
+    del y, z
+    result = math.prod(shape) * 2
+    got = {"result_bytes": result, "card_bytes": card,
+           "dry_run_bytes": counter.peak_bytes}
+    if not card == counter.peak_bytes == 2 * result:
+        raise AssertionError(f"{SHARDED_PATH}: an all-reduce's result and "
+                             f"its double: {got}, want {2 * result} each")
+    return got
+
+
 def sharded_steps(model, params, prompt, steps, batch, mesh) -> dict:
     """The prefill of ``prompt``, a decode step of each column of ``steps``
     and one ``make_train_step`` on ``batch``, under ``use_sharding(mesh)``
@@ -3185,10 +3264,16 @@ def sharded_steps(model, params, prompt, steps, batch, mesh) -> dict:
                                        None else cache[k]).shape)
                               for k in ("k", "v")}
         del weights, cache
+        out["forward_held"] = forward_holds(model, params, batch)
         t_norms, t_flash = step_launches(model.cfg)
+        torch.cuda.synchronize()
+        start = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
         new, _, metrics = run("train", lambda: make_train_step(model)(
             params, adamw_init(params), batch),
             {"rmsnorm": t_norms, "flash_attention": t_flash})
+        out["train_peak_above_start"] = \
+            torch.cuda.max_memory_allocated() - start
         out["loss"] = full(metrics["loss"]).item()
         out["params"] = {k: full(v) for k, v in new.items()}
         del new
@@ -3207,9 +3292,13 @@ def phase_sharded() -> dict:
     and the cache are held at serve:model's bf16 bound (rtol 3e-2, atol
     ``bf16_atol(L)``), the loss at 3e-2 and each parameter after AdamW at
     3e-2 relative Frobenius (phase_train_vs_cpu's); whether each is bit
-    for bit the unsharded run's is reported.  Every counter is reset just
-    before each call and read just after; returns kernel -> launches of
-    the sharded run."""
+    for bit the unsharded run's is reported.  The bytes the train forward
+    keeps for its backward (``forward_holds``) differ from the unsharded
+    run's, and the train step's peak above its start exceeds it, by under
+    half a residual a layer, and an all-reduced result is held on the card
+    as the dry run counts it (``wrapped_result_bytes``).  Every counter is
+    reset just before each call and read just after; returns kernel ->
+    launches of the sharded run."""
     cfg = get_config(ARCH)
     model = get_model(cfg)
     rng = np.random.default_rng(12)
@@ -3227,6 +3316,7 @@ def phase_sharded() -> dict:
     try:
         runs["mesh"] = sharded_steps(model, params, prompt, steps, batch,
                                      mesh)
+        wrapped = wrapped_result_bytes(mesh)
     finally:
         dist.destroy_process_group()
     del params
@@ -3259,6 +3349,20 @@ def phase_sharded() -> dict:
         "loss": got["loss"] == want["loss"],
         "params": all(torch.equal(got["params"][k], p)
                       for k, p in want["params"].items())}
+    # fault H: a copy of each layer's residual more (or less) under the
+    # mesh would move the bytes the forward keeps by n_layers residuals
+    residual = TRAIN_BATCH * TRAIN_SEQ * cfg.d_model * 2
+    memory = {k: {"mesh": got[k], "unsharded": want[k],
+                  "residuals_more": (got[k] - want[k]) / residual}
+              for k in ("forward_held", "train_peak_above_start")}
+    memory["residual_bytes"] = residual
+    memory["wrapped_all_reduce"] = wrapped
+    print(f"{SHARDED_PATH} memory: {json.dumps(memory)}", flush=True)
+    if not (abs(got["forward_held"] - want["forward_held"]) <
+            cfg.n_layers * residual / 2 and
+            got["train_peak_above_start"] - want["train_peak_above_start"]
+            < cfg.n_layers * residual / 2):
+        raise AssertionError(f"{SHARDED_PATH}: memory {memory}")
     del runs, got["params"], want["params"]
     torch.cuda.empty_cache()
     emit({"phase": "sharded", "path": SHARDED_PATH, "arch": ARCH,
@@ -3269,7 +3373,7 @@ def phase_sharded() -> dict:
           "cache_local_shape": got["cache_local"],
           "max_abs_err": errs, "atol": atol, "bit_equal": bit_equal,
           "plain_calls": got["plain"], "seconds": got["seconds"],
-          "seconds_unsharded": want["seconds"],
+          "seconds_unsharded": want["seconds"], "memory": memory,
           "launches": got["launches"]})
     return got["launches"]
 
@@ -3470,8 +3574,10 @@ def phase_dryrun() -> dict:
     prefill's world matmul FLOPs equal the closed form of its config, and
     no subprocess initialised CUDA.  A line a cell: a device's collective
     bytes, the world's and a device's matmul FLOPs and temp bytes, and the
-    phase's seconds.  Launches no kernel in this process.  Returns kernel
-    -> launches."""
+    phase's seconds.  With the cells, ``tools/collective_sites.py``
+    charges the storages at the peak of ``ARCH``'s DRYRUN_PEAK_SHAPE to
+    their ops (``peak_residuals``).  Launches no kernel in this process.
+    Returns kernel -> launches."""
     from repro_torch.configs import SHAPES
 
     kernels.reset_launch_counts()
@@ -3489,6 +3595,13 @@ def phase_dryrun() -> dict:
              *(a for kv in cell[3:] for a in ("--set", kv))], env=env,
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
             for cell in DRYRUN_CELLS}
+        peak_json = Path(out) / "peak.json"
+        peak_run = subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve().parent / "tools" /
+                                 "collective_sites.py"), "--arch", ARCH,
+             "--shape", DRYRUN_PEAK_SHAPE, "--top", "0",
+             "--json", str(peak_json)], env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)
         cells = {}
         try:
             for cell, run in runs.items():
@@ -3504,8 +3617,15 @@ def phase_dryrun() -> dict:
                 if res["status"] != DRYRUN_CELLS[cell]:
                     raise AssertionError(f"dryrun: {cell}: {res}")
                 cells[":".join(cell)] = res
+            stdout, stderr = peak_run.communicate(timeout=DRYRUN_TIMEOUT_S)
+            if peak_run.returncode != 0:
+                raise AssertionError(
+                    f"dryrun: collective_sites exited "
+                    f"{peak_run.returncode}: {stdout[-2000:]} "
+                    f"{stderr[-2000:]}")
+            peak = json.loads(peak_json.read_text())
         finally:
-            for run in runs.values():
+            for run in (*runs.values(), peak_run):
                 if run.poll() is None:
                     run.kill()
                     run.communicate()
@@ -3559,8 +3679,10 @@ def phase_dryrun() -> dict:
           f"all-gather {off['all_gather_bytes']} B (ce_onehot=False); temp "
           f"{on['temp_size_bytes']} B, all-gather {on['all_gather_bytes']} B "
           f"(ce_onehot=True)", flush=True)
+    residuals = peak_residuals(peak, cells[f"{llama}:{DRYRUN_PEAK_SHAPE}"])
     print(f"dryrun: {len(cells)} cells in {seconds:.3f} s", flush=True)
     emit({"phase": "dryrun", "path": DRYRUN_PATH, "arch": ARCH,
+          "residuals_at_peak": residuals,
           "prefill_closed_form_flops": want,
           "prefill_skip_closed_form_flops": want_skip,
           "cuda_initialized": False, "seconds": seconds,
@@ -3573,6 +3695,35 @@ def phase_dryrun() -> dict:
               for k, r in cells.items()},
           "launches": launched})
     return launched
+
+
+def peak_residuals(peak: dict, cell: dict) -> dict:
+    """Fault H on the card's host: the storages at the peak of ``ARCH``'s
+    16x16 ``DRYRUN_PEAK_SHAPE`` (``collective_sites.py``'s JSON,
+    ``peak``) of the residual's local size are n_layers +
+    DRYRUN_RESIDUALS_EXTRA, and the tool's temp is the dry run's own
+    (``cell``).  Prints them by the op and model line that made them;
+    returns the count, the bytes each and those sites."""
+    from repro_torch.configs import SHAPES
+
+    cfg, shape = get_config(ARCH), SHAPES[DRYRUN_PEAK_SHAPE]
+    each = shape.global_batch // DRYRUN_DATA * shape.seq_len * \
+        cfg.d_model * 2
+    sites = collections.Counter()
+    for p in peak["at_peak"]:
+        if p["bytes_each"] == each:
+            sites[f"{p['op']} {p['model']}"] += p["storages"]
+    held, want = sum(sites.values()), cfg.n_layers + DRYRUN_RESIDUALS_EXTRA
+    temp = cell["memory"]["temp_size_bytes"]
+    print(f"dryrun {ARCH} {DRYRUN_PEAK_SHAPE} peak: {held} storages of the "
+          f"residual's {each} B (want {want}), temp "
+          f"{peak['temp_size_bytes']} B: {json.dumps(sites)}", flush=True)
+    if held != want or peak["temp_size_bytes"] != temp:
+        raise AssertionError(
+            f"dryrun: {held} residual-sized storages at the peak of "
+            f"{ARCH} {DRYRUN_PEAK_SHAPE}, want {want}; temp "
+            f"{peak['temp_size_bytes']} against the cell's {temp}: {sites}")
+    return {"storages": held, "bytes_each": each, "sites": dict(sites)}
 
 
 def phase_examples() -> dict:

@@ -196,7 +196,8 @@ def _aliasing_wrappers() -> tuple:
     allocate a new tensor on meta: funcol's autograd wrapper of a
     collective's result (an ``AsyncCollectiveTensor`` over the same
     memory; its meta kernel is ``empty_like``).  Their outputs are not new
-    bytes."""
+    bytes, and they hold their input's: the wrapper keeps the collective's
+    result alive for as long as it lives."""
     import torch.distributed._functional_collectives  # noqa: F401
 
     op = getattr(torch.ops._c10d_functional, "_wrap_tensor_autograd", None)
@@ -227,14 +228,16 @@ class StepCounter(TorchDispatchMode):
 
     Memory: each plain op's outputs on a device (a rank's local shards
     under a mesh) whose storage neither ``args`` nor an earlier op holds
-    add their storage's bytes to ``live_bytes``.  The storages that no
-    tensor holds any more (their ``StorageWeakRef`` expired) leave it only
-    where it would pass ``peak_bytes``: until then it may count some dead
-    ones, so it bounds the live bytes from above, and where the bound stays
-    under the peak the live bytes do too.  ``peak_bytes`` is the largest
-    value of the swept sum: the step's temp.  (A weak reference keeps its
-    storage's address from being reused, so a dead entry never stands for
-    a new storage.)"""
+    add their storage's bytes to ``live_bytes``; an aliasing wrapper's
+    output (``_aliasing_wrappers``) adds none, and holds its input's
+    storage for as long as it lives, as the device's wrapper does.  The
+    storages that no tensor holds any more (their ``StorageWeakRef``
+    expired) leave it only where it would pass ``peak_bytes``: until then
+    it may count some dead ones, so it bounds the live bytes from above,
+    and where the bound stays under the peak the live bytes do too.
+    ``peak_bytes`` is the largest value of the swept sum: the step's temp.
+    (A weak reference keeps its storage's address from being reused, so a
+    dead entry never stands for a new storage.)"""
 
     def __init__(self, args=()):
         super().__init__()
@@ -248,24 +251,30 @@ class StepCounter(TorchDispatchMode):
         self._args = {StorageWeakRef(t.untyped_storage())
                       for t in _locals(args)}
         self._live: dict = {}      # StorageWeakRef -> bytes
+        self._held: dict = {}      # wrapper's StorageWeakRef -> its input
         self.live_bytes = self.peak_bytes = 0
 
-    def _made(self, out, alias: bool = False, exact: bool = False) -> None:
+    def _made(self, out, wraps: torch.Tensor | None = None,
+              exact: bool = False) -> None:
         """Add the storages of ``out`` that ``live_bytes`` does not hold
-        yet (at 0 bytes where ``out`` is an ``alias`` of the op's input, at
-        the tensor's own bytes where ``exact``); where the sum passes the
-        peak, drop the storages no tensor holds and raise the peak to what
-        is left."""
+        yet (at 0 bytes where ``out`` wraps the op's input ``wraps``, whose
+        storage it then holds; at the tensor's own bytes where ``exact``);
+        where the sum passes the peak, drop the storages no tensor holds
+        and raise the peak to what is left."""
         for t in _locals(out):
             if t.device.type == "cpu":   # host scalars (a cache's pos)
                 continue
             storage = t.untyped_storage()
             ref = StorageWeakRef(storage)
             if ref not in self._live and ref not in self._args:
-                self._live[ref] = 0 if alias else (
+                self._live[ref] = 0 if wraps is not None else (
                     _nbytes(t) if exact else storage.nbytes())
                 self.live_bytes += self._live[ref]
+                if wraps is not None:
+                    self._held[ref] = wraps
         if self.live_bytes > self.peak_bytes:
+            for ref in [r for r in self._held if r.expired()]:
+                del self._held[ref]
             for ref in [r for r in self._live if r.expired()]:
                 self.live_bytes -= self._live.pop(ref)
             self.peak_bytes = max(self.peak_bytes, self.live_bytes)
@@ -299,7 +308,7 @@ class StepCounter(TorchDispatchMode):
         out = func(*args, **kwargs)
         # the all-to-all's meta kernel gathers the whole dim and returns a
         # slice of it: a device receives the slice's bytes alone
-        self._made(out, alias=packet in self._wrappers,
+        self._made(out, wraps=args[0] if packet in self._wrappers else None,
                    exact=packet is torch.ops._dtensor.shard_dim_alltoall)
         if flops is not None:
             n = int(flops(*args, **kwargs, out_val=out))

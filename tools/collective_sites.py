@@ -10,8 +10,13 @@ device's, as the dry run counts them) to the innermost frame under
 collective issued by the autograd engine outside any such frame (a
 backward's own redistributions) is charged to ``<backward>``; a backward
 that ``models.loss_and_grads`` runs is charged to its line.  The FLOPs
-are charged the same way.  Prints the cell's totals, then the sites by
-bytes and by FLOPs, and writes them as JSON with ``--json``.
+are charged the same way, and every storage that a device holds at the
+step's peak (``temp_size_bytes``) to the op that made it and to its
+frames: the innermost under ``repro_torch/models/``, under
+``repro_torch/`` and under ``torch/`` (a DTensor redistribution or a
+checkpoint's own copy shows there).  Prints the cell's totals, then the
+sites by bytes, by FLOPs and at the peak, and writes them as JSON with
+``--json``.
 
 Usage:
   PYTHONPATH=src python tools/collective_sites.py --arch mamba2-780m \\
@@ -29,31 +34,90 @@ from repro_torch.configs import SHAPES, get_config
 from repro_torch.launch import dryrun
 from repro_torch.launch.mesh import fake_world, make_production_mesh
 
-MODELS = "repro_torch/models/"
+MODELS, PORT, TORCH = "repro_torch/models/", "repro_torch/", "/torch/"
+# torch's dispatch plumbing, which every op passes: no frame of it names
+# the code that asked for the op
+PLUMBING = ("torch/_ops.py", "torch/utils/_python_dispatch.py",
+            "torch/overrides.py", "torch/_tensor.py", "torch/_compile.py",
+            "torch/_dynamo/", "torch/utils/_contextlib.py",
+            "torch/distributed/tensor/_dispatch.py",
+            "torch/distributed/tensor/_api.py")
+
+
+def _where(f) -> str:
+    name = f.f_code.co_filename.replace("\\", "/")
+    for root in (MODELS, PORT, TORCH):
+        if root in name:
+            name = name[name.index(root):].lstrip("/")
+            break
+    return f"{name}:{f.f_lineno} ({f.f_code.co_name})"
 
 
 def _site() -> str:
     f = sys._getframe(2)
     while f is not None:
-        name = f.f_code.co_filename.replace("\\", "/")
-        if MODELS in name:
-            short = name[name.index(MODELS):]
-            return f"{short}:{f.f_lineno} ({f.f_code.co_name})"
+        if MODELS in f.f_code.co_filename.replace("\\", "/"):
+            return _where(f)
         f = f.f_back
     return "<backward>"
 
 
+def _origin(func) -> tuple:
+    """(op, the innermost frame under ``repro_torch/models/``, under
+    ``repro_torch/`` but the dry run's counter, and the innermost three of
+    torch's own frames between that one and the op, dispatch plumbing left
+    out) of the op ``func`` running now."""
+    model = port = None
+    inner = []
+    f = sys._getframe(1)
+    while f is not None and model is None:
+        name = f.f_code.co_filename.replace("\\", "/")
+        if MODELS in name:
+            model = _where(f)
+        elif PORT in name:
+            if port is None and not name.endswith("launch/dryrun.py"):
+                port = _where(f)
+        elif (TORCH in name and port is None and len(inner) < 3
+              and not any(p in name for p in PLUMBING)):
+            inner.append(_where(f))
+        f = f.f_back
+    return (str(func), model or "<backward>", port or "-",
+            " < ".join(inner) or "-")
+
+
 class SiteCounter(dryrun.StepCounter):
     """``StepCounter`` that also charges each collective to its site,
-    ``sites[site] = [bytes, count]``, and each device's matmul FLOPs,
-    ``flops[site]``."""
+    ``sites[site] = [bytes, count]``, each device's matmul FLOPs,
+    ``flops[site]``, and each storage to the op that made it, keeping
+    those live at the peak (``at_peak``)."""
 
     def __init__(self, args=()):
         super().__init__(args)
         self.sites = collections.defaultdict(lambda: [0, 0])
         self.flops = collections.Counter()
+        self._func = None
+        self._origins: dict = {}   # StorageWeakRef -> _origin(op)
+        self.at_peak: list = []    # (StorageWeakRef, bytes) at the peak
+
+    def _made(self, out, *how, **kw) -> None:
+        held, peak = set(self._live), self.peak_bytes
+        super()._made(out, *how, **kw)
+        for ref in self._live.keys() - held:
+            self._origins[ref] = _origin(self._func)
+        if self.peak_bytes > peak:
+            # raising the peak swept the dead storages out of ``_live``
+            self.at_peak = [(r, n) for r, n in self._live.items() if n]
+
+    def peak_sites(self) -> list:
+        """[(bytes, storages, bytes each, origin)] of the storages live at
+        the peak, grouped by origin and size, largest total first."""
+        groups = collections.Counter(
+            (self._origins[r], n) for r, n in self.at_peak)
+        return sorted(((n * k, k, n, origin)
+                       for (origin, n), k in groups.items()), reverse=True)
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self._func = func
         before = dict(self.collectives)
         local = self.local_flops
         out = super().__torch_dispatch__(func, types, args, kwargs)
@@ -111,6 +175,15 @@ def main(argv=None) -> dict:
     print("  a device's matmul FLOPs by site:")
     for site, n in flops.most_common(args.top):
         print(f"  {n:22d}  {site}")
+    peak = [{"bytes": b, "storages": k, "bytes_each": n, "op": o[0],
+             "model": o[1], "port": o[2], "torch": o[3]}
+            for b, k, n, o in counters[-1].peak_sites()]
+    print(f"  storages live at the peak "
+          f"({res['memory']['temp_size_bytes']} B):")
+    for p in peak[:args.top]:
+        print(f"  {p['bytes']:14d} B = {p['storages']:4d} x "
+              f"{p['bytes_each']:12d}  {p['op']}  {p['model']}  "
+              f"{p['port']}  {p['torch']}")
     out = {"arch": args.arch, "shape": args.shape,
            "multi_pod": args.multi_pod, "set": args.set,
            "collectives": res["collectives"],
@@ -120,7 +193,7 @@ def main(argv=None) -> dict:
            "trace_s": res["trace_s"],
            "sites": {k: {"bytes": b, "ops": n}
                      for k, (b, n) in sites.items()},
-           "flops_per_device_by_site": dict(flops)}
+           "flops_per_device_by_site": dict(flops), "at_peak": peak}
     if args.json:
         args.json.write_text(json.dumps(out, indent=1))
     return out
