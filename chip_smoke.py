@@ -111,7 +111,15 @@ that run it, and drives every ported path at full size:
   the sharded train forward keeps for its backward and its train step's
   peak above its start against the unsharded step's (``phase_sharded``);
   and the train phase prints what was allocated at its start beside its
-  peak.
+  peak;
+* slice 20: fault I.  A sharded train step handed back its parameters and
+  moments in other placements than it took, so that a second step on
+  them raised; each grad now takes its parameter's placements once, in
+  ``models.loss_and_grads``.  On the one-rank NCCL mesh the train step is
+  taken twice, the second on the first's outputs, each against the
+  unsharded run's and each handing back the placements it took
+  (``phase_sharded``); the dry run's collectives of llama3.2-1b's 16x16
+  ``train_4k`` are held by kind (``phase_dryrun``).
 
 Besides, it holds the RMSNorm kernel against its plain version at every
 edge of its geometry (``check_rmsnorm_edges``), and the decoder's loss
@@ -289,6 +297,17 @@ DRYRUN_CELLS = {(ARCH, "single_pod", "train_4k"): "ok",
                    for arch in ("mamba2-780m", "hymba-1.5b")
                    for shape in ("train_4k", "prefill_32k")}}
 DRYRUN_TIMEOUT_S = 600
+# slice 20: fault I.  A device's collective bytes by kind in ARCH's 16x16
+# train_4k once each grad takes its parameter's placements in
+# models.loss_and_grads (python -m repro_torch.launch.dryrun under torch
+# 2.13.0+cpu).  The card host's release must give the same bytes, but for
+# the clip's all-reduces of a grad's fp32 sum of squares, which a release
+# may issue once or for each parameter and mesh dim (4 B each)
+DRYRUN_TRAIN_COLLECTIVES = {"all-gather": 38317719552,
+                            "all-reduce": 26575380500,
+                            "reduce-scatter": 92839936,
+                            "all-to-all": 536870912,
+                            "collective-permute": 0}
 # slice 19: fault H.  At the peak of llama3.2-1b's 16x16 train_4k the
 # storages of the residual's local size ((B / data) x S x d_model, bf16):
 # each layer's input, which remat keeps, the last layer's output (the final
@@ -296,9 +315,10 @@ DRYRUN_TIMEOUT_S = 600
 # n_layers + DRYRUN_RESIDUALS_EXTRA, charged to their ops by
 # tools/collective_sites.py
 DRYRUN_PEAK_SHAPE, DRYRUN_DATA, DRYRUN_RESIDUALS_EXTRA = "train_4k", 16, 2
-# slice 12: serve:model's prefill and decode steps and one train step of the
-# train path, with and without a one-rank NCCL mesh (the sharded program)
-SHARDED_PATH, SHARDED_DECODE = "sharded", 32
+# slice 12: serve:model's prefill and decode steps and train steps of the
+# train path, with and without a one-rank NCCL mesh (the sharded program);
+# slice 20: two train steps, the second on the first's outputs (fault I)
+SHARDED_PATH, SHARDED_DECODE, SHARDED_TRAIN_STEPS = "sharded", 32, 2
 # slice 19: the rows of the all-reduced partial sum whose card bytes are
 # held against the dry run's count (wrapped_result_bytes): 16 MiB in bf16
 WRAPPED_ROWS = 4096
@@ -3208,16 +3228,20 @@ def wrapped_result_bytes(mesh) -> dict:
 
 def sharded_steps(model, params, prompt, steps, batch, mesh) -> dict:
     """The prefill of ``prompt``, a decode step of each column of ``steps``
-    and one ``make_train_step`` on ``batch``, under ``use_sharding(mesh)``
-    (None: no mesh; the parameters, tokens and batch then placed by their
-    logical names).  Each call's launches and plain calls are counted on
-    their own and checked: 2L + 1 norms and L attentions in the prefill, the
-    norms alone in a decode step, and the train step's forward's and its
-    backward's recompute (``step_launches``); no plain version in a serve
-    step, the unsharded step's count in the train step (flash's backward
-    is plain PyTorch).  Returns the logits of every
-    step and the last cache on the CPU, the params after the step on the
-    card, with the launches, plain calls and seconds."""
+    and SHARDED_TRAIN_STEPS ``make_train_step``s on ``batch``, each on the
+    last one's params and AdamW state, under ``use_sharding(mesh)`` (None:
+    no mesh; the parameters, tokens and batch then placed by their logical
+    names).  Under the mesh each train step hands back every parameter and
+    moment in the placements it took (fault I: ``make_train_step`` raises
+    ``AssertionError`` on one that moved).  Each call's launches and plain
+    calls are counted on their own and checked: 2L + 1 norms and L
+    attentions in the prefill, the norms alone in a decode step, and each
+    train step's forward's and its backward's recompute
+    (``step_launches``); no plain version in a serve step, the unsharded
+    step's count in the train step (flash's backward is plain PyTorch).
+    Returns the logits of every step and the last cache, and each train
+    step's loss and params, on the CPU, with the launches, plain calls and
+    seconds."""
     norms, layers = call_launches(model.cfg)
     out = {"logits": [], "launches": {name: 0 for name in KERNELS},
            "plain": {}, "seconds": {}}
@@ -3266,17 +3290,24 @@ def sharded_steps(model, params, prompt, steps, batch, mesh) -> dict:
         del weights, cache
         out["forward_held"] = forward_holds(model, params, batch)
         t_norms, t_flash = step_launches(model.cfg)
-        torch.cuda.synchronize()
-        start = torch.cuda.memory_allocated()
-        torch.cuda.reset_peak_memory_stats()
-        new, _, metrics = run("train", lambda: make_train_step(model)(
-            params, adamw_init(params), batch),
-            {"rmsnorm": t_norms, "flash_attention": t_flash})
-        out["train_peak_above_start"] = \
-            torch.cuda.max_memory_allocated() - start
-        out["loss"] = full(metrics["loss"]).item()
-        out["params"] = {k: full(v) for k, v in new.items()}
-        del new
+        train_step = make_train_step(model)
+        new, opt = params, None
+        out["loss"], out["params"] = [], []
+        for i in range(SHARDED_TRAIN_STEPS):
+            torch.cuda.synchronize()
+            start = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            state = new, opt
+            # the first step's AdamW state is made inside the measured call
+            new, opt, metrics = run("train", lambda: train_step(
+                state[0], state[1] or adamw_init(params), batch),
+                {"rmsnorm": t_norms, "flash_attention": t_flash})
+            if i == 0:
+                out["train_peak_above_start"] = \
+                    torch.cuda.max_memory_allocated() - start
+            out["loss"].append(full(metrics["loss"]).item())
+            out["params"].append({k: full(v).cpu() for k, v in new.items()})
+        del state, new, opt
     return out
 
 
@@ -3284,17 +3315,20 @@ def phase_sharded() -> dict:
     """sharded: llama3.2-1b at its published widths and depth (random
     weights from seed 0) on a one-rank NCCL mesh (``make_debug_mesh``)
     against the same steps with no mesh on the card: a prefill of batch 4
-    x prompt 64, 32 decode steps into the placed cache and one
-    ``make_train_step`` of 4 x 128 (``sharded_steps``).  Under the mesh the
-    norms and the attention run the kernels on each rank's local shards
+    x prompt 64, 32 decode steps into the placed cache and two
+    ``make_train_step``s of 4 x 128, the second on the first's params and
+    AdamW state, each handing them back in the placements it took
+    (``sharded_steps``).  Under the mesh the norms and the attention run
+    the kernels on each rank's local shards
     (``parallel.sharding.on_local_shards``), the cache is a DTensor placed
     by its logical names and written in place.  The logits of every step
     and the cache are held at serve:model's bf16 bound (rtol 3e-2, atol
-    ``bf16_atol(L)``), the loss at 3e-2 and each parameter after AdamW at
-    3e-2 relative Frobenius (phase_train_vs_cpu's); whether each is bit
-    for bit the unsharded run's is reported.  The bytes the train forward
-    keeps for its backward (``forward_holds``) differ from the unsharded
-    run's, and the train step's peak above its start exceeds it, by under
+    ``bf16_atol(L)``), each train step's loss at 3e-2 and each parameter
+    after its AdamW at 3e-2 relative Frobenius (phase_train_vs_cpu's);
+    whether each is bit for bit the unsharded run's is reported.  The
+    bytes the train forward keeps for its backward (``forward_holds``)
+    differ from the unsharded run's, and the first train step's peak
+    above its start exceeds it, by under
     half a residual a layer, and an all-reduced result is held on the card
     as the dry run counts it (``wrapped_result_bytes``).  Every counter is
     reset just before each call and read just after; returns kernel ->
@@ -3334,21 +3368,23 @@ def phase_sharded() -> dict:
         errs[f"cache_{k}"] = close(f"{SHARDED_PATH} cache {k}",
                                    got["cache"][k], want["cache"][k], 3e-2,
                                    atol)
-    errs["loss_rel"] = abs(got["loss"] - want["loss"]) / abs(want["loss"])
-    errs["params_max_rel_frobenius"] = max(
-        float((got["params"][k] - p).norm() / p.norm())
-        for k, p in want["params"].items())
-    if not (errs["loss_rel"] <= 3e-2 and
-            errs["params_max_rel_frobenius"] <= 3e-2):
+    # each train step, the second on the first's outputs
+    errs["loss_rel"] = [abs(g - w) / abs(w)
+                        for g, w in zip(got["loss"], want["loss"])]
+    errs["params_max_rel_frobenius"] = [max(
+        float((g[k] - p).norm() / p.norm()) for k, p in w.items())
+        for g, w in zip(got["params"], want["params"])]
+    if not (max(errs["loss_rel"]) <= 3e-2 and
+            max(errs["params_max_rel_frobenius"]) <= 3e-2):
         raise AssertionError(f"{SHARDED_PATH}: {errs}")
     bit_equal = {
         "logits": all(torch.equal(g, w) for g, w in zip(got["logits"],
                                                         want["logits"])),
         "cache": all(torch.equal(got["cache"][k], want["cache"][k])
                      for k in ("k", "v")),
-        "loss": got["loss"] == want["loss"],
-        "params": all(torch.equal(got["params"][k], p)
-                      for k, p in want["params"].items())}
+        "loss": [g == w for g, w in zip(got["loss"], want["loss"])],
+        "params": [all(torch.equal(g[k], p) for k, p in w.items())
+                   for g, w in zip(got["params"], want["params"])]}
     # fault H: a copy of each layer's residual more (or less) under the
     # mesh would move the bytes the forward keeps by n_layers residuals
     residual = TRAIN_BATCH * TRAIN_SEQ * cfg.d_model * 2
@@ -3370,6 +3406,7 @@ def phase_sharded() -> dict:
           "backend": "nccl", "layers": cfg.n_layers, "batch": MODEL_BATCH,
           "prompt": MODEL_PROMPT, "decode_steps": SHARDED_DECODE,
           "train_tokens": [TRAIN_BATCH, TRAIN_SEQ],
+          "train_steps": SHARDED_TRAIN_STEPS,
           "cache_local_shape": got["cache_local"],
           "max_abs_err": errs, "atol": atol, "bit_equal": bit_equal,
           "plain_calls": got["plain"], "seconds": got["seconds"],
@@ -3576,7 +3613,9 @@ def phase_dryrun() -> dict:
     bytes, the world's and a device's matmul FLOPs and temp bytes, and the
     phase's seconds.  With the cells, ``tools/collective_sites.py``
     charges the storages at the peak of ``ARCH``'s DRYRUN_PEAK_SHAPE to
-    their ops (``peak_residuals``).  Launches no kernel in this process.
+    their ops (``peak_residuals``), and ``ARCH``'s 16x16 train_4k moves
+    DRYRUN_TRAIN_COLLECTIVES (``train_collectives``).  Launches no kernel
+    in this process.
     Returns kernel -> launches."""
     from repro_torch.configs import SHAPES
 
@@ -3679,6 +3718,7 @@ def phase_dryrun() -> dict:
           f"all-gather {off['all_gather_bytes']} B (ce_onehot=False); temp "
           f"{on['temp_size_bytes']} B, all-gather {on['all_gather_bytes']} B "
           f"(ce_onehot=True)", flush=True)
+    train_coll = train_collectives(cells[f"{llama}:train_4k"])
     residuals = peak_residuals(peak, cells[f"{llama}:{DRYRUN_PEAK_SHAPE}"])
     print(f"dryrun: {len(cells)} cells in {seconds:.3f} s", flush=True)
     emit({"phase": "dryrun", "path": DRYRUN_PATH, "arch": ARCH,
@@ -3686,7 +3726,7 @@ def phase_dryrun() -> dict:
           "prefill_closed_form_flops": want,
           "prefill_skip_closed_form_flops": want_skip,
           "cuda_initialized": False, "seconds": seconds,
-          "train_4k_loss": loss,
+          "train_4k_loss": loss, "train_4k_collectives": train_coll,
           "cells": {k: {f: r.get(f) for f in (
               "status", "reason", "chips", "matmul_flops",
               "matmul_flops_per_device", "collectives", "trace_s",
@@ -3695,6 +3735,25 @@ def phase_dryrun() -> dict:
               for k, r in cells.items()},
           "launches": launched})
     return launched
+
+
+def train_collectives(cell: dict) -> dict:
+    """Fault I on the card's host: ``ARCH``'s 16x16 train_4k ``cell``
+    moves DRYRUN_TRAIN_COLLECTIVES' bytes of each kind, the all-reduces up
+    to one fp32 scalar a parameter and mesh dim more.  Prints and returns
+    each kind's bytes beside its want."""
+    got = cell["collectives"]
+    scalars = 4 * 2 * len(get_model(get_config(ARCH)).abstract_params())
+    out = {k: {"bytes": got[k], "want": want}
+           for k, want in DRYRUN_TRAIN_COLLECTIVES.items()}
+    out["all-reduce"]["scalar_slack"] = scalars
+    print(f"dryrun {ARCH} train_4k collectives a device: {json.dumps(out)}",
+          flush=True)
+    extra = {k: got[k] - want for k, want in DRYRUN_TRAIN_COLLECTIVES.items()}
+    if any(n for k, n in extra.items() if k != "all-reduce") or \
+            not 0 <= extra["all-reduce"] <= scalars:
+        raise AssertionError(f"dryrun: {ARCH} train_4k collectives {out}")
+    return out
 
 
 def peak_residuals(peak: dict, cell: dict) -> dict:

@@ -35,16 +35,45 @@ def loss_and_grads(model: BaseModel, params: dict, batch: dict
     thread, so this turns it on itself (and inference mode off) for a
     caller on any thread.  A parameter that the loss does not read (the
     token embedding of an encoder on frames) gets zeros, as ``jax.grad``
-    gives it."""
+    gives it.
+
+    Under a mesh each grad lands where its parameter lives, as
+    ``jax.value_and_grad`` under a sharded jit gives it: a DTensor grad,
+    which the backward leaves a partial sum over ``data`` (and over
+    ``model`` where a body on local shards split the work), is
+    redistributed once to its parameter's mesh and placements, one
+    reduce-scatter (an all-reduce for a replicated weight), so that the
+    clip and AdamW meet no partial sum and the step hands its state back
+    as it took it.  A plain tensor is returned as the backward left it."""
     with torch.inference_mode(False), torch.enable_grad():
         leaves = {k: p.detach().requires_grad_() for k, p in params.items()}
         loss, metrics = model.loss(leaves, batch)
         grads = torch.autograd.grad(loss, list(leaves.values()),
                                     allow_unused=True)
-    grads = [torch.zeros_like(p) if g is None else g
+    grads = [torch.zeros_like(p) if g is None else _placed_like(g, p)
              for p, g in zip(leaves.values(), grads)]
     return (dict(zip(leaves, grads)),
             {k: v.detach() for k, v in metrics.items()})
+
+
+def _placed_like(g: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """``g`` in ``p``'s mesh and placements where both are DTensors and the
+    placements differ; else ``g`` itself."""
+    if not is_sharded(g) or tuple(g.placements) == tuple(p.placements):
+        return g
+    return g.redistribute(p.device_mesh, p.placements)
+
+
+def _hold_placements(before: dict, after: dict, what: str) -> None:
+    """Raise ``AssertionError`` naming the first tensor of ``after`` whose
+    placements are not its twin's in ``before`` (DTensors alone; a tuple
+    comparison, no collective)."""
+    for k, p in before.items():
+        if is_sharded(p) and tuple(after[k].placements) != tuple(
+                p.placements):
+            raise AssertionError(
+                f"the train step moved {what} {k!r} from {p.placements} "
+                f"to {after[k].placements}")
 
 
 def make_train_step(model: BaseModel, lr_schedule: Callable | float = 3e-4,
@@ -52,7 +81,11 @@ def make_train_step(model: BaseModel, lr_schedule: Callable | float = 3e-4,
     """(params, opt_state, batch) -> (params, opt_state, metrics): grads of
     ``model.loss``, clipped to ``max_grad_norm``, then AdamW at
     ``lr_schedule(opt_state.step + 1)``.  ``metrics`` holds ``loss``,
-    ``ppl_proxy``, ``grad_norm`` and ``lr``.  Functional, as JAX's step."""
+    ``ppl_proxy``, ``grad_norm`` and ``lr``.  Functional, as JAX's step.
+    Under a mesh it hands back every parameter and moment in the
+    placements it took them in, so that the next step takes its outputs
+    (as the reference's jitted step takes its donated state), and raises
+    ``AssertionError`` naming the first that differs."""
     from ..optimizer import adamw_update, clip_by_global_norm, constant_lr
 
     sched = lr_schedule if callable(lr_schedule) else constant_lr(lr_schedule)
@@ -61,7 +94,11 @@ def make_train_step(model: BaseModel, lr_schedule: Callable | float = 3e-4,
         grads, metrics = loss_and_grads(model, params, batch)
         grads, gnorm = clip_by_global_norm(grads, max_grad_norm)
         lr = sched(opt_state.step + 1)
-        params, opt_state = adamw_update(params, grads, opt_state, lr)
+        new, new_state = adamw_update(params, grads, opt_state, lr)
+        _hold_placements(params, new, "parameter")
+        _hold_placements(opt_state.mu, new_state.mu, "first moment")
+        _hold_placements(opt_state.nu, new_state.nu, "second moment")
+        params, opt_state = new, new_state
         metrics.update({"grad_norm": gnorm, "lr": lr})
         return params, opt_state, metrics
 

@@ -727,7 +727,10 @@ def _mamba2_smoke_train_gathers(B: int, S: int, data: int, model: int
     ``conv_blocks``): no activation of the branch is gathered but B and C,
     once each a pass, for the SSD.  Every other term is a weight's, the
     loss's logits, the token ids or, since the scan runs on local shards
-    (fault G), the grads of the SSD's scalars a head."""
+    (fault G), the grads of the SSD's scalars a head.  Since each grad is
+    placed as its parameter once (``models.loss_and_grads``, fault I),
+    that of the replicated ``dt_bias``, which the heads' shards leave split
+    over ``model``, is gathered too."""
     cfg = tconfigs.get_smoke_config("mamba2-780m")
     L, M, V, K = cfg.n_layers, cfg.d_model, cfg.padded_vocab, cfg.ssm_conv
     DI, N, H = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
@@ -755,7 +758,11 @@ def _mamba2_smoke_train_gathers(B: int, S: int, data: int, model: int
             # the grads of the SSD's a_log and d_skip: the scan runs on
             # each rank's heads (local shards), so each comes back split
             # over model and is gathered to its replicated layout
-            + 2 * L * H * fp32)
+            + 2 * L * H * fp32
+            # the grad of dt_bias, added to dt on each rank's heads: split
+            # over model, gathered once to the replicated parameter's
+            # placements in loss_and_grads
+            + L * H * fp32)
 
 
 def test_a_mamba2_train_step_gathers_its_closed_form(mesh2x2):
@@ -764,8 +771,8 @@ def test_a_mamba2_train_step_gathers_its_closed_form(mesh2x2):
     columns shard 148 a rank; the blocks' edges (128, 256, 272, 288) cut
     the shards, so a slice of the product in its stored column order would
     gather the whole product, once a block, and the conv's output once a
-    block again (2728448 bytes where this form gives 669184).  The world's
-    FLOPs are the unsharded step's."""
+    block again (2728448 bytes where this form gave 669184, before the
+    64 of dt_bias's grad).  The world's FLOPs are the unsharded step's."""
     cfg = tconfigs.get_smoke_config("mamba2-780m")
     shape = SMALL["train"]
     got = dryrun.run_cell(cfg, shape, mesh2x2)

@@ -5,8 +5,9 @@ package's, on the same weights and inputs, on the CPU.
 The weights are JAX's (``init(PRNGKey(0))``), carried over through
 ``convert.params_from_numpy``; the inputs come from numpy with a seed.  One
 module-scoped spawn of 4 ranks runs, for each case, a prefill of B = 4
-prompts, 3 decode steps into the placed cache and one ``make_train_step``,
-all under ``use_sharding(mesh)``, and writes each output's
+prompts, 3 decode steps into the placed cache and two
+``make_train_step``s, the second on the first's outputs, all under
+``use_sharding(mesh)``, and writes each output's
 ``full_tensor()``; meanwhile this process runs the same steps unsharded and
 JAX's jitted steps.  GSPMD does not change values, so the JAX package's
 unsharded run is the reference.  The kernels take their plain versions on
@@ -44,8 +45,8 @@ MoE's top-k routing, discontinuous in either package (ROADMAP.md, Queue
 into a whole step of the parameter.  In fp32 each quantity is held at
 tests/test_torch_train.py's fp32 bound, rtol 1e-4 and atol 1e-5, against
 both references: the logits and caches after the prefill and each decode
-step, the loss, the grad norm, the first moments ((1 - b1) times the
-step's clipped grads) and the parameters after AdamW.  That is tighter
+step and, after each train step, the loss, the grad norm, the first
+moments and the parameters after AdamW.  That is tighter
 than test_torch_models.py's bf16 bounds (logits 3e-2, caches one bf16
 ulp).  The card's one-rank mesh holds the bf16 run (``chip_smoke.py``'s
 ``sharded`` phase).
@@ -75,6 +76,8 @@ from repro_torch.optimizer import adamw_init
 from repro_torch.parallel.sharding import place, use_sharding
 
 B, DECODE_STEPS, WORLD = 4, 3, 4
+# the names of the train steps a case takes, each on the last's outputs
+TRAIN_STEPS = ("train", "train2")
 RANKS_TIMEOUT_S = 600
 # case -> (arch, config changes, prompt length, whether it trains a step)
 CASES = {
@@ -234,15 +237,23 @@ def _port_steps(case: str, arrays: dict, mesh=None) -> dict:
                 out[f"want:{name}"] = np.asarray(t.to_local().shape)
         if not CASES[case][3]:
             return out
-        new, opt, metrics = make_train_step(model)(
-            params, adamw_init(params),
-            {k: tok(v) for k, v in x["train"].items()})
-        for k in ("loss", "grad_norm"):
-            out[f"train.{k}"] = _np(metrics[k])
-        for k in new:
-            out[f"train.params.{k}"] = _np(new[k])
-            out[f"train.mu.{k}"] = _np(opt.mu[k])
+        train_step = make_train_step(model)
+        batch = {k: tok(v) for k, v in x["train"].items()}
+        opt = adamw_init(params)
+        for step in TRAIN_STEPS:
+            # the second step takes the first's outputs, as a run does
+            params, opt, metrics = train_step(params, opt, batch)
+            _record_train(out, step, params, opt, metrics)
     return out
+
+
+def _record_train(out: dict, step: str, params: dict, opt, metrics: dict
+                  ) -> None:
+    for k in ("loss", "grad_norm"):
+        out[f"{step}.{k}"] = _np(metrics[k])
+    for k in params:
+        out[f"{step}.params.{k}"] = _np(params[k])
+        out[f"{step}.mu.{k}"] = _np(opt.mu[k])
 
 
 # the (global shape, placements) of each DTensor that DTensor is
@@ -518,14 +529,12 @@ def _jax_steps(case: str, jm, jp) -> dict:
             record(f"decode{i}", logits, cache)
         if not CASES[case][3]:
             return out
-        new, opt, metrics = jax.jit(jax_make_train_step(jm))(
-            jp, jax_adamw_init(jp), {k: jnp.asarray(v)
-                                     for k, v in x["train"].items()})
-    for k in ("loss", "grad_norm"):
-        out[f"train.{k}"] = _np(metrics[k])
-    for k in new:
-        out[f"train.params.{k}"] = _np(new[k])
-        out[f"train.mu.{k}"] = _np(opt.mu[k])
+        train_step = jax.jit(jax_make_train_step(jm))
+        batch = {k: jnp.asarray(v) for k, v in x["train"].items()}
+        opt = jax_adamw_init(jp)
+        for step in TRAIN_STEPS:
+            jp, opt, metrics = train_step(jp, opt, batch)
+            _record_train(out, step, jp, opt, metrics)
     return out
 
 
@@ -587,21 +596,25 @@ def test_prefill_and_decode_match_unsharded_and_jax(runs, case):
     want = runs[case]["jax"]
     names = sorted(k for k in want if k.split(".")[0] in _steps())
     assert names == sorted(k for k in runs[case]["sharded"] if
-                           not k.startswith(("shape:", "want:", "train.",
+                           not k.startswith(("shape:", "want:", "train",
                                              "gathers:", "ssm:")))
     _assert_close(runs, case, names)
     assert int(want["decode2.pos"]) == CASES[case][2] + DECODE_STEPS
 
 
-@pytest.mark.parametrize("case", sorted(c for c in CASES if CASES[c][3]))
-def test_train_step_matches_unsharded_and_jax(runs, case):
-    """One ``make_train_step`` from the same weights: the loss, the grad
-    norm, the first moments ((1 - b1) times the clipped grads) and the
-    parameters after AdamW."""
+@pytest.mark.parametrize("case,step", [
+    pytest.param(c, step, id=c if step == TRAIN_STEPS[0] else f"{c}-{step}")
+    for step in TRAIN_STEPS for c in sorted(c for c in CASES if CASES[c][3])])
+def test_train_step_matches_unsharded_and_jax(runs, case, step):
+    """Two ``make_train_step``s from the same weights, the second on the
+    first's outputs (the sharded run's params and moments in the
+    placements the first took): after each, the loss, the grad norm, the
+    first moments ((1 - b1) times the clipped grads after the first step)
+    and the parameters after AdamW."""
     want = runs[case]["jax"]
-    names = sorted(k for k in want if k.startswith("train."))
+    names = sorted(k for k in want if k.startswith(f"{step}."))
     assert names == sorted(k for k in runs[case]["sharded"]
-                           if k.startswith("train."))
+                           if k.startswith(f"{step}."))
     _assert_close(runs, case, names)
 
 
