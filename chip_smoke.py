@@ -119,7 +119,13 @@ that run it, and drives every ported path at full size:
   taken twice, the second on the first's outputs, each against the
   unsharded run's and each handing back the placements it took
   (``phase_sharded``); the dry run's collectives of llama3.2-1b's 16x16
-  ``train_4k`` are held by kind (``phase_dryrun``).
+  ``train_4k`` are held by kind (``phase_dryrun``);
+* slice 21: fault J.  Under a mesh the MoE's expert down-projection and
+  its combine run on each rank's local shards and each token's output is
+  reduced once, where DTensor's release chose the product's placement
+  before; the dry run adds mixtral-8x22b's 16x16 ``train_4k``, its
+  collective bytes of each kind and its temp held within 0.1% of this
+  host's count and its FLOPs exactly (``phase_dryrun``).
 
 Besides, it holds the RMSNorm kernel against its plain version at every
 edge of its geometry (``check_rmsnorm_edges``), and the decoder's loss
@@ -295,7 +301,10 @@ DRYRUN_CELLS = {(ARCH, "single_pod", "train_4k"): "ok",
                 # SSD scan on each rank's local shards (fault G)
                 **{(arch, "single_pod", shape): "ok"
                    for arch in ("mamba2-780m", "hymba-1.5b")
-                   for shape in ("train_4k", "prefill_32k")}}
+                   for shape in ("train_4k", "prefill_32k")},
+                # slice 21: the MoE's expert down-projection and combine on
+                # each rank's local shards (fault J)
+                ("mixtral-8x22b", "single_pod", "train_4k"): "ok"}
 DRYRUN_TIMEOUT_S = 600
 # slice 20: fault I.  A device's collective bytes by kind in ARCH's 16x16
 # train_4k once each grad takes its parameter's placements in
@@ -308,6 +317,21 @@ DRYRUN_TRAIN_COLLECTIVES = {"all-gather": 38317719552,
                             "reduce-scatter": 92839936,
                             "all-to-all": 536870912,
                             "collective-permute": 0}
+# slice 21: fault J.  mixtral-8x22b's 16x16 train_4k once the expert
+# down-projection and the combine run on each rank's local shards and each
+# token's output is reduced once (python -m repro_torch.launch.dryrun
+# under torch 2.13.0+cpu): a device's collective bytes of each kind and
+# its temp, each held within DRYRUN_MOE_REL on the card's host, whose
+# release placed the product otherwise before; the FLOPs exactly
+DRYRUN_MOE, DRYRUN_MOE_REL = "mixtral-8x22b", 1e-3
+DRYRUN_MOE_TRAIN = {"collectives": {"all-gather": 85689106432,
+                                    "all-reduce": 325644345364,
+                                    "reduce-scatter": 2057994240,
+                                    "all-to-all": 1610612736,
+                                    "collective-permute": 0},
+                    "temp_size_bytes": 78265724940,
+                    "matmul_flops": 420968917414969344,
+                    "matmul_flops_per_device": 1732349289037824}
 # slice 19: fault H.  At the peak of llama3.2-1b's 16x16 train_4k the
 # storages of the residual's local size ((B / data) x S x d_model, bf16):
 # each layer's input, which remat keeps, the last layer's output (the final
@@ -3613,9 +3637,10 @@ def phase_dryrun() -> dict:
     bytes, the world's and a device's matmul FLOPs and temp bytes, and the
     phase's seconds.  With the cells, ``tools/collective_sites.py``
     charges the storages at the peak of ``ARCH``'s DRYRUN_PEAK_SHAPE to
-    their ops (``peak_residuals``), and ``ARCH``'s 16x16 train_4k moves
-    DRYRUN_TRAIN_COLLECTIVES (``train_collectives``).  Launches no kernel
-    in this process.
+    their ops (``peak_residuals``), ``ARCH``'s 16x16 train_4k moves
+    DRYRUN_TRAIN_COLLECTIVES (``train_collectives``), and DRYRUN_MOE's
+    holds DRYRUN_MOE_TRAIN (``moe_train_held``).  Launches no kernel in
+    this process.
     Returns kernel -> launches."""
     from repro_torch.configs import SHAPES
 
@@ -3719,6 +3744,7 @@ def phase_dryrun() -> dict:
           f"{on['temp_size_bytes']} B, all-gather {on['all_gather_bytes']} B "
           f"(ce_onehot=True)", flush=True)
     train_coll = train_collectives(cells[f"{llama}:train_4k"])
+    moe_train = moe_train_held(cells[f"{DRYRUN_MOE}:single_pod:train_4k"])
     residuals = peak_residuals(peak, cells[f"{llama}:{DRYRUN_PEAK_SHAPE}"])
     print(f"dryrun: {len(cells)} cells in {seconds:.3f} s", flush=True)
     emit({"phase": "dryrun", "path": DRYRUN_PATH, "arch": ARCH,
@@ -3727,6 +3753,7 @@ def phase_dryrun() -> dict:
           "prefill_skip_closed_form_flops": want_skip,
           "cuda_initialized": False, "seconds": seconds,
           "train_4k_loss": loss, "train_4k_collectives": train_coll,
+          "moe_train_4k": moe_train,
           "cells": {k: {f: r.get(f) for f in (
               "status", "reason", "chips", "matmul_flops",
               "matmul_flops_per_device", "collectives", "trace_s",
@@ -3753,6 +3780,30 @@ def train_collectives(cell: dict) -> dict:
     if any(n for k, n in extra.items() if k != "all-reduce") or \
             not 0 <= extra["all-reduce"] <= scalars:
         raise AssertionError(f"dryrun: {ARCH} train_4k collectives {out}")
+    return out
+
+
+def moe_train_held(cell: dict) -> dict:
+    """Fault J on the card's host: ``DRYRUN_MOE``'s 16x16 train_4k
+    ``cell`` moves each kind of collective's bytes and holds the temp of
+    DRYRUN_MOE_TRAIN within DRYRUN_MOE_REL, and counts its FLOPs exactly.
+    Prints and returns each figure beside its want."""
+    want = DRYRUN_MOE_TRAIN
+    got = {"collectives": {k: cell["collectives"][k]
+                           for k in want["collectives"]},
+           "temp_size_bytes": cell["memory"]["temp_size_bytes"],
+           **{k: cell[k] for k in ("matmul_flops",
+                                   "matmul_flops_per_device")}}
+    out = {"got": got, "want": want, "rel": DRYRUN_MOE_REL}
+    print(f"dryrun {DRYRUN_MOE} train_4k a device: {json.dumps(out)}",
+          flush=True)
+    pairs = [(got["collectives"][k], n)
+             for k, n in want["collectives"].items()]
+    pairs.append((got["temp_size_bytes"], want["temp_size_bytes"]))
+    if any(abs(g - n) > DRYRUN_MOE_REL * n for g, n in pairs) or any(
+            got[k] != want[k] for k in ("matmul_flops",
+                                        "matmul_flops_per_device")):
+        raise AssertionError(f"dryrun: {DRYRUN_MOE} train_4k {out}")
     return out
 
 

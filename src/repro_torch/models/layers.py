@@ -500,6 +500,18 @@ def _by_rows(fn, *ts: torch.Tensor, n_out: int) -> tuple:
     return on_local_shards(fn, [(t, pls) for t in ts], [pls] * n_out)
 
 
+def _top_k(gates: torch.Tensor, k: int) -> tuple:
+    """The k largest gates of each token, renormalised by their sum
+    (floored at 1e-9), and their expert ids.  On a mesh the sum runs on
+    each rank's rows too, so that the grad of the weights, a partial sum
+    over the ranks that hold the experts or F, is reduced once where
+    ``_by_rows`` hands it back, not wherever a release of DTensor places
+    the division's backward."""
+    top_w, top_ids = torch.topk(gates, k, dim=-1)
+    return top_w / torch.clamp(top_w.sum(-1, keepdim=True), min=1e-9), \
+        top_ids
+
+
 def _expert_slots(top_ids: torch.Tensor, e: int, c: int) -> tuple:
     """Each assignment's destination among the E * C slots (a dropped
     one's: a spare slot of its own past them) and whether it was kept, (B,
@@ -556,7 +568,10 @@ def moe_ffn(x: torch.Tensor, router_w: torch.Tensor, we1: torch.Tensor,
     reads.
 
     ``shard_acts`` constrains the gathered tokens and the experts' hidden
-    as the reference does (layers.py:262, 272).
+    as the reference does (layers.py:262, 272).  Under a mesh the expert
+    down-projection and the combine run on each rank's local shards and
+    the token output is reduced once (``_local_down_and_combine``), where
+    the reference leaves the product's placement to GSPMD.
 
     Ties: ``torch.topk`` does not promise ``lax.top_k``'s lower-index-first
     order on equal gates, so on exact ties the two may pick other experts;
@@ -577,9 +592,8 @@ def moe_ffn(x: torch.Tensor, router_w: torch.Tensor, we1: torch.Tensor,
             logits = torch.einsum("bsm,me->bse", x.float(),
                                   router_w.float())
         gates = torch.softmax(logits, dim=-1)                    # (B,S,E)
-        top_w, top_ids = _by_rows(lambda g: torch.topk(g, k, dim=-1),
-                                  gates, n_out=2)                # (B,S,k)
-        top_w = top_w / torch.clamp(top_w.sum(-1, keepdim=True), min=1e-9)
+        top_w, top_ids = _by_rows(lambda g: _top_k(g, k), gates,
+                                  n_out=2)                       # (B,S,k)
     with _span("moe.sort"):
         dest, kept = _by_rows(lambda ids: _expert_slots(ids, e, c),
                               top_ids, n_out=2)
@@ -595,8 +609,13 @@ def moe_ffn(x: torch.Tensor, router_w: torch.Tensor, we1: torch.Tensor,
         we1, we3, we2 = (w.to(x.dtype) for w in (we1, we3, we2))
         h = F.silu(torch.einsum("becm,emf->becf", xin, we1))
         h = h * torch.einsum("becm,emf->becf", xin, we3)
+        del xz, xin   # a step without grads frees the dispatch's copies
         if shard_acts:
             h = constrain(h, "batch", "act_expert", None, "act_ff")
+        if is_sharded(h):
+            with _span("moe.combine"):
+                return _local_down_and_combine(h, we2, dest, kept, top_w,
+                                               x, c)
         out = torch.einsum("becf,efm->becm", h, we2).reshape(b, e * c, m)
     with _span("moe.combine"):
         # each assignment's output, weighted, summed over its token's k
@@ -606,3 +625,98 @@ def moe_ffn(x: torch.Tensor, router_w: torch.Tensor, we1: torch.Tensor,
             * w[..., None]
         y = parts.reshape(b, s, k, m).sum(dim=2, dtype=torch.float32)
     return y.to(x.dtype)
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    """Bytes of DTensor ``t``'s local shard."""
+    return t.to_local().numel() * t.element_size()
+
+
+def _fsdp_layout(n: int, h: int, w: int, y: int, rows_split: bool,
+                f_free: bool) -> str:
+    """How the MoE's down-projection runs over a mesh dim of size ``n``
+    that splits we2's M (FSDP's ``embed``) and neither E nor F, from the
+    bytes of the local shards of the hidden (``h``), of we2 (``w``) and of
+    the token output split as the rows are (``y``), whichever moves the
+    fewest bytes, as the dry run counts a device's: ``"gather_w"`` (we2
+    gathered, as FSDP does: n * w), ``"gather_h"`` (h's rows gathered,
+    each rank makes its slice of M for every row: n * h where the rows are
+    split there, and y to put the rows back) or, where F is split over no
+    mesh dim (``f_free``), ``"split_f"`` (h's and we2's F split over it in
+    place of the rows and of M, the output a partial sum: h, w and y).
+    Training and prefill gather we2; a decode step, whose hidden is
+    small, gathers h or splits F."""
+    cost = {"gather_w": n * w, "gather_h": (n * h if rows_split else 0) + y}
+    if f_free:
+        cost["split_f"] = (h if rows_split else 0) + w + y
+    return min(cost, key=cost.get)
+
+
+def _local_down_and_combine(h, we2, dest, kept, top_w, x, c: int
+                            ) -> torch.Tensor:
+    """``moe_ffn``'s expert down-projection and combine under a mesh, on
+    each rank's local shards (``on_local_shards``).  Both are linear in the
+    hidden ``h`` (B, E, C, F), so a rank that holds a slice of F (``act_ff``
+    took the mesh dim: mixtral's 8 experts do not divide ``model``) or of
+    E (``act_expert`` took it: moonshot's 64) multiplies its slice by the
+    matching slice of ``we2``, gathers each assignment's slot, weights it
+    and sums over k in fp32, one k at a time, and hands on a ``Partial``
+    sum of the (B, S, M) token output.  An assignment whose slot lies in
+    another rank's experts adds zero here.  The (B, E * C, M) product is
+    never reduced nor gathered: the token output is reduced once, to x's
+    placements.  A mesh dim that splits we2's M takes ``_fsdp_layout``'s
+    choice.
+
+    Rounding: each rank's fp32 sum is cast to x's dtype before the sum
+    across ranks, as the program DTensor chose before did (it reduced the
+    bf16 product) and as the reference's compiled program does.  Without
+    a mesh ``moe_ffn`` does not come here."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    mesh = h.device_mesh
+    _, s, k = top_w.shape
+    # the mesh dims that split E (h's dim 1) or F (dim 3): we2's dim 0 or 1
+    cut = {i: p.dim for i, p in enumerate(h.placements)
+           if type(p) is Shard and p.dim in (1, 3)}
+    rows = rows_of(h)
+    f_free = 3 not in cut.values()
+    layout = {}
+    for i, p in enumerate(we2.placements):
+        if i not in cut and type(p) is Shard and p.dim == 2:
+            n = mesh.size(i)
+            layout[i] = _fsdp_layout(
+                n, _nbytes(h), _nbytes(we2), _nbytes(x), is_shard(rows[i]),
+                f_free and h.shape[3] % n == 0)
+            f_free = f_free and layout[i] != "split_f"
+    # per mesh dim: (h, we2, the routing's rows, y) as each layout lays
+    # them out; a dim that splits E or F cuts h and we2 and sums y
+    pls = {"gather_w": lambda r: (r, Replicate(), r, r),
+           "gather_h": lambda r: (Replicate(), Shard(2), Replicate(),
+                                  Shard(2)),
+           "split_f": lambda r: (Shard(3), Shard(1), Replicate(),
+                                 Partial())}
+    cols = [(Shard(cut[i]), Shard(0 if cut[i] == 1 else 1), r, Partial())
+            if i in cut else pls[layout.get(i, "gather_w")](r)
+            for i, r in enumerate(rows)]
+    hp, wp, rp, yp = (list(t) for t in zip(*cols))
+    lo, hi = (i * c for i in shard_bounds(h.shape, mesh, hp, 1))
+
+    def body(hl, w2l, dl, kl, twl):
+        bl = hl.shape[0]
+        out = torch.einsum("becf,efm->becm", hl, w2l).flatten(1, 2)
+        mine = kl & (dl >= lo) & (dl < hi)
+        src = torch.where(mine, dl - lo, 0).unflatten(1, (s, k))
+        w = torch.where(mine, twl.reshape(bl, s * k), 0.0).to(
+            out.dtype).unflatten(1, (s, k))
+        y = None
+        for j in range(k):
+            part = out.gather(1, src[:, :, j, None].expand(
+                -1, -1, out.shape[-1])).mul_(w[:, :, j, None])
+            y = part.float() if y is None else y.add_(part)
+            del part     # one assignment's (B, S, M) at a time
+        return y.to(x.dtype)
+
+    y, = on_local_shards(body, [(h, hp), (we2, wp), (dest, rp),
+                                (kept, rp), (top_w, rp)], [yp])
+    return y.redistribute(mesh, [Replicate() if p.is_partial() else p
+                                 for p in x.placements])

@@ -401,7 +401,9 @@ class _OnLocalShards(torch.autograd.Function):
     the backward differentiates that graph and wraps each input's grad: a
     shard where the input is sharded, a ``Partial`` sum where it is
     replicated over a mesh dim that splits the work (each rank's grad
-    covers its own piece), replicated elsewhere.
+    covers its own piece), replicated elsewhere.  An output laid out as a
+    ``Partial`` sum (each rank's piece of a product, ``models.layers``'
+    MoE combine) takes its grad replicated: the cotangent of a sum.
 
     The local graph rides on an empty tensor saved for the backward (its
     ``local_graph`` attribute), so that a recomputed region
@@ -445,7 +447,8 @@ class _OnLocalShards(torch.autograd.Function):
         from torch.distributed.tensor import DTensor
 
         ins, outs = ctx.saved_tensors[0].local_graph
-        pairs = [(o, g.redistribute(ctx.mesh, pls).to_local())
+        pairs = [(o, g.redistribute(ctx.mesh, _cotangent_placements(pls))
+                  .to_local())
                  for o, g, pls in zip(outs, grads, ctx.out_pls)
                  if g is not None and o.requires_grad]
         want = [x for x in ins if x.requires_grad]
@@ -463,6 +466,16 @@ class _OnLocalShards(torch.autograd.Function):
             out.append(None if g is None else DTensor.from_local(
                 g.contiguous(), ctx.mesh, pls, run_check=False))
         return (None, None, None, None, *out)
+
+
+def _cotangent_placements(pls: Sequence) -> tuple:
+    """The placements an output's grad takes into the body's backward: the
+    output's own, but ``Replicate`` where it is a ``Partial`` sum across
+    ranks, whose cotangent on every rank is the whole sum's (DTensor
+    cannot redistribute to ``Partial``)."""
+    from torch.distributed.tensor import Replicate
+
+    return tuple(Replicate() if p.is_partial() else p for p in pls)
 
 
 def _grad_placements(pls: Sequence, split_dims: Sequence[int]) -> tuple:

@@ -16,7 +16,10 @@ on_local_shards``).
 
 The cases: the smoke llama3.2-1b (4 q and 2 kv heads: both shard over
 ``model``), mixtral-8x22b (MoE; a 40-token prompt past its 32-token window,
-so the cache rolls), mamba2-780m (across a chunk edge; and with blocks of
+so the cache rolls; its 4 experts split over ``model``, and with 3, which
+``model`` does not divide, the experts' F split instead: the expert
+down-projection and the combine run on each rank's slice, fault J),
+moonshot-v1-16b-a3b (the second MoE family), mamba2-780m (across a chunk edge; and with blocks of
 in_proj that do not divide ``model``), hymba-1.5b (a
 positional global layer beside a rolling windowed one), and llama3.2-1b
 with 1 kv head (q heads sharded, the kv head whole on every model rank; the
@@ -34,7 +37,10 @@ activations around each call of the loss and the norms: none under
 they run ``mamba2.ssd_chunked`` alone on its local shards (fault G), heads
 split over ``model`` and whole on each rank, with a tail short of a chunk
 and without: y, the final state and the grads of its six inputs against
-the unsharded port and ``jax.grad`` of the reference's.
+the unsharded port and ``jax.grad`` of the reference's.  And a product run
+by ``on_local_shards`` on each rank's piece of its contraction, whose
+output is a ``Partial`` sum: the grad it takes is the whole cotangent,
+replicated (fault J).
 
 Every run takes fp32 activations (the port's ``ACT_DTYPE``, JAX's ``jnp``
 read with bfloat16 as float32, as tests/test_torch_train.py runs its fp32
@@ -83,6 +89,12 @@ RANKS_TIMEOUT_S = 600
 CASES = {
     "llama3.2-1b": ("llama3.2-1b", {}, 16, True),
     "mixtral-8x22b": ("mixtral-8x22b", {}, 40, True),
+    # 3 experts, which model does not divide: the experts' hidden is split
+    # over F, and the down-projection and the combine run on each rank's
+    # F slice (fault J); the 4 of mixtral's smoke config are split over E
+    "mixtral-ff-split": ("mixtral-8x22b", {"n_experts": 3}, 40, True),
+    # the second MoE family, its 8 experts split over model
+    "moonshot-v1-16b-a3b": ("moonshot-v1-16b-a3b", {}, 40, True),
     "mamba2-780m": ("mamba2-780m", {}, 24, True),
     "hymba-1.5b": ("hymba-1.5b", {}, 40, True),
     "llama-1kv": ("llama3.2-1b", {"n_kv_heads": 1}, 16, True),
@@ -137,6 +149,9 @@ SSD_ARGS = {"x": ("batch", "seq", "act_heads", None),
             "d_skip": (None,)}
 SSD_COTANGENTS = {"gy": SSD_ARGS["x"], "gs": ("batch", "act_heads", None,
                                               None)}
+# ``on_local_shards`` with a ``Partial`` output: a @ b, the contraction
+# split over model, a's rows over data; (rows, contraction, columns)
+PARTIAL_CASE, PARTIAL_SHAPE = "partial-output", (B, 6, 5)
 
 
 @contextlib.contextmanager
@@ -450,6 +465,69 @@ def _jax_ssd(case: str) -> dict:
             **{f"grad.{k}": _np(g) for k, g in zip(SSD_ARGS, grads)}}
 
 
+def _partial_inputs() -> dict:
+    """a, b and the cotangent g of a @ b, from a seed."""
+    n, k, m = PARTIAL_SHAPE
+    rng = np.random.default_rng(9)
+    return {name: rng.standard_normal(shape).astype(np.float32)
+            for name, shape in (("a", (n, k)), ("b", (k, m)),
+                                ("g", (n, m)))}
+
+
+def _port_partial(mesh=None) -> dict:
+    """a @ b and the grads of a and b of the loss sum((a @ b) * g).  Under
+    ``mesh`` the product runs in ``on_local_shards`` on each rank's piece
+    of the contraction (a's columns and b's rows split over model, a's
+    rows over data) and comes out a ``Partial`` sum over model, reduced
+    after; ``cotangent_is_g`` says whether the grad that the body's product
+    received on this rank equals its rows of g, whole over model."""
+    from torch.distributed.tensor import (Partial, Replicate, Shard,
+                                          distribute_tensor)
+
+    from repro_torch.parallel.sharding import on_local_shards
+
+    arrays = _partial_inputs()
+    a, b, g = (torch.from_numpy(arrays[k]) for k in "abg")
+    out = {}
+    if mesh is None:
+        a, b = a.requires_grad_(), b.requires_grad_()
+        y = a @ b
+    else:
+        a, b, g = (distribute_tensor(t, mesh, pls, src_data_rank=None)
+                   for t, pls in ((a, [Shard(0), Shard(1)]),
+                                  (b, [Replicate(), Shard(0)]),
+                                  (g, [Shard(0), Replicate()])))
+        a, b = a.requires_grad_(), b.requires_grad_()
+        seen = []
+
+        def body(al, bl):
+            p = al @ bl
+            p.register_hook(seen.append)
+            return p + 0
+
+        y, = on_local_shards(body, [(a, a.placements), (b, b.placements)],
+                             [[Shard(0), Partial()]])
+        y = y.redistribute(mesh, [Shard(0), Replicate()])
+    (y * g).sum().backward()
+    if mesh is not None:
+        out["cotangent_is_g"] = np.asarray(
+            len(seen) == 1 and torch.equal(seen[0], g.to_local()))
+    out.update({"y": _np(y), "grad.a": _np(a.grad), "grad.b": _np(b.grad)})
+    return out
+
+
+def _jax_partial() -> dict:
+    """jnp's a @ b and ``jax.grad`` of ``_port_partial``'s loss."""
+    import jax
+    import jax.numpy as jnp
+
+    arrays = _partial_inputs()
+    a, b = (jnp.asarray(arrays[k]) for k in "ab")
+    ga, gb = jax.grad(lambda a, b: ((a @ b) * arrays["g"]).sum(),
+                      argnums=(0, 1))(a, b)
+    return {"y": _np(a @ b), "grad.a": _np(ga), "grad.b": _np(gb)}
+
+
 def _rank_main(rank: int, tmp: str) -> None:
     """One of the 4 gloo ranks: every case on the (data, model) mesh,
     written to ``rank{rank}_{case}.npz``."""
@@ -474,6 +552,8 @@ def _rank_main(rank: int, tmp: str) -> None:
         for case in SSD_CASES:
             np.savez(tmp / f"rank{rank}_{case}.npz",
                      **_port_ssd(case, mesh))
+        np.savez(tmp / f"rank{rank}_{PARTIAL_CASE}.npz",
+                 **_port_partial(mesh))
     finally:
         dist.destroy_process_group()
 
@@ -557,6 +637,7 @@ def runs(tmp_path_factory) -> dict:
                 case, {k: np.asarray(v) for k, v in jp.items()})}
     for case in SSD_CASES:
         out[case] = {"jax": _jax_ssd(case), "port": _port_ssd(case)}
+    out[PARTIAL_CASE] = {"jax": _jax_partial(), "port": _port_partial()}
     deadline = time.monotonic() + RANKS_TIMEOUT_S
     while not ranks.join(timeout=5):
         if time.monotonic() > deadline:
@@ -697,3 +778,13 @@ def test_the_ssd_on_local_shards_matches_unsharded_and_jax(runs, case):
     heads = H // 2 if H % 2 == 0 else H
     assert list(got["shape:y"]) == [B // 2, L, heads, SSD_P]
     assert list(got["shape:state"]) == [B // 2, heads, SSD_N, SSD_P]
+
+
+def test_a_partial_output_takes_the_replicated_cotangent(runs):
+    """Fault J: an output of ``on_local_shards`` laid out as a ``Partial``
+    sum over model (a @ b on each rank's piece of the contraction) takes
+    its grad replicated: on every rank the body's product receives its
+    rows of the whole cotangent g.  The product, reduced, and the grads of
+    a and b match the unsharded port and ``jax.grad`` at ``TOL``."""
+    assert bool(runs[PARTIAL_CASE]["sharded"]["cotangent_is_g"])
+    _assert_close(runs, PARTIAL_CASE, ["y", "grad.a", "grad.b"])
