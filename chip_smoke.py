@@ -125,7 +125,15 @@ that run it, and drives every ported path at full size:
   reduced once, where DTensor's release chose the product's placement
   before; the dry run adds mixtral-8x22b's 16x16 ``train_4k``, its
   collective bytes of each kind and its temp held within 0.1% of this
-  host's count and its FLOPs exactly (``phase_dryrun``).
+  host's count and its FLOPs exactly (``phase_dryrun``);
+* slice 22: fault K.  Under a mesh the MoE's dispatch and its expert
+  up-projections run on each rank's local shards too, and each token's
+  grad is reduced once, where DTensor's backward all-reduced the gathered
+  tokens' cotangent and zeroed the whole batch's tokens on each device; a
+  decode step's up-projections take a closed form.  The dry run holds
+  mixtral-8x22b's 16x16 ``train_4k`` at the new counts and adds its
+  ``decode_32k``, its FLOPs exactly and the bytes its up-projections issue
+  within 0.1% of this host's (``phase_dryrun``).
 
 Besides, it holds the RMSNorm kernel against its plain version at every
 edge of its geometry (``check_rmsnorm_edges``), and the decoder's loss
@@ -304,7 +312,11 @@ DRYRUN_CELLS = {(ARCH, "single_pod", "train_4k"): "ok",
                    for shape in ("train_4k", "prefill_32k")},
                 # slice 21: the MoE's expert down-projection and combine on
                 # each rank's local shards (fault J)
-                ("mixtral-8x22b", "single_pod", "train_4k"): "ok"}
+                ("mixtral-8x22b", "single_pod", "train_4k"): "ok",
+                # slice 22: the MoE's dispatch and up-projections on each
+                # rank's local shards, a decode step's in a closed form
+                # (fault K)
+                ("mixtral-8x22b", "single_pod", "decode_32k"): "ok"}
 DRYRUN_TIMEOUT_S = 600
 # slice 20: fault I.  A device's collective bytes by kind in ARCH's 16x16
 # train_4k once each grad takes its parameter's placements in
@@ -319,19 +331,31 @@ DRYRUN_TRAIN_COLLECTIVES = {"all-gather": 38317719552,
                             "collective-permute": 0}
 # slice 21: fault J.  mixtral-8x22b's 16x16 train_4k once the expert
 # down-projection and the combine run on each rank's local shards and each
-# token's output is reduced once (python -m repro_torch.launch.dryrun
-# under torch 2.13.0+cpu): a device's collective bytes of each kind and
-# its temp, each held within DRYRUN_MOE_REL on the card's host, whose
-# release placed the product otherwise before; the FLOPs exactly
+# token's output is reduced once; slice 22: fault K, once the dispatch and
+# the up-projections do too and each token's grad is reduced once (python
+# -m repro_torch.launch.dryrun under torch 2.13.0+cpu): a device's
+# collective bytes of each kind and its temp, each held within
+# DRYRUN_MOE_REL on the card's host, whose release placed the product
+# otherwise before; the FLOPs exactly
 DRYRUN_MOE, DRYRUN_MOE_REL = "mixtral-8x22b", 1e-3
-DRYRUN_MOE_TRAIN = {"collectives": {"all-gather": 85689106432,
-                                    "all-reduce": 325644345364,
-                                    "reduce-scatter": 2057994240,
+DRYRUN_MOE_TRAIN = {"collectives": {"all-gather": 74414817280,
+                                    "all-reduce": 257998610452,
+                                    "reduce-scatter": 1353351168,
                                     "all-to-all": 1610612736,
                                     "collective-permute": 0},
-                    "temp_size_bytes": 78265724940,
+                    "temp_size_bytes": 67920740352,
                     "matmul_flops": 420968917414969344,
                     "matmul_flops_per_device": 1732349289037824}
+# slice 22: fault K.  Its 16x16 decode_32k: the FLOPs exactly, and the
+# bytes that the dispatch and the up-projections issue
+# (models.layers._local_dispatch_and_up, tools/collective_sites.py) held
+# within DRYRUN_MOE_REL of this host's: a closed form, where the two
+# releases' programs differed before (2.13 reduce-scattered the partial
+# products, 2.11 all-reduced them)
+DRYRUN_MOE_DECODE = {"matmul_flops": 279113449340928,
+                     "matmul_flops_per_device": 1090328199168,
+                     "up_projection_bytes": 126615552}
+DRYRUN_MOE_UP_SITE = "(_local_dispatch_and_up)"
 # slice 19: fault H.  At the peak of llama3.2-1b's 16x16 train_4k the
 # storages of the residual's local size ((B / data) x S x d_model, bf16):
 # each layer's input, which remat keeps, the last layer's output (the final
@@ -3637,10 +3661,12 @@ def phase_dryrun() -> dict:
     bytes, the world's and a device's matmul FLOPs and temp bytes, and the
     phase's seconds.  With the cells, ``tools/collective_sites.py``
     charges the storages at the peak of ``ARCH``'s DRYRUN_PEAK_SHAPE to
-    their ops (``peak_residuals``), ``ARCH``'s 16x16 train_4k moves
-    DRYRUN_TRAIN_COLLECTIVES (``train_collectives``), and DRYRUN_MOE's
-    holds DRYRUN_MOE_TRAIN (``moe_train_held``).  Launches no kernel in
-    this process.
+    their ops (``peak_residuals``) and DRYRUN_MOE's decode_32k collectives
+    to their sites; ``ARCH``'s 16x16 train_4k moves
+    DRYRUN_TRAIN_COLLECTIVES (``train_collectives``), DRYRUN_MOE's holds
+    DRYRUN_MOE_TRAIN (``moe_train_held``), and its decode_32k
+    DRYRUN_MOE_DECODE (``moe_decode_held``).  Launches no kernel in this
+    process.
     Returns kernel -> launches."""
     from repro_torch.configs import SHAPES
 
@@ -3659,13 +3685,17 @@ def phase_dryrun() -> dict:
              *(a for kv in cell[3:] for a in ("--set", kv))], env=env,
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
             for cell in DRYRUN_CELLS}
+        tool = str(Path(__file__).resolve().parent / "tools" /
+                   "collective_sites.py")
         peak_json = Path(out) / "peak.json"
-        peak_run = subprocess.Popen(
-            [sys.executable, str(Path(__file__).resolve().parent / "tools" /
-                                 "collective_sites.py"), "--arch", ARCH,
-             "--shape", DRYRUN_PEAK_SHAPE, "--top", "0",
-             "--json", str(peak_json)], env=env, stdout=subprocess.PIPE,
-            stderr=subprocess.PIPE, text=True)
+        up_json = Path(out) / "moe_decode.json"
+        tools = {json_: subprocess.Popen(
+            [sys.executable, tool, "--arch", arch, "--shape", shape,
+             "--top", "0", "--json", str(json_)], env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            for json_, arch, shape in (
+                (peak_json, ARCH, DRYRUN_PEAK_SHAPE),
+                (up_json, DRYRUN_MOE, "decode_32k"))}
         cells = {}
         try:
             for cell, run in runs.items():
@@ -3681,15 +3711,17 @@ def phase_dryrun() -> dict:
                 if res["status"] != DRYRUN_CELLS[cell]:
                     raise AssertionError(f"dryrun: {cell}: {res}")
                 cells[":".join(cell)] = res
-            stdout, stderr = peak_run.communicate(timeout=DRYRUN_TIMEOUT_S)
-            if peak_run.returncode != 0:
-                raise AssertionError(
-                    f"dryrun: collective_sites exited "
-                    f"{peak_run.returncode}: {stdout[-2000:]} "
-                    f"{stderr[-2000:]}")
+            for json_, run in tools.items():
+                stdout, stderr = run.communicate(timeout=DRYRUN_TIMEOUT_S)
+                if run.returncode != 0:
+                    raise AssertionError(
+                        f"dryrun: collective_sites {json_.name} exited "
+                        f"{run.returncode}: {stdout[-2000:]} "
+                        f"{stderr[-2000:]}")
             peak = json.loads(peak_json.read_text())
+            up = json.loads(up_json.read_text())
         finally:
-            for run in (*runs.values(), peak_run):
+            for run in (*runs.values(), *tools.values()):
                 if run.poll() is None:
                     run.kill()
                     run.communicate()
@@ -3745,6 +3777,8 @@ def phase_dryrun() -> dict:
           f"(ce_onehot=True)", flush=True)
     train_coll = train_collectives(cells[f"{llama}:train_4k"])
     moe_train = moe_train_held(cells[f"{DRYRUN_MOE}:single_pod:train_4k"])
+    moe_decode = moe_decode_held(
+        cells[f"{DRYRUN_MOE}:single_pod:decode_32k"], up)
     residuals = peak_residuals(peak, cells[f"{llama}:{DRYRUN_PEAK_SHAPE}"])
     print(f"dryrun: {len(cells)} cells in {seconds:.3f} s", flush=True)
     emit({"phase": "dryrun", "path": DRYRUN_PATH, "arch": ARCH,
@@ -3753,7 +3787,7 @@ def phase_dryrun() -> dict:
           "prefill_skip_closed_form_flops": want_skip,
           "cuda_initialized": False, "seconds": seconds,
           "train_4k_loss": loss, "train_4k_collectives": train_coll,
-          "moe_train_4k": moe_train,
+          "moe_train_4k": moe_train, "moe_decode_32k": moe_decode,
           "cells": {k: {f: r.get(f) for f in (
               "status", "reason", "chips", "matmul_flops",
               "matmul_flops_per_device", "collectives", "trace_s",
@@ -3804,6 +3838,30 @@ def moe_train_held(cell: dict) -> dict:
             got[k] != want[k] for k in ("matmul_flops",
                                         "matmul_flops_per_device")):
         raise AssertionError(f"dryrun: {DRYRUN_MOE} train_4k {out}")
+    return out
+
+
+def moe_decode_held(cell: dict, sites: dict) -> dict:
+    """Fault K on the card's host: ``DRYRUN_MOE``'s 16x16 decode_32k
+    ``cell`` counts DRYRUN_MOE_DECODE's FLOPs exactly, and the bytes that
+    ``collective_sites.py`` (its JSON, ``sites``) charges to the dispatch
+    and the up-projections are held within DRYRUN_MOE_REL.  Prints and
+    returns each figure beside its want."""
+    want = DRYRUN_MOE_DECODE
+    got = {k: cell[k] for k in ("matmul_flops", "matmul_flops_per_device")}
+    got["up_projection_bytes"] = sum(
+        v["bytes"] for k, v in sites["sites"].items()
+        if k.endswith(DRYRUN_MOE_UP_SITE))
+    out = {"got": got, "want": want, "rel": DRYRUN_MOE_REL,
+           "collectives": cell["collectives"],
+           "temp_size_bytes": cell["memory"]["temp_size_bytes"]}
+    print(f"dryrun {DRYRUN_MOE} decode_32k a device: {json.dumps(out)}",
+          flush=True)
+    n = want["up_projection_bytes"]
+    if abs(got["up_projection_bytes"] - n) > DRYRUN_MOE_REL * n or any(
+            got[k] != want[k] for k in ("matmul_flops",
+                                        "matmul_flops_per_device")):
+        raise AssertionError(f"dryrun: {DRYRUN_MOE} decode_32k {out}")
     return out
 
 

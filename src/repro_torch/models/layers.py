@@ -44,7 +44,8 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from ..kernels import ops
 from ..kernels._build import wide
 from ..parallel.sharding import (all_reduce_over, constrain, current_ctx,
-                                 is_shard, is_sharded, logical_spec,
+                                 grad_placed, is_shard, is_sharded,
+                                 logical_spec,
                                  on_local_shards, placements, reentered,
                                  replicate_as, rows_of, shard_bounds,
                                  widened)
@@ -568,10 +569,14 @@ def moe_ffn(x: torch.Tensor, router_w: torch.Tensor, we1: torch.Tensor,
     reads.
 
     ``shard_acts`` constrains the gathered tokens and the experts' hidden
-    as the reference does (layers.py:262, 272).  Under a mesh the expert
-    down-projection and the combine run on each rank's local shards and
-    the token output is reduced once (``_local_down_and_combine``), where
-    the reference leaves the product's placement to GSPMD.
+    as the reference does (layers.py:262, 272).  Under a mesh the dispatch
+    and the expert up-projections run on each rank's local shards and hand
+    on the hidden placed as that constraint says
+    (``_local_dispatch_and_up``); x's grad, the router's and the
+    dispatch's, is reduced once (``grad_placed``); the expert
+    down-projection and the combine run on local shards too and the token
+    output is reduced once (``_local_down_and_combine``), where the
+    reference leaves the products' placements to GSPMD.
 
     Ties: ``torch.topk`` does not promise ``lax.top_k``'s lower-index-first
     order on equal gates, so on exact ties the two may pick other experts;
@@ -587,6 +592,10 @@ def moe_ffn(x: torch.Tensor, router_w: torch.Tensor, we1: torch.Tensor,
     """
     b, s, m = x.shape
     e, c, k = n_experts, capacity, top_k
+    if is_sharded(x):
+        # the router's and the dispatch's grads of x, each a partial sum
+        # over the mesh dims that split E or F, summed and reduced once
+        x = grad_placed(x)
     with _span("moe.router"):
         with _no_batch_dims():
             logits = torch.einsum("bsm,me->bse", x.float(),
@@ -600,22 +609,24 @@ def moe_ffn(x: torch.Tensor, router_w: torch.Tensor, we1: torch.Tensor,
     with _span("moe.dispatch"):
         tok, = _by_rows(lambda d: _slot_tokens(d, s, k, e, c), dest,
                         n_out=1)
-        xz = torch.cat([x, x.new_zeros(b, 1, m)], dim=1)
-        xin = xz.gather(1, tok[..., None].expand(b, e * c, m))
-        xin = xin.reshape(b, e, c, m)
-        if shard_acts:
-            xin = constrain(xin, "batch", "act_expert", None, None)
+        if not is_sharded(x):
+            xz = torch.cat([x, x.new_zeros(b, 1, m)], dim=1)
+            xin = xz.gather(1, tok[..., None].expand(b, e * c, m))
+            xin = xin.reshape(b, e, c, m)
+            if shard_acts:
+                xin = constrain(xin, "batch", "act_expert", None, None)
     with _span("moe.experts"):
         we1, we3, we2 = (w.to(x.dtype) for w in (we1, we3, we2))
+        if is_sharded(x):
+            h = _local_dispatch_and_up(x, tok, we1, we3, c, shard_acts)
+            with _span("moe.combine"):
+                return _local_down_and_combine(h, we2, dest, kept, top_w,
+                                               x, c)
         h = F.silu(torch.einsum("becm,emf->becf", xin, we1))
         h = h * torch.einsum("becm,emf->becf", xin, we3)
         del xz, xin   # a step without grads frees the dispatch's copies
         if shard_acts:
             h = constrain(h, "batch", "act_expert", None, "act_ff")
-        if is_sharded(h):
-            with _span("moe.combine"):
-                return _local_down_and_combine(h, we2, dest, kept, top_w,
-                                               x, c)
         out = torch.einsum("becf,efm->becm", h, we2).reshape(b, e * c, m)
     with _span("moe.combine"):
         # each assignment's output, weighted, summed over its token's k
@@ -650,6 +661,230 @@ def _fsdp_layout(n: int, h: int, w: int, y: int, rows_split: bool,
     if f_free:
         cost["split_f"] = (h if rows_split else 0) + w + y
     return min(cost, key=cost.get)
+
+
+def _fsdp_up_layout(n: int, x: int, t: int, w: int, h: int,
+                    rows_split: bool) -> str:
+    """How the MoE's up-projections run over a mesh dim of size ``n`` that
+    splits we1's and we3's M (FSDP's ``embed``) and neither E nor F, from
+    the bytes of the local shards of the tokens ``x``, of the slot tokens'
+    ids ``t``, of one weight ``w`` and of the hidden ``h``, whichever moves
+    the fewest bytes, as the dry run counts a device's: ``"gather_w"`` (we1
+    and we3 gathered, as FSDP does: 2 n w) or ``"split_m"`` (each rank
+    takes its slice of M of every row, the rows exchanged for it (x) and
+    the ids gathered (n t) where the rows are split there, and reduces the
+    two products' partial sums once each: 2 h).  Training and prefill
+    gather the weights; a decode step, whose hidden is small, splits M."""
+    cost = {"gather_w": 2 * n * w,
+            "split_m": (x + n * t if rows_split else 0) + 2 * h}
+    return min(cost, key=cost.get)
+
+
+def _on_dim(p, dim: int):
+    """Shard placement ``p`` (plain or strided) moved to tensor dim
+    ``dim``."""
+    from torch.distributed.tensor import Shard
+    from torch.distributed.tensor.placement_types import _StridedShard
+
+    return _StridedShard(dim, split_factor=p.split_factor) \
+        if isinstance(p, _StridedShard) else Shard(dim)
+
+
+def _local_bytes(shape, mesh, pls, itemsize: int) -> int:
+    """Bytes of the local shard of a tensor of ``shape`` laid out as
+    ``pls`` on ``mesh``."""
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+
+    local, _ = compute_local_shape_and_global_offset(
+        torch.Size(shape), mesh, list(pls))
+    return math.prod(local) * itemsize
+
+
+class _DispatchUp(torch.autograd.Function):
+    """A rank's MoE dispatch and up-projections on local tensors: x's rows
+    (B, S, M) and a zero row after them, gathered expert-major into the
+    slots (``idx``: each slot's row, the zero row for an empty slot) and
+    multiplied by each weight of ``ws`` (E, M, F), a ``bmm`` each; out
+    comes (silu(a1) * a3,) under ``gate`` (ws = we1, we3), else each
+    product, (E, B * C, F).  It saves x's rows, the index and (under
+    ``gate``) a1 and a3, not the gathered tokens: the backward gathers them
+    again for the weights' grads and scatter-adds their grad, [d a1, d a3]
+    @ [we1, we3]ᵀ in one product, into zeros of x's rows.  Its products
+    count autograd's FLOPs."""
+
+    @staticmethod
+    def forward(ctx, x, idx, gate, *ws):
+        xin = _slot_rows(x, idx, ws[0].shape[0])
+        outs = [torch.bmm(xin, w) for w in ws]
+        del xin
+        ctx.gate = gate
+        ctx.save_for_backward(x, idx, *ws, *(outs if gate else ()))
+        return (F.silu(outs[0]) * outs[1],) if gate else tuple(outs)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        x, idx, *saved = ctx.saved_tensors
+        if ctx.gate:
+            w1, w3, a1, a3 = saved
+            (dh,), ws = grads, (w1, w3)
+            ds = (torch.ops.aten.silu_backward(dh * a3, a1),
+                  dh * F.silu(a1))
+        else:
+            ws, ds = saved, grads
+        xin = _slot_rows(x, idx, ws[0].shape[0])
+        dws = [torch.bmm(xin.transpose(1, 2), d) for d in ds]
+        del xin
+        # one product over [d a1, d a3] and [we1, we3]: no second buffer
+        dxin = torch.bmm(torch.cat(ds, dim=-1), torch.cat(
+            ws, dim=-1).transpose(1, 2)) if len(ws) > 1 else \
+            torch.bmm(ds[0], ws[0].transpose(1, 2))
+        n, m = x.numel() // x.shape[-1], x.shape[-1]
+        dx = x.new_zeros(n + 1, m).index_add_(0, idx, dxin.flatten(0, 1))
+        return dx[:n].view(x.shape), None, None, *dws
+
+
+def _slot_rows(x: torch.Tensor, idx: torch.Tensor, e: int) -> torch.Tensor:
+    """x's rows (B, S, M), a zero row after them, gathered by ``idx``:
+    (E, B * C, M)."""
+    flat = x.reshape(-1, x.shape[-1])
+    return torch.cat([flat, flat.new_zeros(1, flat.shape[1])]).index_select(
+        0, idx).unflatten(0, (e, -1))
+
+
+def _local_dispatch_and_up(x, tok, we1, we3, c: int, shard_acts: bool
+                           ) -> torch.Tensor:
+    """``moe_ffn``'s dispatch and expert up-projections under a mesh, on
+    each rank's local shards (``on_local_shards``), the counterpart of
+    ``_local_down_and_combine``.  Each rank appends a zero row to its
+    rows of x (B, S, M), gathers the tokens of its own experts' slots (E
+    split: ``act_expert`` took the mesh dim, moonshot) or of all E * C
+    slots (F split: ``act_ff`` took it, mixtral), expert-major, and makes
+    silu(xin @ we1) * (xin @ we3) on its slice of the weights
+    (``_DispatchUp``).  The hidden comes out laid out as the reference
+    constrains it, ("batch", "act_expert", None, "act_ff") (with
+    ``shard_acts`` off: the rows as x's, E and F as the weights split
+    them), a view of the expert-major product that the down-projection
+    reads as it lies.  The gathered tokens never leave the body: in the
+    backward it scatter-adds their grad into zeros of the rank's rows of x
+    (B / data, S, M) and a zero row, and hands x's grad on as a
+    ``Partial`` sum over the mesh dims that split E or F, which
+    ``moe_ffn`` reduces once, with the router's, to x's placements
+    (``grad_placed``).  A mesh dim that splits the weights' M takes
+    ``_fsdp_up_layout``'s choice; under ``"split_m"`` each product leaves
+    the body as a ``Partial`` sum, reduced once to the hidden's placements
+    before the SwiGLU, one product at a time.
+
+    Rounding: x's grad and a partial product are summed across ranks in
+    x's dtype, as the programs DTensor chose before did (they all-reduced
+    the gathered tokens' cotangent, and reduce-scattered a decode step's
+    partial products) and as the reference's compiled program does.
+    Without a mesh ``moe_ffn`` does not come here."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    mesh = x.device_mesh
+    b, s, _ = x.shape
+    e, _, f = we1.shape
+    shape = (b, e, c, f)
+    if shard_acts:
+        hp = placements(logical_spec(
+            shape, ("batch", "act_expert", None, "act_ff")), mesh)
+    else:
+        hp = [Shard(1) if type(p) is Shard and p.dim == 0 else
+              _on_dim(p, 3) if is_shard(p) and p.dim == 2 else r
+              for p, r in zip(we1.placements, rows_of(x))]
+    h_bytes = _local_bytes(shape, mesh, hp, x.element_size())
+    # per mesh dim: (x, tok, we1/we3, the products) as each layout lays
+    # them out; a dim that splits E or F cuts the weights and the hidden
+    xp, tp, wp, op, partial = [], [], [], [], []
+    for i, (p, w) in enumerate(zip(hp, we1.placements)):
+        if is_shard(p) and p.dim in (1, 3):
+            cut = Shard(0) if p.dim == 1 else _on_dim(p, 2)
+            cols = (Replicate(), Replicate(), cut, p)
+        elif type(w) is Shard and w.dim == 1 and _fsdp_up_layout(
+                mesh.size(i), _nbytes(x), _nbytes(tok), _nbytes(we1),
+                h_bytes, is_shard(p)) == "split_m":
+            cols = (Shard(2), Replicate(), w, Partial())
+            partial.append(i)
+        else:
+            cols = (p, p, Replicate(), p)
+        for out, pl in zip((xp, tp, wp, op), cols):
+            out.append(pl)
+    lo, hi = (i * c for i in shard_bounds(shape, mesh, hp, 1))
+
+    def body(xl, tl, *wls):
+        bl, el = xl.shape[0], wls[0].shape[0]
+        # each slot's row of x's rows, flat; an empty slot's the zero row
+        rows = torch.arange(bl, device=tl.device)[:, None] * s
+        idx = torch.where(tl[:, lo:hi] < s, tl[:, lo:hi] + rows, bl * s)
+        idx = idx.unflatten(1, (el, c)).transpose(0, 1).flatten()
+        out, = _DispatchUp.apply(xl, idx, not partial, *wls)
+        # (E, B * C, F) -> (B, E, C, F): a view of the expert-major product,
+        # a copy (reduced next) where it is a partial sum
+        out = out.unflatten(1, (bl, c)).transpose(0, 1)
+        return out.contiguous() if partial else out
+
+    if not partial:
+        return on_local_shards(body, [(x, xp), (tok, tp), (we1, wp),
+                                      (we3, wp)], [op])[0]
+    # each partial product made and reduced in turn: one in memory at once
+    if tuple(x.placements) != tuple(xp):
+        x = x.redistribute(mesh, xp)
+    if tuple(tok.placements) != tuple(tp):
+        tok = tok.redistribute(mesh, tp)
+    a = []
+    for w in (we1, we3):
+        part, = on_local_shards(body, [(x, xp), (tok, tp), (w, wp)], [op])
+        a.append(part.redistribute(mesh, hp))
+        del part
+    return F.silu(a[0]) * a[1]
+
+
+class _Combine(torch.autograd.Function):
+    """The MoE combine on a rank's local tensors: y (B, S, M), each token's
+    sum over its k assignments of the weight ``w`` (B, S, k) times the row
+    ``row`` (B, S, k) of ``out`` (N, M), the rank's expert outputs a slot a
+    row, in fp32, one k at a time, cast to out's dtype once; an assignment
+    of another rank's slot (row -1) adds zero.  Backward: each slot holds
+    one assignment at most, so its row of out's grad is that assignment's
+    weight times its token's row of dy, one gather, where autograd would
+    scatter-add into zeros of every slot; a weight's grad is its row's dot
+    with dy.  Each value is autograd's."""
+
+    @staticmethod
+    def forward(ctx, out, w, row):
+        b, s, k = row.shape
+        src = row.clamp(min=0)
+        y = None
+        for j in range(k):
+            part = out.index_select(0, src[:, :, j].flatten()).view(
+                b, s, -1).mul_(w[:, :, j, None])
+            y = part.float() if y is None else y.add_(part)
+            del part     # one assignment's (B, S, M) at a time
+        ctx.save_for_backward(out, w, row)
+        return y.to(out.dtype)
+
+    @staticmethod
+    def backward(ctx, dy):
+        out, w, row = ctx.saved_tensors
+        b, s, k = row.shape
+        n = out.shape[0]
+        dout = dw = None
+        if ctx.needs_input_grad[1]:     # first: its rows are gone by dout
+            src = row.clamp(min=0)
+            dw = torch.stack([(dy * out.index_select(
+                0, src[:, :, j].flatten()).view(b, s, -1)).sum(-1)
+                for j in range(k)], dim=-1)
+        if ctx.needs_input_grad[0]:
+            # each slot's token row of dy and weight (an empty slot's: 0)
+            at = torch.where(row >= 0, row, n).flatten()
+            tokens = torch.arange(b * s, device=row.device)
+            slot_tok = row.new_zeros(n + 1).scatter_(
+                0, at, tokens.repeat_interleave(k))[:n]
+            slot_w = w.new_zeros(n + 1).scatter_(0, at, w.flatten())[:n]
+            dout = dy.reshape(b * s, -1).index_select(0, slot_tok).mul_(
+                slot_w[:, None])
+        return dout, dw, None
 
 
 def _local_down_and_combine(h, we2, dest, kept, top_w, x, c: int
@@ -702,18 +937,18 @@ def _local_down_and_combine(h, we2, dest, kept, top_w, x, c: int
     lo, hi = (i * c for i in shard_bounds(h.shape, mesh, hp, 1))
 
     def body(hl, w2l, dl, kl, twl):
-        bl = hl.shape[0]
-        out = torch.einsum("becf,efm->becm", hl, w2l).flatten(1, 2)
-        mine = kl & (dl >= lo) & (dl < hi)
-        src = torch.where(mine, dl - lo, 0).unflatten(1, (s, k))
-        w = torch.where(mine, twl.reshape(bl, s * k), 0.0).to(
-            out.dtype).unflatten(1, (s, k))
-        y = None
-        for j in range(k):
-            part = out.gather(1, src[:, :, j, None].expand(
-                -1, -1, out.shape[-1])).mul_(w[:, :, j, None])
-            y = part.float() if y is None else y.add_(part)
-            del part     # one assignment's (B, S, M) at a time
+        bl, el = hl.shape[:2]
+        # (B, E, C, F) -> (E, B * C, F): a view where h is the up body's
+        out = torch.bmm(hl.transpose(0, 1).reshape(el, bl * c, -1),
+                        w2l).flatten(0, 1)
+        # each assignment's row of out, expert-major; not this rank's: -1
+        rel = dl - lo
+        row = torch.where(
+            kl & (rel >= 0) & (dl < hi), (rel // c) * (bl * c) + torch.arange(
+                bl, device=dl.device)[:, None] * c + rel % c, -1)
+        w = torch.where(row >= 0, twl.reshape(bl, s * k), 0.0).to(out.dtype)
+        y = _Combine.apply(out, w.unflatten(1, (s, k)),
+                           row.unflatten(1, (s, k)))
         return y.to(x.dtype)
 
     y, = on_local_shards(body, [(h, hp), (we2, wp), (dest, rp),

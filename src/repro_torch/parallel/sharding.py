@@ -306,6 +306,13 @@ def constrain(x: torch.Tensor, *names: str | None,
     return _Constrain.apply(x, ctx.mesh, tuple(placements(spec, ctx.mesh)))
 
 
+def grad_placed(x: torch.Tensor) -> torch.Tensor:
+    """DTensor ``x`` as it is, its grad taken in the backward to x's own
+    placements (a ``Partial`` sum reduced once there), where DTensor
+    would leave it to whichever op the grad meets next (``_Constrain``)."""
+    return _Constrain.apply(x, x.device_mesh, tuple(x.placements))
+
+
 def is_sharded(t: torch.Tensor) -> bool:
     """Whether ``t`` is a DTensor under a mesh context."""
     if current_ctx() is None:

@@ -13,7 +13,9 @@ of a chain of products, and a train cell's falling under remat.  The skip
 list is the reference's, cell for cell.
 """
 import dataclasses
+import importlib.util
 import json
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -780,3 +782,44 @@ def test_a_mamba2_train_step_gathers_its_closed_form(mesh2x2):
         shape.global_batch, shape.seq_len, data=2, model=2)
     assert got["matmul_flops"] == dryrun.run_cell(cfg, shape,
                                                   None)["matmul_flops"]
+
+
+def _collective_sites():
+    """``tools/collective_sites.py`` as a module."""
+    path = Path(__file__).resolve().parents[1] / "tools" / \
+        "collective_sites.py"
+    spec = importlib.util.spec_from_file_location("collective_sites", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_collective_sites_groups_the_collectives_by_tensor(mesh2x2):
+    """``tools/collective_sites.py``'s grouping by tensor (``--by-tensor``)
+    on the smoke mixtral's train step on meta DTensors of the 2x2 world:
+    its groups (each a DTensor's global shape and dtype, its placements
+    before and after, forward or backward) hold every collective the dry
+    run counts, bytes and ops; the backward has groups of its own; and
+    the FSDP gathers of we1 and we3, (E, M, F) from split over data to
+    whole, are one of the forward's: a device's gathered weight twice a
+    layer (remat's recompute gathers them again in the backward)."""
+    sites = _collective_sites()
+    cfg = tconfigs.get_smoke_config("mixtral-8x22b")
+    res, counter = sites.run_cell(cfg, SMALL["train"], mesh2x2)
+    groups = counter.by_tensor()
+    moved = sum(v for k, v in res["collectives"].items() if k != "count")
+    assert moved > 0
+    assert sum(g["bytes"] for g in groups) == moved
+    assert sum(g["ops"] for g in groups) == res["collectives"]["count"]
+    assert {g["phase"] for g in groups} == {"forward", "backward"}
+    assert [g["bytes"] for g in groups] == sorted(
+        (g["bytes"] for g in groups), reverse=True)
+    e, m, f = cfg.n_experts, cfg.d_model, cfg.d_ff
+    up = [g for g in groups if g["shape"] == (e, m, f)
+           and (g["from"], g["to"]) == ("(S(1), S(0))", "(R, S(0))")]
+    # bf16 activations: the weight cast before it is gathered
+    assert {(g["phase"], g["dtype"], g["bytes"], g["ops"])
+            for g in up} >= {("forward", "bfloat16",
+                               2 * cfg.n_layers * e // 2 * m * f * 2,
+                               2 * cfg.n_layers)}
+

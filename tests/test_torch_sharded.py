@@ -17,8 +17,9 @@ on_local_shards``).
 The cases: the smoke llama3.2-1b (4 q and 2 kv heads: both shard over
 ``model``), mixtral-8x22b (MoE; a 40-token prompt past its 32-token window,
 so the cache rolls; its 4 experts split over ``model``, and with 3, which
-``model`` does not divide, the experts' F split instead: the expert
-down-projection and the combine run on each rank's slice, fault J),
+``model`` does not divide, the experts' F split instead: the dispatch,
+the expert up- and down-projections and the combine run on each rank's
+slice, faults J and K; that case under remat too),
 moonshot-v1-16b-a3b (the second MoE family), mamba2-780m (across a chunk edge; and with blocks of
 in_proj that do not divide ``model``), hymba-1.5b (a
 positional global layer beside a rolling windowed one), and llama3.2-1b
@@ -95,6 +96,11 @@ CASES = {
     "mixtral-ff-split": ("mixtral-8x22b", {"n_experts": 3}, 40, True),
     # the second MoE family, its 8 experts split over model
     "moonshot-v1-16b-a3b": ("moonshot-v1-16b-a3b", {}, 40, True),
+    # the F-split MoE recomputing each layer in the backward (remat): the
+    # dispatch's and the up-projections' body on local shards, whose
+    # backward gathers the slots' tokens again (fault K), runs again too
+    "mixtral-ff-remat": ("mixtral-8x22b", {"n_experts": 3, "remat": True},
+                         40, True),
     "mamba2-780m": ("mamba2-780m", {}, 24, True),
     "hymba-1.5b": ("hymba-1.5b", {}, 40, True),
     "llama-1kv": ("llama3.2-1b", {"n_kv_heads": 1}, 16, True),

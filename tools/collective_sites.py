@@ -14,21 +14,31 @@ are charged the same way, and every storage that a device holds at the
 step's peak (``temp_size_bytes``) to the op that made it and to its
 frames: the innermost under ``repro_torch/models/``, under
 ``repro_torch/`` and under ``torch/`` (a DTensor redistribution or a
-checkpoint's own copy shows there).  Prints the cell's totals, then the
-sites by bytes, by FLOPs and at the peak, and writes them as JSON with
-``--json``.
+checkpoint's own copy shows there).  With ``--by-tensor`` the collectives
+are also grouped by the DTensor that each one redistributes: its global
+shape and dtype, its placements before and after, and whether the
+autograd engine was running a backward (``backward``; remat's recompute
+runs there too) or not (``forward``); a collective that no
+redistribution issued (funcol's, inside a body on local shards) is grouped
+by its local shapes.  Prints the cell's totals, then the sites by bytes,
+by FLOPs and at the peak (and the tensors), and writes them all as JSON
+with ``--json``.
 
 Usage:
   PYTHONPATH=src python tools/collective_sites.py --arch mamba2-780m \\
-      --shape train_4k [--multi-pod] [--set remat=False] [--top 15]
+      --shape train_4k [--multi-pod] [--set remat=False] [--top 15] \\
+      [--by-tensor]
 """
 from __future__ import annotations
 
 import argparse
 import collections
+import contextlib
 import json
 import pathlib
 import sys
+
+import torch
 
 from repro_torch.configs import SHAPES, get_config
 from repro_torch.launch import dryrun
@@ -42,6 +52,9 @@ PLUMBING = ("torch/_ops.py", "torch/utils/_python_dispatch.py",
             "torch/_dynamo/", "torch/utils/_contextlib.py",
             "torch/distributed/tensor/_dispatch.py",
             "torch/distributed/tensor/_api.py")
+# the (current, target) DTensorSpecs of the redistributions under way,
+# innermost last, while ``redistributions()`` is open
+SPECS: list = []
 
 
 def _where(f) -> str:
@@ -85,15 +98,41 @@ def _origin(func) -> tuple:
             " < ".join(inner) or "-")
 
 
+def _placements(pls) -> str:
+    """DTensor placements, short: ``S(d)`` a shard of dim d, ``SS(d,k)`` a
+    strided one (split factor k), ``R`` replicated, ``P`` a partial sum."""
+    out = []
+    for p in pls:
+        if p.is_partial():
+            out.append("P")
+        elif p.is_replicate():
+            out.append("R")
+        elif hasattr(p, "split_factor"):
+            out.append(f"SS({p.dim},{p.split_factor})")
+        else:
+            out.append(f"S({p.dim})")
+    return "(" + ", ".join(out) + ")"
+
+
+def _phase() -> str:
+    """``backward`` while the autograd engine runs a node, else
+    ``forward``."""
+    return "forward" if torch._C._current_autograd_node() is None \
+        else "backward"
+
+
 class SiteCounter(dryrun.StepCounter):
     """``StepCounter`` that also charges each collective to its site,
-    ``sites[site] = [bytes, count]``, each device's matmul FLOPs,
+    ``sites[site] = [bytes, count]``, and to the DTensor it redistributes
+    (``tensors[(shape, dtype, from, to, phase)] = [bytes, count]``, from
+    ``SPECS`` while ``redistributions()`` is open), each device's matmul FLOPs,
     ``flops[site]``, and each storage to the op that made it, keeping
     those live at the peak (``at_peak``)."""
 
     def __init__(self, args=()):
         super().__init__(args)
         self.sites = collections.defaultdict(lambda: [0, 0])
+        self.tensors = collections.defaultdict(lambda: [0, 0])
         self.flops = collections.Counter()
         self._func = None
         self._origins: dict = {}   # StorageWeakRef -> _origin(op)
@@ -124,12 +163,81 @@ class SiteCounter(dryrun.StepCounter):
         if self.collectives["count"] != before["count"]:
             moved = sum(self.collectives[k] - before[k]
                         for k in dryrun.COLLECTIVES)
-            entry = self.sites[_site()]
-            entry[0] += moved
-            entry[1] += 1
+            for entry in (self.sites[_site()],
+                          self.tensors[self._tensor(args, out)]):
+                entry[0] += moved
+                entry[1] += 1
         if self.local_flops != local:
             self.flops[_site()] += self.local_flops - local
         return out
+
+
+    def _tensor(self, args, out) -> tuple:
+        """The key of ``tensors`` for a collective of ``args`` -> ``out``
+        issued now."""
+        if SPECS:
+            cur, tgt = SPECS[-1]
+            return (tuple(cur.shape), str(cur.tensor_meta.dtype).replace(
+                "torch.", ""), _placements(cur.placements),
+                _placements(tgt.placements), _phase())
+        shapes = [tuple(t.shape) for t in
+                  torch.utils._pytree.tree_leaves((args, out))
+                  if isinstance(t, torch.Tensor)]
+        return ("local " + " -> ".join(map(str, shapes)), "-", "-", "-",
+                _phase())
+
+    def by_tensor(self) -> list:
+        """[{shape, dtype, from, to, phase, bytes, ops}], most bytes
+        first."""
+        return [{"shape": k[0], "dtype": k[1], "from": k[2], "to": k[3],
+                 "phase": k[4], "bytes": b, "ops": n}
+                for k, (b, n) in sorted(self.tensors.items(),
+                                        key=lambda kv: -kv[1][0])]
+
+
+@contextlib.contextmanager
+def redistributions():
+    """While open, each of DTensor's redistributions pushes its (current,
+    target) specs onto ``SPECS`` while it runs."""
+    import torch.distributed.tensor._dispatch as dispatch
+    import torch.distributed.tensor._redistribute as redistribute
+
+    orig = redistribute.redistribute_local_tensor
+
+    def named(local, current_spec, target_spec, *args, **kwargs):
+        SPECS.append((current_spec, target_spec))
+        try:
+            return orig(local, current_spec, target_spec, *args, **kwargs)
+        finally:
+            SPECS.pop()
+
+    mods = (dispatch, redistribute)
+    for mod in mods:
+        mod.redistribute_local_tensor = named
+    try:
+        yield
+    finally:
+        for mod in mods:
+            mod.redistribute_local_tensor = orig
+
+
+def run_cell(cfg, shape, mesh) -> tuple:
+    """``dryrun.run_cell(cfg, shape, mesh)``'s result and the
+    ``SiteCounter`` that counted its step."""
+    counters = []
+
+    class Recorded(SiteCounter):
+        def __init__(self, a=()):
+            super().__init__(a)
+            counters.append(self)
+
+    orig, dryrun.StepCounter = dryrun.StepCounter, Recorded
+    try:
+        with redistributions():
+            res = dryrun.run_cell(cfg, shape, mesh)
+    finally:
+        dryrun.StepCounter = orig
+    return res, counters[-1]
 
 
 def main(argv=None) -> dict:
@@ -141,23 +249,18 @@ def main(argv=None) -> dict:
     ap.add_argument("--set", action="append", default=[], metavar="K=V")
     ap.add_argument("--top", type=int, default=15)
     ap.add_argument("--json", type=pathlib.Path)
+    ap.add_argument("--by-tensor", action="store_true",
+                    help="print the collectives grouped by the DTensor each "
+                         "redistributes")
     args = ap.parse_args(argv)
 
     cfg = dryrun.apply_overrides(get_config(args.arch),
                                  dryrun.parse_overrides(args.set))
-    counters = []
-
-    class Recorded(SiteCounter):
-        def __init__(self, a=()):
-            super().__init__(a)
-            counters.append(self)
-
-    dryrun.StepCounter = Recorded
     with fake_world(512 if args.multi_pod else 256):
         mesh = make_production_mesh(multi_pod=args.multi_pod,
                                     device_type="cpu")
-        res = dryrun.run_cell(cfg, SHAPES[args.shape], mesh)
-    sites, flops = counters[-1].sites, counters[-1].flops
+        res, counter = run_cell(cfg, SHAPES[args.shape], mesh)
+    sites, flops = counter.sites, counter.flops
     gib = 2 ** 30
     kinds = {k: v for k, v in res["collectives"].items() if k != "count"}
     mesh = "2x16x16" if args.multi_pod else "16x16"
@@ -177,13 +280,21 @@ def main(argv=None) -> dict:
         print(f"  {n:22d}  {site}")
     peak = [{"bytes": b, "storages": k, "bytes_each": n, "op": o[0],
              "model": o[1], "port": o[2], "torch": o[3]}
-            for b, k, n, o in counters[-1].peak_sites()]
+            for b, k, n, o in counter.peak_sites()]
     print(f"  storages live at the peak "
           f"({res['memory']['temp_size_bytes']} B):")
     for p in peak[:args.top]:
         print(f"  {p['bytes']:14d} B = {p['storages']:4d} x "
               f"{p['bytes_each']:12d}  {p['op']}  {p['model']}  "
               f"{p['port']}  {p['torch']}")
+    tensors = counter.by_tensor()
+    if args.by_tensor:
+        print("  collectives by the DTensor each redistributes (global "
+              "shape, dtype, placements from -> to, phase):")
+        for t in tensors[:args.top]:
+            print(f"  {t['bytes'] / gib:10.4f} GiB {t['ops']:6d} ops  "
+                  f"{t['shape']} {t['dtype']} {t['from']} -> {t['to']} "
+                  f"{t['phase']}")
     out = {"arch": args.arch, "shape": args.shape,
            "multi_pod": args.multi_pod, "set": args.set,
            "collectives": res["collectives"],
@@ -193,7 +304,8 @@ def main(argv=None) -> dict:
            "trace_s": res["trace_s"],
            "sites": {k: {"bytes": b, "ops": n}
                      for k, (b, n) in sites.items()},
-           "flops_per_device_by_site": dict(flops), "at_peak": peak}
+           "flops_per_device_by_site": dict(flops), "at_peak": peak,
+           "by_tensor": tensors}
     if args.json:
         args.json.write_text(json.dumps(out, indent=1))
     return out
