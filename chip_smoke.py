@@ -316,34 +316,39 @@ DRYRUN_CELLS = {(ARCH, "single_pod", "train_4k"): "ok",
                 # slice 22: the MoE's dispatch and up-projections on each
                 # rank's local shards, a decode step's in a closed form
                 # (fault K)
-                ("mixtral-8x22b", "single_pod", "decode_32k"): "ok"}
+                ("mixtral-8x22b", "single_pod", "decode_32k"): "ok",
+                # slice 23: a batch of one's decode, its SSD states made and
+                # stacked in the cache's layout (fault L)
+                ("mamba2-780m", "single_pod", "long_500k"): "ok"}
 DRYRUN_TIMEOUT_S = 600
 # slice 20: fault I.  A device's collective bytes by kind in ARCH's 16x16
 # train_4k once each grad takes its parameter's placements in
-# models.loss_and_grads (python -m repro_torch.launch.dryrun under torch
-# 2.13.0+cpu).  The card host's release must give the same bytes, but for
+# models.loss_and_grads, and (slice 23, fault L) the lookup gathers the
+# table over data and its grad is reduced once (python -m
+# repro_torch.launch.dryrun under torch 2.13.0+cpu).  The card host's release must give the same bytes, but for
 # the clip's all-reduces of a grad's fp32 sum of squares, which a release
 # may issue once or for each parameter and mesh dim (4 B each)
-DRYRUN_TRAIN_COLLECTIVES = {"all-gather": 38317719552,
-                            "all-reduce": 26575380500,
-                            "reduce-scatter": 92839936,
-                            "all-to-all": 536870912,
+DRYRUN_TRAIN_COLLECTIVES = {"all-gather": 38379192320,
+                            "all-reduce": 26306945044,
+                            "reduce-scatter": 31277056,
+                            "all-to-all": 0,
                             "collective-permute": 0}
 # slice 21: fault J.  mixtral-8x22b's 16x16 train_4k once the expert
 # down-projection and the combine run on each rank's local shards and each
 # token's output is reduced once; slice 22: fault K, once the dispatch and
-# the up-projections do too and each token's grad is reduced once (python
+# the up-projections do too and each token's grad is reduced once; slice
+# 23: fault L, the lookup on local shards (python
 # -m repro_torch.launch.dryrun under torch 2.13.0+cpu): a device's
 # collective bytes of each kind and its temp, each held within
 # DRYRUN_MOE_REL on the card's host, whose release placed the product
 # otherwise before; the FLOPs exactly
 DRYRUN_MOE, DRYRUN_MOE_REL = "mixtral-8x22b", 1e-3
-DRYRUN_MOE_TRAIN = {"collectives": {"all-gather": 74414817280,
-                                    "all-reduce": 257998610452,
-                                    "reduce-scatter": 1353351168,
-                                    "all-to-all": 1610612736,
+DRYRUN_MOE_TRAIN = {"collectives": {"all-gather": 74460954624,
+                                    "all-reduce": 257193304084,
+                                    "reduce-scatter": 1306165248,
+                                    "all-to-all": 0,
                                     "collective-permute": 0},
-                    "temp_size_bytes": 67920740352,
+                    "temp_size_bytes": 67916546048,
                     "matmul_flops": 420968917414969344,
                     "matmul_flops_per_device": 1732349289037824}
 # slice 22: fault K.  Its 16x16 decode_32k: the FLOPs exactly, and the
@@ -356,6 +361,23 @@ DRYRUN_MOE_DECODE = {"matmul_flops": 279113449340928,
                      "matmul_flops_per_device": 1090328199168,
                      "up_projection_bytes": 126615552}
 DRYRUN_MOE_UP_SITE = "(_local_dispatch_and_up)"
+# slice 23: fault L.  Two serving cells whose programs the port's code
+# now fixes (the lookup, a decode step's projections and SwiGLU, the SSM
+# states in one closed form each), where each release filled the
+# placements its own way before: a device's collective bytes of each kind
+# and its temp (python -m repro_torch.launch.dryrun under torch
+# 2.13.0+cpu), each held within DRYRUN_MOE_REL on the card's host
+DRYRUN_RELEASE = {
+    ("mixtral-8x22b", "decode_32k"): {
+        "collectives": {"all-gather": 994761216, "all-reduce": 22290432,
+                        "reduce-scatter": 119619584, "all-to-all": 35061760,
+                        "collective-permute": 0},
+        "temp_size_bytes": 529916116},
+    ("mamba2-780m", "long_500k"): {
+        "collectives": {"all-gather": 61496832, "all-reduce": 48288,
+                        "reduce-scatter": 0, "all-to-all": 119808,
+                        "collective-permute": 0},
+        "temp_size_bytes": 151127584}}
 # slice 19: fault H.  At the peak of llama3.2-1b's 16x16 train_4k the
 # storages of the residual's local size ((B / data) x S x d_model, bf16):
 # each layer's input, which remat keeps, the last layer's output (the final
@@ -3664,8 +3686,9 @@ def phase_dryrun() -> dict:
     their ops (``peak_residuals``) and DRYRUN_MOE's decode_32k collectives
     to their sites; ``ARCH``'s 16x16 train_4k moves
     DRYRUN_TRAIN_COLLECTIVES (``train_collectives``), DRYRUN_MOE's holds
-    DRYRUN_MOE_TRAIN (``moe_train_held``), and its decode_32k
-    DRYRUN_MOE_DECODE (``moe_decode_held``).  Launches no kernel in this
+    DRYRUN_MOE_TRAIN (``moe_train_held``), its decode_32k
+    DRYRUN_MOE_DECODE (``moe_decode_held``), and DRYRUN_RELEASE's cells
+    their bytes and temp (``release_held``).  Launches no kernel in this
     process.
     Returns kernel -> launches."""
     from repro_torch.configs import SHAPES
@@ -3780,6 +3803,7 @@ def phase_dryrun() -> dict:
     moe_decode = moe_decode_held(
         cells[f"{DRYRUN_MOE}:single_pod:decode_32k"], up)
     residuals = peak_residuals(peak, cells[f"{llama}:{DRYRUN_PEAK_SHAPE}"])
+    release = release_held(cells)
     print(f"dryrun: {len(cells)} cells in {seconds:.3f} s", flush=True)
     emit({"phase": "dryrun", "path": DRYRUN_PATH, "arch": ARCH,
           "residuals_at_peak": residuals,
@@ -3788,6 +3812,7 @@ def phase_dryrun() -> dict:
           "cuda_initialized": False, "seconds": seconds,
           "train_4k_loss": loss, "train_4k_collectives": train_coll,
           "moe_train_4k": moe_train, "moe_decode_32k": moe_decode,
+          "release_held": release,
           "cells": {k: {f: r.get(f) for f in (
               "status", "reason", "chips", "matmul_flops",
               "matmul_flops_per_device", "collectives", "trace_s",
@@ -3862,6 +3887,29 @@ def moe_decode_held(cell: dict, sites: dict) -> dict:
             got[k] != want[k] for k in ("matmul_flops",
                                         "matmul_flops_per_device")):
         raise AssertionError(f"dryrun: {DRYRUN_MOE} decode_32k {out}")
+    return out
+
+
+def release_held(cells: dict) -> dict:
+    """Fault L on the card's host: each cell of DRYRUN_RELEASE (16x16)
+    moves each kind of collective's bytes and holds the temp of this
+    host's figures within DRYRUN_MOE_REL.  Prints and returns each figure
+    beside its want."""
+    out = {}
+    for (arch, shape), want in DRYRUN_RELEASE.items():
+        cell = cells[f"{arch}:single_pod:{shape}"]
+        got = {"collectives": {k: cell["collectives"][k]
+                               for k in want["collectives"]},
+               "temp_size_bytes": cell["memory"]["temp_size_bytes"]}
+        held = {"got": got, "want": want, "rel": DRYRUN_MOE_REL}
+        print(f"dryrun {arch} {shape} a device: {json.dumps(held)}",
+              flush=True)
+        pairs = [(got["collectives"][k], n)
+                 for k, n in want["collectives"].items()]
+        pairs.append((got["temp_size_bytes"], want["temp_size_bytes"]))
+        if any(abs(g - n) > DRYRUN_MOE_REL * n for g, n in pairs):
+            raise AssertionError(f"dryrun: {arch} {shape} {held}")
+        out[f"{arch}:{shape}"] = held
     return out
 
 

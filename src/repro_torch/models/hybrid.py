@@ -33,8 +33,9 @@ import torch
 
 from ..parallel.sharding import (constrain, replicate_as, shift_in,
                                  write_slots)
-from .layers import (apply_rope, attention, decode_attention, embed,
-                     merge_heads, remat, rmsnorm, split_heads, swiglu)
+from .layers import (apply_rope, attention, decode_attention, decode_ffn,
+                     embed, merge_heads, out_proj, remat, rmsnorm,
+                     split_heads, swiglu)
 from .losses import lm_cross_entropy
 from .mamba2 import (CONV_NAMES, SSD_NAMES, ssm_branch_full,
                      ssm_branch_step, stacked_states)
@@ -130,20 +131,25 @@ class HymbaLM(BaseModel):
         return q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
 
     def _fuse_out(self, p: dict, x: torch.Tensor, attn_out: torch.Tensor,
-                  ssm_out: torch.Tensor) -> torch.Tensor:
+                  ssm_out: torch.Tensor, decode: bool = False
+                  ) -> torch.Tensor:
         """x + wo(the fused branches), then + the SwiGLU of its norm
-        (hybrid.py:113-134)."""
+        (hybrid.py:113-134); a decode step's wo and SwiGLU run in their
+        closed forms (``layers.out_proj``, ``layers.decode_ffn``)."""
         cfg = self.cfg
         a = rmsnorm(attn_out, p["fuse.attn_norm"], cfg.norm_eps)
         s = rmsnorm(ssm_out, p["fuse.ssm_norm"], cfg.norm_eps)
         a = a * p["fuse.beta_attn"].to(a.dtype)
         s = s * p["fuse.beta_ssm"].to(s.dtype)
         fused = 0.5 * (a + s)
-        x = constrain(x + fused @ p["attn.wo"].to(fused.dtype),
-                      "batch", "seq", "act_embed")
+        wo = p["attn.wo"].to(fused.dtype)
+        if decode:
+            x = x + out_proj(fused, wo, x)
+        else:
+            x = constrain(x + fused @ wo, "batch", "seq", "act_embed")
         h2 = rmsnorm(x, p["mlp_norm.w"], cfg.norm_eps)
-        return x + swiglu(h2, p["mlp.w1"].to(h2.dtype),
-                          p["mlp.w3"].to(h2.dtype), p["mlp.w2"].to(h2.dtype))
+        ws = [p[f"mlp.{w}"].to(h2.dtype) for w in ("w1", "w3", "w2")]
+        return x + (decode_ffn(h2, *ws, x) if decode else swiglu(h2, *ws))
 
     def _ssm_kw(self, p: dict) -> dict:
         return dict(in_proj=p["ssm.in_proj"], conv_w=p["ssm.conv.w"],
@@ -181,7 +187,7 @@ class HymbaLM(BaseModel):
         """(the embeddings, their positions, the stacked layer
         parameters)."""
         _, stacked = split_params(params)
-        x = embed(params["embed.w"], tokens).to(ACT_DTYPE)
+        x = embed(params["embed.w"], tokens, ACT_DTYPE)
         positions = replicate_as(torch.arange(
             x.shape[1], dtype=torch.int32, device=x.device), x)
         return x, positions, stacked
@@ -289,7 +295,7 @@ class HymbaLM(BaseModel):
         cfg = self.cfg
         top, stacked = split_params(params)
         pos = int(cache["pos"])
-        x = embed(top["embed.w"], tokens).to(ACT_DTYPE)     # (B, 1, M)
+        x = embed(top["embed.w"], tokens, ACT_DTYPE)     # (B, 1, M)
         positions = replicate_as(
             torch.full((1,), pos, dtype=torch.int32, device=x.device), x)
         new_k, new_v, convs, ssds = [], [], [], []
@@ -316,7 +322,11 @@ class HymbaLM(BaseModel):
             y, (conv, ssd) = ssm_branch_step(h[:, 0], cache["conv"][i],
                                              cache["ssd"][i],
                                              **self._ssm_kw(p))
-            x = self._fuse_out(p, x, attn_out, y[:, None, :])
+            # one layout from layer to layer, as the reference's scan
+            # carry keeps (the FFN's partial sum reduced here)
+            x = constrain(self._fuse_out(p, x, attn_out, y[:, None, :],
+                                         decode=True),
+                          "batch", None, "act_embed")
             new_k.append(constrain(k_c, *KV_NAMES))
             new_v.append(constrain(v_c, *KV_NAMES))
             convs.append(conv)

@@ -45,10 +45,9 @@ from ..kernels import ops
 from ..kernels._build import wide
 from ..parallel.sharding import (all_reduce_over, constrain, current_ctx,
                                  grad_placed, is_shard, is_sharded,
-                                 logical_spec,
-                                 on_local_shards, placements, reentered,
-                                 replicate_as, rows_of, shard_bounds,
-                                 widened)
+                                 logical_spec, on_local_shards, placements,
+                                 reentered, replicate_as, rows_of,
+                                 shard_bounds, summed_to_rows, widened)
 
 NEG_INF = -1e30
 # the products with no batch dims: ``x @ w`` with a 2-D ``w`` lowers to one
@@ -246,23 +245,150 @@ class _SplitRMSNorm(torch.autograd.Function):
         return dx, dw, None, None, None
 
 
-def embed(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
-    """``table[tokens]``.  On a DTensor table the token ids are replicated
-    first (4 bytes a token): torch 2.11's DTensor rules take no dim sharded
-    over two mesh axes, as the batch is over (pod, data) on the 2x16x16
-    mesh.  Where a graph is recorded the lookup is ``F.embedding``, whose
-    backward DTensor shards (2.11's rule for the indexing's backward,
-    ``index_put``, raises); without one it is the indexing, as 2.11's
-    ``embedding`` rule fails on the 3-D mesh.  The rows of a vocab-sharded
-    table come back as a masked partial sum, which DTensor can reduce only
-    once, so the lookup is laid out over the batch at once: a model may
-    read its embeddings twice (hymba's norm and residual)."""
+def embed(table: torch.Tensor, tokens: torch.Tensor,
+          dtype: torch.dtype | None = None) -> torch.Tensor:
+    """``table[tokens]``, cast to ``dtype`` where given.  Under a mesh a
+    vocab-parallel lookup on each rank's local shards
+    (``_sharded_embed``), laid out as the reference constrains it,
+    ("batch", ..., "act_embed"), before it leaves: a model may read its
+    embeddings twice (hymba's norm and residual)."""
     if not is_sharded(table):
-        return table[tokens]
-    ids = constrain(tokens, *(None,) * tokens.dim())
-    out = F.embedding(ids, table) if torch.is_grad_enabled() else table[ids]
-    return constrain(out, "batch", *(None,) * (tokens.dim() - 1),
-                     "act_embed")
+        out = table[tokens]
+        return out if dtype is None else out.to(dtype)
+    return _sharded_embed(table, replicate_as(tokens, table),
+                          dtype or table.dtype)
+
+
+def _vocab_index(ids: torch.Tensor, v0: int, rows: int) -> tuple:
+    """(each id's row of the rank's vocab rows [v0, v0 + rows), 0 where it
+    falls outside them; whether it falls inside)."""
+    rel = ids.long() - v0
+    hit = (rel >= 0) & (rel < rows)
+    return torch.where(hit, rel, 0), hit
+
+
+class _Lookup(torch.autograd.Function):
+    """``_sharded_embed``'s lookup on DTensors.  Forward (``plan``: the
+    mesh, the placements the table, the ids and the rows take, the mesh
+    dims whose rows go back, the rank's first vocab row, the dtype): the
+    table and the ids taken to their placements, each rank's rows of its
+    local table read for the ids among them, zeros for the rest, cast to
+    the dtype, the rows put back (``_rows_back``); a DTensor, a
+    ``Partial`` sum over the mesh dims that split the vocab.  It saves the
+    rank's ids alone.  Backward: the cotangent (whole where the rows are a
+    partial sum), its rows taken back to the ids', cast to the table's
+    dtype and accumulated into zeros of the rank's rows: the table's
+    grad, laid out as the table was read, a ``Partial`` sum over the mesh
+    dims that split the ids and not the table, handed on unreduced, for
+    the one reduction where the caller places it (``models.loss_and_grads``),
+    a tied head's grad summed in first."""
+
+    @staticmethod
+    def forward(ctx, table, ids, plan):
+        from torch.distributed.tensor import DTensor
+
+        mesh, tp, ip, yp, back, v0, dtype = plan
+        tl = table.redistribute(mesh, tp).to_local()
+        il = ids.redistribute(mesh, ip).to_local()
+        rows = tl.shape[0]
+        idx, hit = _vocab_index(il, v0, rows)
+        y = tl.index_select(0, idx.flatten()).view(*il.shape, -1)
+        y = y.masked_fill_(~hit[..., None], 0).to(dtype)
+        del tl
+        for m in back:
+            y = _rows_back(y, mesh, m)
+        ctx.save_for_backward(il)
+        ctx.plan = plan
+        ctx.table = (table.shape, table.stride(), rows, table.dtype)
+        return DTensor.from_local(y, mesh, yp, run_check=False)
+
+    @staticmethod
+    def backward(ctx, dy):
+        from torch.distributed.tensor import DTensor, Partial, Replicate
+
+        il, = ctx.saved_tensors
+        mesh, tp, ip, yp, back, v0, _ = ctx.plan
+        shape, stride, rows, dtype = ctx.table
+        dy = dy.redistribute(mesh, [Replicate() if p.is_partial() else p
+                                    for p in yp]).to_local()
+        for m in reversed(back):
+            dy = _rows_back(dy, mesh, m, inverse=True)
+        idx, hit = _vocab_index(il, v0, rows)
+        dy = torch.where(hit[..., None], dy, 0).to(dtype)
+        # the indexing's own backward op, so that one rank's grad is the
+        # unsharded lookup's bit for bit
+        dt = dy.new_zeros((rows, dy.shape[-1])).index_put_(
+            (idx,), dy, accumulate=True)
+        pls = [p if is_shard(p) else Partial() if is_shard(q) else
+               Replicate() for p, q in zip(tp, ip)]
+        return DTensor.from_local(dt, mesh, pls, run_check=False,
+                                  shape=shape, stride=stride), None, None
+
+
+def _sharded_embed(table, ids, dtype) -> torch.Tensor:
+    """``embed`` on DTensors, a vocab-parallel lookup in one closed form
+    (``_Lookup``).  Each rank looks up the ids that fall in its vocab rows
+    of its local table and writes zeros for the rest: a ``Partial`` sum
+    over the mesh dims that split the vocab, reduced once, in ``dtype``
+    (exact: one rank holds each row), to the reference's (batch, ...,
+    act_embed) placements (``summed_to_rows``, then the rows' layout).  A mesh dim that splits the
+    table's M (FSDP's ``embed``) takes ``_fsdp_layout``'s choice by bytes:
+    ``"gather_w"`` gathers the table there (training, prefill),
+    ``"gather_h"`` gathers the ids (4 B a token) and each rank makes its
+    slice of M for every row, the rows put back by one all-to-all after the
+    lookup (M gathered after the reduction, of the rank's slice, where the
+    rows are whole: a batch of one): a decode step, which never gathers
+    the table.  The
+    table's grad is reduced once, where ``models.loss_and_grads`` places
+    it (none where the ids were gathered).  The ids take no DTensor op:
+    2.11's rules refuse a dim split over two mesh axes, as the batch is
+    over (pod, data) on 2x16x16."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    mesh, (V, M) = table.device_mesh, table.shape
+    shape = (*ids.shape, M)
+    target = placements(logical_spec(
+        shape, ("batch", *(None,) * (ids.dim() - 1), "act_embed")), mesh)
+    rows = [p if is_shard(p) and p.dim == 0 else Replicate() for p in target]
+    v0 = shard_bounds(table.shape, mesh, table.placements, 0)[0]
+    y_bytes = _local_bytes(shape, mesh, rows, torch.finfo(dtype).bits // 8)
+    ip, tp, yp, back = [], [], [], []
+    for i, (p, r) in enumerate(zip(table.placements, rows)):
+        if is_shard(p) and p.dim == 0:      # the vocab: a partial sum
+            cols = (Replicate(), p, Partial())
+        elif is_shard(p) and p.dim == 1 and _fsdp_layout(
+                mesh.size(i), _nbytes(ids), _nbytes(table), y_bytes,
+                is_shard(r), False) == "gather_h":
+            # each rank's slice of M; its rows put back, or M gathered
+            cols = (Replicate(), p, r if is_shard(r) else Shard(ids.dim()))
+            if is_shard(r):
+                back.append(i)
+        else:
+            cols = (r, Replicate(), r)
+        for out, pl in zip((ip, tp, yp), cols):
+            out.append(pl)
+    plan = (mesh, tuple(tp), tuple(ip), tuple(yp), tuple(back), v0, dtype)
+    return summed_to_rows(_Lookup.apply(table, ids, plan)).redistribute(
+        mesh, target)
+
+
+def _rows_back(y: torch.Tensor, mesh, m: int, inverse: bool = False
+               ) -> torch.Tensor:
+    """A rank's slice of the last dim of every row of ``y`` (the rows
+    gathered over mesh dim ``m``, which splits them) taken back to its
+    own rows and the whole last dim, by one all-to-all over ``m``; with
+    ``inverse`` the way back."""
+    from torch.distributed import _functional_collectives as funcol
+
+    n = mesh.size(m)
+    if inverse:     # (B / n, ..., M) -> (n, B / n, ..., M / n)
+        y = y.unflatten(-1, (n, -1)).movedim(-2, 0).flatten(0, 1)
+    got = funcol.wait_tensor(funcol.all_to_all_single_autograd(
+        y.contiguous(), None, None, (mesh, m)))
+    if inverse:     # the rows of rank j came from rank j
+        return got
+    # what came from rank j is its slice j of M for this rank's rows
+    return got.unflatten(0, (n, -1)).movedim(0, -2).flatten(-2)
 
 
 # ---------------------------------------------------------------------------
@@ -460,6 +586,106 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
 
     return on_local_shards(body, [(q, qp), (k_cache, kpl), (v_cache, kpl),
                                   (mask, mp)], [qp])[0]
+
+
+def out_proj(o: torch.Tensor, w: torch.Tensor, like: torch.Tensor
+             ) -> torch.Tensor:
+    """``o @ w``, a decode step's output projection of its heads (or the
+    SSM's inner dim) o (B, [1,] K) by w (K, M), laid out as ``like`` (the
+    residual it is added to).  Under a mesh one ``on_local_shards`` body:
+    each rank multiplies its slice of K by its slice of w, a ``Partial``
+    (B, [1,] M) over the mesh dims that split K, reduced once to like's
+    placements.  A mesh dim that splits w's M (FSDP's ``embed``) takes
+    ``_fsdp_layout``'s choice by bytes: ``"gather_w"`` gathers w there,
+    ``"gather_h"`` gathers o's rows and each rank makes its slice of M for
+    every row, the rows put back by one all-to-all (``_rows_back``; M
+    gathered after the reduction where the rows are whole).  The partial
+    sum is reduced first (``summed_to_rows``), then laid out as like."""
+    if not is_sharded(o):
+        return o @ w
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    mesh, last, size = o.device_mesh, o.ndim - 1, o.element_size()
+    rows = rows_of(o)
+    # o's rows, K split as w's (a local slice where o is whole there)
+    kp = [_on_dim(p, last) if is_shard(p) and p.dim == 0 else r
+          for p, r in zip(w.placements, rows)]
+    if tuple(o.placements) != tuple(kp):
+        o = o.redistribute(mesh, kp)
+    y_bytes = _local_bytes((*o.shape[:-1], w.shape[1]), mesh, rows, size)
+    op, wp, yp, back = [], [], [], []
+    for i, (p, r) in enumerate(zip(w.placements, rows)):
+        if is_shard(p) and p.dim == 0:      # K: a partial sum
+            cols = (kp[i], p, Partial())
+        elif is_shard(p) and p.dim == 1 and _fsdp_layout(
+                mesh.size(i), _nbytes(o), _nbytes(w), y_bytes, is_shard(r),
+                False) == "gather_h":
+            cols = (Replicate(), p, r if is_shard(r) else Shard(last))
+            if is_shard(r):
+                back.append(i)
+        else:
+            cols = (r, Replicate(), r)
+        for out, pl in zip((op, wp, yp), cols):
+            out.append(pl)
+
+    def body(ol, wl):
+        y = ol @ wl
+        for i in back:
+            y = _rows_back(y, mesh, i)
+        return y
+
+    y, = on_local_shards(body, [(o, op), (w, wp)], [yp])
+    return summed_to_rows(y).redistribute(
+        mesh, [Replicate() if p.is_partial() else p for p in like.placements])
+
+
+def decode_ffn(x: torch.Tensor, w1: torch.Tensor, w3: torch.Tensor,
+               w2: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """``swiglu(x, w1, w3, w2)`` of a decode step, x (B, [1,] M), laid out
+    as ``like`` (the residual it is added to).  Under a mesh in one closed
+    form: the two up-projections in one ``on_local_shards`` body, the
+    hidden silu(x @ w1) * (x @ w3) on the rows' layout, and the
+    down-projection by ``out_proj``.  A mesh dim that splits w1's and w3's
+    M (FSDP's ``embed``) takes ``_fsdp_up_layout``'s choice by bytes:
+    ``"split_m"`` takes each rank's slice of M of every row (x's rows
+    exchanged for it by one all-to-all, ``_rows_back``'s way back; a local
+    slice where the rows are whole) and reduces each product's partial sum
+    once, to the rows' layout (``summed_to_rows``); ``"gather_w"`` gathers
+    the two weights.  Without a mesh ``swiglu``."""
+    if not is_sharded(x):
+        return swiglu(x, w1, w3, w2, shard_acts=False)
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    mesh, last = x.device_mesh, x.ndim - 1
+    rows = rows_of(x)
+    hp = [_on_dim(p, last) if is_shard(p) and p.dim == 1 else r
+          for p, r in zip(w1.placements, rows)]
+    h_bytes = _local_bytes((*x.shape[:-1], w1.shape[1]), mesh, hp,
+                           x.element_size())
+    xp, wp, op, back = [], [], [], []
+    for i, (p, r) in enumerate(zip(w1.placements, rows)):
+        if is_shard(p) and p.dim == 1:      # F: each rank's columns
+            cols = (r, p, hp[i])
+        elif is_shard(p) and p.dim == 0 and _fsdp_up_layout(
+                mesh.size(i), _nbytes(x), 0, _nbytes(w1), h_bytes,
+                is_shard(r)) == "split_m":
+            # M: a partial sum; the rows exchanged for M, or M sliced
+            cols = (r if is_shard(r) else Shard(last), p, Partial())
+            if is_shard(r):
+                back.append(i)
+        else:
+            cols = (r, Replicate(), r)
+        for out, pl in zip((xp, wp, op), cols):
+            out.append(pl)
+
+    def body(xl, w1l, w3l):
+        for i in back:
+            xl = _rows_back(xl, mesh, i, inverse=True)
+        return xl @ w1l, xl @ w3l
+
+    a1, a3 = on_local_shards(body, [(x, xp), (w1, wp), (w3, wp)], [op, op])
+    h = F.silu(summed_to_rows(a1)) * summed_to_rows(a3)
+    return out_proj(h, w2, like)
 
 
 # ---------------------------------------------------------------------------

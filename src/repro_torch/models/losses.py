@@ -52,7 +52,7 @@ def _sharded_nll(logits: torch.Tensor, targets: torch.Tensor,
     logits have it and reduces it across the ranks (``_VocabNLL``);
     otherwise the fp32 logits are first replicated over the vocab, each
     rank's rows whole.  A rank's piece of the vocab starts at its offset
-    (``shard_bounds``, which raises on a vocab split by a strided shard)."""
+    (``shard_bounds``)."""
     from torch.distributed.tensor import Replicate
 
     mesh, last = logits.device_mesh, logits.ndim - 1

@@ -37,9 +37,10 @@ import torch.nn.functional as F
 
 from ..parallel.sharding import (act_mesh_dim, blocked_columns, constrain,
                                  from_blocks, is_shard, is_sharded,
-                                 on_local_shards, rows_of, shard_last_over,
-                                 split_blocked, to_blocks, whole_over)
-from .layers import (_span, embed, merge_heads, remat, rmsnorm,
+                                 logical_spec, on_local_shards, placements,
+                                 rows_of, shard_last_over, split_blocked,
+                                 summed_to_rows, to_blocks, whole_over)
+from .layers import (_span, embed, merge_heads, out_proj, remat, rmsnorm,
                      split_heads)
 from .losses import lm_cross_entropy
 from .model_api import (BaseModel, ParamDef, cache_pos, cache_tensor,
@@ -57,9 +58,32 @@ SSD_NAMES = ("layers", "batch", None, None, None)
 
 def stacked_states(convs: list, ssds: list) -> dict:
     """The cache's ``conv`` and ``ssd`` from each layer's states, laid out
-    by their names under a mesh (as ``init_cache`` lays them out)."""
-    return {"conv": constrain(torch.stack(convs), *CONV_NAMES),
-            "ssd": constrain(torch.stack(ssds), *SSD_NAMES)}
+    by their names under a mesh (as ``init_cache`` lays them out): each
+    layer's state taken to its slice of that layout and stacked on each
+    rank's local shards (``on_local_shards``), where a release of DTensor
+    would choose where to place the stack.  The states that a decode
+    step makes are in that layout already (``ssm_branch_step``), so no
+    collective runs; a prefill's SSD states, split over the heads, are
+    gathered once each."""
+    return {"conv": _stacked(convs, CONV_NAMES),
+            "ssd": _stacked(ssds, SSD_NAMES)}
+
+
+def _stacked(states: list, names: tuple) -> torch.Tensor:
+    """``torch.stack(states)`` laid out by ``names``; under a mesh on
+    local shards."""
+    if not is_sharded(states[0]):
+        return constrain(torch.stack(states), *names)
+    from torch.distributed.tensor import Shard
+
+    mesh, shape = states[0].device_mesh, (len(states), *states[0].shape)
+    pls = placements(logical_spec(shape, names), mesh)
+    # each state's placements: the stack's, a dim nearer the front
+    one = [type(p)(p.dim - 1, **({"split_factor": p.split_factor}
+                                 if type(p) is not Shard else {}))
+           if is_shard(p) else p for p in pls]
+    return on_local_shards(lambda *ts: torch.stack(ts),
+                           [(t, one) for t in states], [pls])[0]
 
 
 # ---------------------------------------------------------------------------
@@ -216,6 +240,40 @@ def ssd_decode_step(state: torch.Tensor, x_t: torch.Tensor,
     return y.to(x_t.dtype), new_state
 
 
+def _ssd_step_local(state, x_t, dt_t, a_log, b_t, c_t, d_skip):
+    """``ssd_decode_step`` on DTensors, on each rank's local shards: the
+    state stays in the cache's layout (``SSD_NAMES``: its batch rows, every
+    head whole), the step's inputs take its rows (a ``Partial`` input is
+    reduced there, never the state it makes), ``a_log`` and ``d_skip``
+    whole.  The new state comes out in the cache's layout, as a state that
+    is no partial sum."""
+    from torch.distributed.tensor import Replicate
+
+    rows = rows_of(state)
+    whole = [Replicate()] * state.device_mesh.ndim
+    return on_local_shards(
+        ssd_decode_step, [(state, rows), (x_t, rows), (dt_t, rows),
+                          (a_log, whole), (b_t, rows), (c_t, rows),
+                          (d_skip, whole)], [rows, rows])
+
+
+def _dt_softplus(dt: torch.Tensor, dt_bias: torch.Tensor) -> torch.Tensor:
+    """softplus(dt + dt_bias) in fp32.  A serving step (no graph recorded)
+    under a mesh runs it on each rank's local shards, one op, where
+    DTensor 2.11 decomposes softplus into four (B, S, H) temporaries; a
+    training step keeps DTensor's op."""
+    if not is_sharded(dt) or torch.is_grad_enabled():
+        return F.softplus(dt.float() + dt_bias.float())
+    from torch.distributed.tensor import Replicate, Shard
+
+    last = dt.ndim - 1
+    pls = [p if is_shard(p) else Replicate() for p in dt.placements]
+    bias = [Shard(0) if is_shard(p) and p.dim == last else Replicate()
+            for p in pls]
+    return on_local_shards(lambda d, b: F.softplus(d.float() + b.float()),
+                           [(dt, pls), (dt_bias, bias)], [pls])[0]
+
+
 # ---------------------------------------------------------------------------
 # the SSM branch, shared with the hybrid
 # ---------------------------------------------------------------------------
@@ -240,7 +298,10 @@ def proj_blocks(h: torch.Tensor, in_proj: torch.Tensor, widths, m: int
     product by its own columns, whole on each rank (gathered where DTensor
     splits the product unevenly).  Otherwise only the weight moves
     (gathered over ``m``), where slicing the product of the stored column
-    order would gather it whole once a slice."""
+    order would gather it whole once a slice.  A product that DTensor
+    leaves a partial sum (a batch of one: h whole on each rank, in_proj's
+    M split over ``data``) is reduced first (``summed_to_rows``): the conv,
+    the gate and the step read the blocks, none of them linear."""
     T = h.device_mesh.size(m)
     w = whole_over(in_proj.to(h.dtype), m)
     spans = list(zip(_offsets(widths), widths))
@@ -249,8 +310,9 @@ def proj_blocks(h: torch.Tensor, in_proj: torch.Tensor, widths, m: int
     if split:
         wb = blocked_columns(w, [spans[i] for i in split], m)
         got = dict(zip(split, split_blocked(
-            h @ wb, [widths[i] for i in split], m)))
-    return [got[i] if i in got else whole_over(h @ w[..., o:o + n], m)
+            summed_to_rows(h @ wb), [widths[i] for i in split], m)))
+    return [got[i] if i in got else
+            whole_over(summed_to_rows(h @ w[..., o:o + n]), m)
             for i, (o, n) in enumerate(spans)]
 
 
@@ -341,7 +403,7 @@ def ssm_branch_full(h: torch.Tensor, in_proj: torch.Tensor,
                                    m, out_ndim=3)
         b, c = whole_over(b, m), whole_over(c, m)
     dt = constrain(dt, "batch", "seq", "act_heads")   # as ssm_branch_step
-    dt = F.softplus(dt.float() + dt_bias.float())
+    dt = _dt_softplus(dt, dt_bias)
     with _span("ssm.scan"):
         y, final = ssd_chunked(split_heads(xs, H), dt, a_log, b, c, d_skip,
                                chunk=min(chunk, S), shard_acts=shard_acts)
@@ -389,11 +451,12 @@ def ssm_branch_step(h: torch.Tensor, conv_c: torch.Tensor,
     # replicated over the heads, where a state updated over sharded heads
     # would be gathered whole for the cache at every step
     dt = constrain(dt, "batch", None)
-    dt = F.softplus(dt.float() + dt_bias.float())
+    dt = _dt_softplus(dt, dt_bias)
     xs_c = constrain(xs_c, "batch", None)
+    step = ssd_decode_step if m is None else _ssd_step_local
     with _span("ssm.scan"):
-        y, new_ssd = ssd_decode_step(ssd_c, xs_c.reshape(-1, H, head_dim),
-                                     dt, a_log, b_c, c_c, d_skip)
+        y, new_ssd = step(ssd_c, xs_c.reshape(-1, H, head_dim), dt, a_log,
+                          b_c, c_c, d_skip)
     y = merge_heads(y) * F.silu(z.float()).to(y.dtype)
     return y, (hist.to(ACT_DTYPE), new_ssd)
 
@@ -461,8 +524,7 @@ class Mamba2LM(BaseModel):
         return x, state
 
     def _embed(self, params: dict, tokens: torch.Tensor) -> torch.Tensor:
-        return constrain(embed(params["embed.w"], tokens).to(ACT_DTYPE),
-                         "batch", "seq", "act_embed")
+        return embed(params["embed.w"], tokens, ACT_DTYPE)
 
     def _layers(self, params: dict, tokens: torch.Tensor):
         """Backbone over ``tokens``: yields (x, state) after each layer."""
@@ -544,7 +606,7 @@ class Mamba2LM(BaseModel):
         new cache); ``cache`` is left as it was (mamba2.py:281-319)."""
         cfg = self.cfg
         top, stacked = split_params(params)
-        x = embed(top["embed.w"], tokens[:, 0]).to(ACT_DTYPE)  # (B, M)
+        x = embed(top["embed.w"], tokens[:, 0], ACT_DTYPE)  # (B, M)
         convs, ssds = [], []
         for p, conv_c, ssd_c in zip(unbound(stacked), cache["conv"],
                                     cache["ssd"]):
@@ -553,7 +615,7 @@ class Mamba2LM(BaseModel):
                 h, conv_c, ssd_c, p["in_proj.w"], p["conv.w"], p["conv.b"],
                 p["a_log"], p["dt_bias"], p["d_skip"], **self._branch_kw())
             y = rmsnorm(y, p["gate_norm.w"], cfg.norm_eps)
-            x = x + y @ p["out_proj.w"].to(y.dtype)
+            x = x + out_proj(y, p["out_proj.w"].to(y.dtype), x)
             convs.append(conv)
             ssds.append(ssd)
         logits = self._head(top, x)[:, None, :]

@@ -40,9 +40,9 @@ import torch
 
 from ..parallel.sharding import (constrain, replicate_as, roll, roll_slots,
                                  write_slots)
-from .layers import (apply_rope, attention, decode_attention, embed,
-                     merge_heads, moe_ffn, remat, rmsnorm, split_heads,
-                     swiglu)
+from .layers import (apply_rope, attention, decode_attention, decode_ffn,
+                     embed, merge_heads, moe_ffn, out_proj, remat, rmsnorm,
+                     split_heads, swiglu)
 from .losses import lm_cross_entropy
 from .model_api import (BaseModel, ParamDef, cache_pos, cache_tensor,
                         split_params, unbound)
@@ -133,13 +133,14 @@ class DecoderLM(BaseModel):
         return (q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
 
     def _mlp(self, p: dict, x: torch.Tensor, group_tokens: int,
-             no_fsdp: bool = False) -> torch.Tensor:
+             no_fsdp: bool = False, decode: bool = False) -> torch.Tensor:
         """x + ffn(rmsnorm(x)); the MoE routes each batch row of
         ``group_tokens`` tokens at ``moe_capacity(group_tokens)``.
         ``no_fsdp`` (a decode step of a ``decode_no_fsdp`` model) replicates
         the token activations into the FFN and shards its output over the
         batch, in place of the FFN's own constraints (transformer.py:353-
-        371)."""
+        371).  A decode step's SwiGLU runs in its closed form
+        (``layers.decode_ffn``)."""
         cfg = self.cfg
         h = rmsnorm(x, p["mlp_norm.w"], cfg.norm_eps)
         if no_fsdp:
@@ -150,6 +151,10 @@ class DecoderLM(BaseModel):
                         n_experts=cfg.n_experts, top_k=cfg.experts_per_token,
                         capacity=cfg.moe_capacity(group_tokens),
                         shard_acts=not no_fsdp)
+        elif decode:
+            y = decode_ffn(h, p["mlp.w1"].to(h.dtype),
+                           p["mlp.w3"].to(h.dtype), p["mlp.w2"].to(h.dtype),
+                           x)
         else:
             y = swiglu(h, p["mlp.w1"].to(h.dtype), p["mlp.w3"].to(h.dtype),
                        p["mlp.w2"].to(h.dtype), shard_acts=not no_fsdp)
@@ -183,7 +188,7 @@ class DecoderLM(BaseModel):
         inputs (transformer.py:138-148)."""
         if self.cfg.frontend == "frames":
             return batch["frames"].to(ACT_DTYPE)
-        x = embed(top["embed.w"], batch["tokens"]).to(ACT_DTYPE)
+        x = embed(top["embed.w"], batch["tokens"], ACT_DTYPE)
         if self.cfg.frontend == "patch" and "patch_embeds" in batch:
             pe = batch["patch_embeds"].to(ACT_DTYPE)
             x = torch.cat([pe, x[:, pe.shape[1]:]], dim=1)
@@ -350,7 +355,7 @@ class DecoderLM(BaseModel):
         pos = int(cache["pos"])
         eff = cache["k"].shape[3]
         rolling = cfg.window is not None and eff == cfg.window
-        x = embed(top["embed.w"], tokens).to(ACT_DTYPE)
+        x = embed(top["embed.w"], tokens, ACT_DTYPE)
         dev = x.device
         slots = replicate_as(torch.arange(eff, device=dev), x)
         if rolling and cfg.swa_ring_buffer:
@@ -379,8 +384,12 @@ class DecoderLM(BaseModel):
             write_slots(new_v, vT, at, layer=i)
             o = decode_attention(qT, new_k[i], new_v[i], valid_mask=valid)
             o = merge_heads(o.transpose(1, 2))
-            x = x + o @ p["attn.wo"].to(o.dtype)
-            x = self._mlp(p, x, 1, no_fsdp=cfg.decode_no_fsdp)
+            x = x + out_proj(o, p["attn.wo"].to(o.dtype), x)
+            # one layout from layer to layer, as the reference's scan
+            # carry keeps (the FFN's partial sum reduced here)
+            x = constrain(self._mlp(p, x, 1, no_fsdp=cfg.decode_no_fsdp,
+                                    decode=True),
+                          "batch", None, "act_embed")
         x = rmsnorm(x, top["final_norm.w"], cfg.norm_eps)
         logits = x @ self._head(top).to(x.dtype)
         return logits, {"k": new_k, "v": new_v,

@@ -349,17 +349,30 @@ def shard_bounds(shape: Sequence[int], mesh, pls: Sequence,
                  dim: int) -> tuple[int, int]:
     """[start, stop) of the global indices along ``dim`` that this rank's
     shard of a tensor of ``shape`` laid out as ``pls`` on ``mesh`` holds.
-    ``dim`` must be split by plain ``Shard``s, whose pieces are contiguous."""
+    A dim that ``_StridedShard``s split too is split evenly in JAX's
+    major-to-minor chunk order (``placements``' layout, each chunk
+    contiguous): the order whose split factors ``placements`` would give,
+    the chunk the rank's coordinates in that order."""
+    import itertools
+
     from torch.distributed.tensor import Shard
     from torch.distributed.tensor._utils import \
         compute_local_shape_and_global_offset
 
-    if any(is_shard(p) and p.dim == dim and type(p) is not Shard
-           for p in pls):
-        raise NotImplementedError(f"dim {dim} split by a strided shard")
-    local, offset = compute_local_shape_and_global_offset(
-        torch.Size(shape), mesh, list(pls))
-    return offset[dim], offset[dim] + local[dim]
+    dims = [m for m, p in enumerate(pls) if is_shard(p) and p.dim == dim]
+    if all(type(pls[m]) is Shard for m in dims):
+        local, offset = compute_local_shape_and_global_offset(
+            torch.Size(shape), mesh, list(pls))
+        return offset[dim], offset[dim] + local[dim]
+    split = {m: getattr(pls[m], "split_factor", 1) for m in dims}
+    order = next(o for o in itertools.permutations(dims) if all(
+        split[m] == math.prod(mesh.size(a) for a in o[:j] if a > m)
+        for j, m in enumerate(o)))
+    coord, chunk = mesh.get_coordinate(), 0
+    for m in order:
+        chunk = chunk * mesh.size(m) + coord[m]
+    size = shape[dim] // math.prod(mesh.size(m) for m in dims)
+    return chunk * size, (chunk + 1) * size
 
 
 def rows_of(t: torch.Tensor) -> list:
@@ -369,6 +382,23 @@ def rows_of(t: torch.Tensor) -> list:
 
     return [p if is_shard(p) and p.dim == 0 else Replicate()
             for p in t.placements]
+
+
+def summed_to_rows(t: torch.Tensor) -> torch.Tensor:
+    """DTensor ``t`` with every ``Partial`` sum it holds reduced where it
+    lies: to a shard of its rows (dim 0) where the logical ``batch`` splits
+    them over that mesh dim, whole there elsewhere (a batch of one); ``t``
+    itself where it holds none.  A product whose contraction a mesh dim
+    splits while its rows are whole there (FSDP's ``embed`` under a batch
+    of one) is such a sum, which no op that is not linear may read."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    if not any(p.is_partial() for p in t.placements):
+        return t
+    rows = placements(logical_spec((t.shape[0],), ("batch",)), t.device_mesh)
+    return t.redistribute(t.device_mesh, [
+        (Shard(0) if is_shard(r) else Replicate()) if p.is_partial() else p
+        for p, r in zip(t.placements, rows)])
 
 
 def all_reduce_over(t: torch.Tensor, op: str, mesh, dims: Sequence[int]

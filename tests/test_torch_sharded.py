@@ -26,7 +26,9 @@ positional global layer beside a rolling windowed one), and llama3.2-1b
 with 1 kv head (q heads sharded, the kv head whole on every model rank; the
 cache's slots shard over ``model``, so decode combines its softmax across
 them) and with 6 q over 3 kv heads (a rank's q heads span two kv heads);
-with one kv head too, serving only, mixtral's shifted and ring-buffer
+minicpm-2b (its LM head the embedding table, tied: fault L's lookup on
+local shards and the table's grad of both uses); with one kv head too,
+serving only, mixtral's shifted and ring-buffer
 caches and hymba's caches, their slots sharded over ``model``; llama3.2-1b
 and hymba-1.5b recomputing each layer in the train step's backward (remat,
 under ``"nothing"`` and for llama ``"dots"`` too; the other cases and JAX
@@ -130,6 +132,10 @@ CASES = {
                                            "swa_ring_buffer": True}, 40,
                          False),
     "hymba-1kv": ("hymba-1.5b", {"n_kv_heads": 1}, 40, False),
+    # a tied table (the LM head is the embedding's transpose): the lookup
+    # on local shards, the table's grad the lookup's and the head's, summed
+    # before its one reduction (fault L)
+    "minicpm-2b": ("minicpm-2b", {}, 16, True),
 }
 ENCODER, ENCODE_FRAMES = "hubert-xlarge", 24
 # case -> the calls that must gather no activation on the mesh: the loss
