@@ -366,7 +366,8 @@ DRYRUN_MOE_UP_SITE = "(_local_dispatch_and_up)"
 # states in one closed form each), where each release filled the
 # placements its own way before: a device's collective bytes of each kind
 # and its temp (python -m repro_torch.launch.dryrun under torch
-# 2.13.0+cpu), each held within DRYRUN_MOE_REL on the card's host
+# 2.13.0+cpu), each held within DRYRUN_MOE_REL on the card's host; and
+# (slice 24, fault M) a train cell of the SSM branch, the same way
 DRYRUN_RELEASE = {
     ("mixtral-8x22b", "decode_32k"): {
         "collectives": {"all-gather": 994761216, "all-reduce": 22290432,
@@ -377,7 +378,18 @@ DRYRUN_RELEASE = {
         "collectives": {"all-gather": 61496832, "all-reduce": 48288,
                         "reduce-scatter": 0, "all-to-all": 119808,
                         "collective-permute": 0},
-        "temp_size_bytes": 151127584}}
+        "temp_size_bytes": 151127584},
+    # slice 24: fault M.  A train cell of the SSM branch, whose backward
+    # reduces B's, C's, in_proj's and the conv's grads in one closed form
+    # each (sharding.whole_over, weight_blocks), where each release planned
+    # its own redistributions before (the all-to-all 52248576 B on 2.13,
+    # 1916928 B on 2.11); the all-reduces within the clip's scalars
+    ("mamba2-780m", "train_4k"): {
+        "collectives": {"all-gather": 16837372928,
+                        "all-reduce": 19768220176,
+                        "reduce-scatter": 110337024, "all-to-all": 5730816,
+                        "collective-permute": 0},
+        "temp_size_bytes": 38553336832}}
 # slice 19: fault H.  At the peak of llama3.2-1b's 16x16 train_4k the
 # storages of the residual's local size ((B / data) x S x d_model, bf16):
 # each layer's input, which remat keeps, the last layer's output (the final
@@ -3296,6 +3308,31 @@ def wrapped_result_bytes(mesh) -> dict:
     return got
 
 
+def collect_garbage() -> dict:
+    """Collects what only reference cycles keep, and says what it was: the
+    card's bytes that freed, the CUDA tensors among it, and the functions
+    whose frames it held (file:function, the most frequent first), each
+    frame keeping its locals."""
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    gc.set_debug(gc.DEBUG_SAVEALL)
+    try:
+        gc.collect()
+    finally:
+        gc.set_debug(0)
+    found = list(gc.garbage)
+    gc.garbage.clear()
+    cuda = sum(isinstance(o, torch.Tensor) and o.is_cuda for o in found)
+    frames = collections.Counter(
+        f"{Path(o.f_code.co_filename).name}:{o.f_code.co_name}"
+        for o in found if type(o).__name__ == "frame")
+    del found
+    gc.collect()
+    torch.cuda.synchronize()
+    return {"bytes": before - torch.cuda.memory_allocated(),
+            "cuda_tensors": cuda, "frames": dict(frames.most_common(8))}
+
+
 def sharded_steps(model, params, prompt, steps, batch, mesh) -> dict:
     """The prefill of ``prompt``, a decode step of each column of ``steps``
     and SHARDED_TRAIN_STEPS ``make_train_step``s on ``batch``, each on the
@@ -3358,12 +3395,17 @@ def sharded_steps(model, params, prompt, steps, batch, mesh) -> dict:
                                        None else cache[k]).shape)
                               for k in ("k", "v")}
         del weights, cache
+        # garbage that earlier phases left in reference cycles, collected
+        # first: a collection inside the measured forward would free it
+        # there and take its bytes off the count
+        out["garbage"] = [collect_garbage()]
         out["forward_held"] = forward_holds(model, params, batch)
         t_norms, t_flash = step_launches(model.cfg)
         train_step = make_train_step(model)
         new, opt = params, None
         out["loss"], out["params"] = [], []
         for i in range(SHARDED_TRAIN_STEPS):
+            out["garbage"].append(collect_garbage())  # as before the forward
             torch.cuda.synchronize()
             start = torch.cuda.memory_allocated()
             torch.cuda.reset_peak_memory_stats()
@@ -3462,6 +3504,9 @@ def phase_sharded() -> dict:
                   "residuals_more": (got[k] - want[k]) / residual}
               for k in ("forward_held", "train_peak_above_start")}
     memory["residual_bytes"] = residual
+    # before the forward and each train step: what the collector freed
+    memory["garbage"] = {"mesh": got["garbage"],
+                         "unsharded": want["garbage"]}
     memory["wrapped_all_reduce"] = wrapped
     print(f"{SHARDED_PATH} memory: {json.dumps(memory)}", flush=True)
     if not (abs(got["forward_held"] - want["forward_held"]) <
@@ -3891,10 +3936,10 @@ def moe_decode_held(cell: dict, sites: dict) -> dict:
 
 
 def release_held(cells: dict) -> dict:
-    """Fault L on the card's host: each cell of DRYRUN_RELEASE (16x16)
-    moves each kind of collective's bytes and holds the temp of this
-    host's figures within DRYRUN_MOE_REL.  Prints and returns each figure
-    beside its want."""
+    """Faults L and M on the card's host: each cell of DRYRUN_RELEASE
+    (16x16) moves each kind of collective's bytes and holds the temp of
+    this host's figures within DRYRUN_MOE_REL.  Prints and returns each
+    figure beside its want."""
     out = {}
     for (arch, shape), want in DRYRUN_RELEASE.items():
         cell = cells[f"{arch}:single_pod:{shape}"]

@@ -35,6 +35,11 @@ import contextvars
 import math
 
 import torch
+# checkpoint's first call imports torch._dynamo (``torch._disable_dynamo``),
+# and that import leaves frames in a reference cycle (``torch.fx.wrap``
+# keeps its own): the cycle holds the caller's stack, a train step's frames
+# and their tensors, until a full collection.  Imported here, it holds none.
+import torch._dynamo  # noqa: F401
 import torch.nn.functional as F
 from torch.profiler import record_function
 from torch.utils._pytree import tree_leaves

@@ -35,11 +35,11 @@ import functools
 import torch
 import torch.nn.functional as F
 
-from ..parallel.sharding import (act_mesh_dim, blocked_columns, constrain,
-                                 from_blocks, is_shard, is_sharded,
-                                 logical_spec, on_local_shards, placements,
-                                 rows_of, shard_last_over, split_blocked,
-                                 summed_to_rows, to_blocks, whole_over)
+from ..parallel.sharding import (act_mesh_dim, constrain, from_blocks,
+                                 is_shard, is_sharded, logical_spec,
+                                 on_local_shards, placements, rows_of,
+                                 split_blocked, summed_to_rows, to_blocks,
+                                 weight_blocks, whole_over)
 from .layers import (_span, embed, merge_heads, out_proj, remat, rmsnorm,
                      split_heads)
 from .losses import lm_cross_entropy
@@ -192,33 +192,39 @@ def _ssd_sharded(x, dt, a_log, b, c, d_skip, chunk: int):
     The chunks' C . B products read no head, so a rank of every heads
     piece would compute the same ones, and a count of the world's FLOPs
     (``local_split``) would take them once a piece.  They are made first,
-    on DTensors split over the batch alone (the tail's pad on local
-    shards), and passed in: the world computes them once.  The backward
-    needs nothing of its own: B's, C's and the products' grads come back
-    as partial sums over the heads' dim, x's and dt's as shards."""
+    in a body of their own split over the batch alone (the tail's pad in
+    it), and passed in: the world computes them once.  B's, C's and the
+    products' grads come back as partial sums over the heads' dim, x's and
+    dt's as shards.  The products' body keeps its cotangent a partial sum
+    (``partial_grads``): its B and C grads add into the scan's unreduced,
+    before the one reduction of each (``whole_over``)."""
     from torch.distributed.tensor import Replicate, Shard
 
-    mesh, (bsz, L, H, P), N = x.device_mesh, x.shape, b.shape[-1]
+    mesh, (bsz, L, H, P) = x.device_mesh, x.shape
     batch = rows_of(x)
     heads = [Replicate()] * mesh.ndim
     x_pls, state_pls = list(batch), list(batch)
     m = act_mesh_dim("act_heads", x)
     if m is not None and H % mesh.size(m) == 0:
         x_pls[m], state_pls[m], heads[m] = Shard(2), Shard(1), Shard(0)
-    pad = -L % chunk
-    bp, cp = b, c
-    if pad:
-        bp, cp = on_local_shards(lambda b, c: (_pad_tail(b, pad),
-                                               _pad_tail(c, pad)),
-                                 [(b, batch), (c, batch)], [batch, batch])
-    nc = (L + pad) // chunk
-    cb = torch.einsum("bcin,bcjn->bcij",
-                      cp.reshape(bsz, nc, chunk, N).float(),
-                      bp.reshape(bsz, nc, chunk, N).float())
+    cb = on_local_shards(functools.partial(_chunk_products, chunk=chunk),
+                         [(b, batch), (c, batch)], [batch],
+                         partial_grads=True)[0]
     return on_local_shards(
         functools.partial(_ssd, chunk=chunk),
         [(x, x_pls), (dt, x_pls), (a_log, heads), (b, batch), (c, batch),
          (d_skip, heads), (cb, batch)], [x_pls, state_pls])
+
+
+def _chunk_products(b, c, *, chunk: int) -> torch.Tensor:
+    """The chunks' C . B products (B, nc, q, q) in fp32 of b, c (B, L, N),
+    a tail short of a chunk zero-padded, as ``_ssd`` makes them."""
+    pad = -b.shape[1] % chunk
+    if pad:
+        b, c = _pad_tail(b, pad), _pad_tail(c, pad)
+    return torch.einsum("bcin,bcjn->bcij",
+                        c.unflatten(1, (-1, chunk)).float(),
+                        b.unflatten(1, (-1, chunk)).float())
 
 
 def ssd_decode_step(state: torch.Tensor, x_t: torch.Tensor,
@@ -294,26 +300,29 @@ def proj_blocks(h: torch.Tensor, in_proj: torch.Tensor, widths, m: int
     """``h @ in_proj`` under a mesh as its blocks of ``widths`` (z, x, B,
     C, dt), none gathered: the blocks whose widths divide mesh dim ``m``
     come from one product by in_proj's columns in the blocked order
-    (``blocked_columns``), each split over ``m``; any other block from a
-    product by its own columns, whole on each rank (gathered where DTensor
-    splits the product unevenly).  Otherwise only the weight moves
+    (``weight_blocks``, joined), each split over ``m``; any other block
+    from a product by its own columns, whole on each rank (gathered where
+    DTensor splits the product unevenly).  Otherwise only the weight moves
     (gathered over ``m``), where slicing the product of the stored column
-    order would gather it whole once a slice.  A product that DTensor
-    leaves a partial sum (a batch of one: h whole on each rank, in_proj's
-    M split over ``data``) is reduced first (``summed_to_rows``): the conv,
-    the gate and the step read the blocks, none of them linear."""
+    order would gather it whole once a slice; its grad is reduced to
+    in_proj's placements in one closed form, never gathered over ``m``
+    where in_proj is split there.
+    A product that DTensor leaves a partial sum (a batch of one: h whole
+    on each rank, in_proj's M split over ``data``) is reduced first
+    (``summed_to_rows``): the conv, the gate and the step read the blocks,
+    none of them linear."""
     T = h.device_mesh.size(m)
-    w = whole_over(in_proj.to(h.dtype), m)
     spans = list(zip(_offsets(widths), widths))
-    split = [i for i, n in enumerate(widths) if n % T == 0]
+    split = [n % T == 0 for n in widths]
+    ws = iter(weight_blocks(in_proj.to(h.dtype), spans, split, m,
+                            joined=True))
     got = {}
-    if split:
-        wb = blocked_columns(w, [spans[i] for i in split], m)
-        got = dict(zip(split, split_blocked(
-            summed_to_rows(h @ wb), [widths[i] for i in split], m)))
-    return [got[i] if i in got else
-            whole_over(summed_to_rows(h @ w[..., o:o + n]), m)
-            for i, (o, n) in enumerate(spans)]
+    if any(split):
+        got = dict(zip((i for i, s in enumerate(split) if s), split_blocked(
+            summed_to_rows(h @ next(ws)), [n for n, s in zip(widths, split)
+                                           if s], m)))
+    return [got[i] if s else whole_over(summed_to_rows(h @ next(ws)), m)
+            for i, s in enumerate(split)]
 
 
 def conv_blocks(blocks, conv_w: torch.Tensor, conv_b: torch.Tensor, fn,
@@ -325,17 +334,18 @@ def conv_blocks(blocks, conv_w: torch.Tensor, conv_b: torch.Tensor, fn,
     DTensor 2.11 cannot pad a tensor split on another dim.  A block split
     over mesh dim ``m`` meets its weight columns split there too (the
     weights cast to the blocks' dtype, as ``causal_conv`` casts them, and
-    gathered over ``m`` first: they are small)."""
+    gathered over ``m`` first: they are small; ``weight_blocks``, whose
+    grads are reduced to the weights' placements in one closed form)."""
     from torch.distributed.tensor import Shard
 
     dtype = blocks[0].dtype
-    cw, cb = whole_over(conv_w.to(dtype), m), whole_over(conv_b.to(dtype), m)
     widths = [t.shape[-1] for t in blocks]
+    spans = list(zip(_offsets(widths), widths))
+    split = [is_shard(t.placements[m]) for t in blocks]
     out = []
-    for t, o, n in zip(blocks, _offsets(widths), widths):
-        w, b = cw[..., o:o + n], cb[o:o + n]
-        if is_shard(t.placements[m]):
-            w, b = shard_last_over(w, m), shard_last_over(b, m)
+    for t, w, b in zip(blocks, weight_blocks(conv_w.to(dtype), spans, split,
+                                             m),
+                       weight_blocks(conv_b.to(dtype), spans, split, m)):
         pls = tuple(t.placements)
         out_pls = [Shard(out_ndim - 1) if is_shard(p) and p.dim == t.ndim - 1
                    else p for p in pls]
@@ -379,8 +389,9 @@ def ssm_branch_full(h: torch.Tensor, in_proj: torch.Tensor,
     Under a mesh the branch keeps in_proj's blocks and the conv's outputs
     split over ``act_ff``'s mesh dim (``proj_blocks``, ``conv_blocks``);
     B and C are gathered once each, for the SSD, which every head reads,
-    and the conv state takes the cache's column order by one all-to-all
-    of its K - 1 rows (``from_blocks``)."""
+    their grads reduced by one reduce-scatter each (``whole_over``), and the
+    conv state takes the cache's column order by one all-to-all of its
+    K - 1 rows (``from_blocks``)."""
     S = h.shape[1]
     H = d_inner // head_dim
     K = conv_w.shape[0]

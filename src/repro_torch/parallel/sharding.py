@@ -278,6 +278,102 @@ class _Widened(torch.autograd.Function):
             None
 
 
+class _Gathered(torch.autograd.Function):
+    """DTensor ``x`` gathered over ``mesh_dim``, which splits it
+    (``Shard``), its other placements kept, its local shard contiguous
+    (``_Constrain``'s reason).  Backward, on the local shard, in one
+    closed form whatever DTensor's release would plan: the grad taken to
+    x's placements (``_onto``), so over ``mesh_dim`` a ``Partial`` sum is
+    reduced by one reduce-scatter onto x's shard and a replicated grad is
+    sliced to it, with no collective."""
+
+    @staticmethod
+    def forward(ctx, x, mesh_dim):
+        from torch.distributed.tensor import Replicate
+
+        ctx.pls, ctx.shape = tuple(x.placements), x.shape
+        pls = list(x.placements)
+        pls[mesh_dim] = Replicate()
+        return x.redistribute(x.device_mesh, pls).contiguous()
+
+    @staticmethod
+    def backward(ctx, grad):
+        from torch.distributed.tensor import DTensor
+
+        return DTensor.from_local(
+            _onto(grad, ctx.pls).contiguous(), grad.device_mesh, ctx.pls,
+            run_check=False, shape=ctx.shape,
+            stride=_global_stride(ctx.shape)), None
+
+
+def _reduce_scatter(*args):
+    """funcol's reduce-scatter of a tensor along a dim: ``reduce_scatter_
+    single`` where the release has it (2.13, which deprecates the older
+    name), ``reduce_scatter_tensor`` before; one op underneath."""
+    from torch.distributed import _functional_collectives as funcol
+
+    return getattr(funcol, "reduce_scatter_single",
+                   funcol.reduce_scatter_tensor)(*args)
+
+
+def _in_closed_form(p, q) -> bool:
+    """Whether ``_onto`` takes placement ``p`` to ``q`` on a mesh dim by a
+    collective of its own: kept, a sum reduce-scattered onto a shard or
+    all-reduced, or a replicated dim sliced to a shard."""
+    from torch.distributed.tensor import Shard
+
+    return p == q or (type(q) is Shard or q.is_replicate()) and (
+        p.is_partial() and p.reduce_op == "sum") or (
+        p.is_replicate() and type(q) is Shard)
+
+
+def _nested(have: Sequence, want: Sequence) -> bool:
+    """Whether each tensor dim that ``want`` cuts on a mesh dim where
+    ``have`` does not is cut in ``have`` only by plain ``Shard``s of outer
+    mesh dims: cutting the local shard then nests as DTensor nests the
+    shards of one dim, outer mesh dim first."""
+    from torch.distributed.tensor import Shard
+
+    return all(k < m and type(p) is Shard
+               for m, q in enumerate(want) if type(q) is Shard and
+               have[m] != q
+               for k, p in enumerate(have) if is_shard(p) and p.dim == q.dim)
+
+
+def _onto(g: torch.Tensor, want: Sequence) -> torch.Tensor:
+    """The local shard of DTensor ``g`` laid out as ``want`` (placements on
+    g's mesh), by funcol's collectives on the shard, one a mesh dim whose
+    placement changes: a ``Partial`` sum reduce-scattered onto a ``Shard``,
+    or all-reduced to a ``Replicate`` after every reduce-scatter (on the
+    smaller shard); a replicated dim sliced to a ``Shard``.  Any other
+    change, a shard that does not divide evenly, or a new cut of a tensor
+    dim that an inner mesh dim cuts already (``_nested``), is left to
+    DTensor's redistribute."""
+    from torch.distributed import _functional_collectives as funcol
+    from torch.distributed.tensor import Shard
+
+    mesh, have, want = g.device_mesh, list(g.placements), list(want)
+    cuts = [(m, q.dim) for m, q in enumerate(want) if type(q) is Shard]
+    if any(g.shape[d] % math.prod(mesh.size(m) for m, e in cuts if e == d)
+           for _, d in cuts) or not all(map(_in_closed_form, have, want)) \
+            or not _nested(have, want):
+        return g.redistribute(mesh, want).to_local()
+    local, coord = g.to_local(), mesh.get_coordinate()
+    for m, (p, q) in enumerate(zip(have, want)):
+        if p == q or type(q) is not Shard:
+            continue
+        if p.is_partial():
+            local = funcol.wait_tensor(_reduce_scatter(
+                local.contiguous(), "sum", q.dim, (mesh, m)))
+        else:
+            n = local.shape[q.dim] // mesh.size(m)
+            local = local.narrow(q.dim, coord[m] * n, n)
+    dims = [m for m, (p, q) in enumerate(zip(have, want))
+            if p.is_partial() and q.is_replicate()]
+    return all_reduce_over(local.contiguous() if dims else local, "sum",
+                           mesh, dims)
+
+
 def widened(x: torch.Tensor, target: Sequence) -> torch.Tensor:
     """DTensor ``x`` at ``target`` placements in float32, its grad summed
     across the ranks in float32 and cast to x's dtype once
@@ -450,11 +546,11 @@ class _OnLocalShards(torch.autograd.Function):
     its saved tensors in place and recomputes nothing a second time."""
 
     @staticmethod
-    def forward(ctx, fn, mesh, out_pls, split_dims, *xs):
+    def forward(ctx, fn, mesh, out_pls, split_dims, partial_grads, *xs):
         from torch.distributed.tensor import DTensor
 
         split = math.prod(mesh.size(m) for m in split_dims)
-        need = ctx.needs_input_grad[4:]
+        need = ctx.needs_input_grad[5:]
         token = _SPLIT.set(split)
         try:
             with torch.enable_grad() if any(need) else \
@@ -470,6 +566,8 @@ class _OnLocalShards(torch.autograd.Function):
             # step) takes no grad: None, where a zero would be a plain tensor
             ctx.set_materialize_grads(False)
             ctx.mesh, ctx.out_pls, ctx.split = mesh, out_pls, split
+            ctx.kept = () if not partial_grads else tuple(
+                m for m in range(mesh.ndim) if m not in split_dims)
             graph = ins[0].new_empty(0)
             graph.local_graph = ins, outs
             ctx.save_for_backward(graph)
@@ -481,13 +579,19 @@ class _OnLocalShards(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, *grads):
-        from torch.distributed.tensor import DTensor
+        from torch.distributed.tensor import DTensor, Partial
 
         ins, outs = ctx.saved_tensors[0].local_graph
-        pairs = [(o, g.redistribute(ctx.mesh, _cotangent_placements(pls))
-                  .to_local())
-                 for o, g, pls in zip(outs, grads, ctx.out_pls)
-                 if g is not None and o.requires_grad]
+        live = [(o, g, pls) for o, g, pls in zip(outs, grads, ctx.out_pls)
+                if g is not None and o.requires_grad]
+        # the mesh dims over which every cotangent stays a sum of parts
+        kept = [m for m in ctx.kept if all(
+            pls[m].is_replicate() and g.placements[m].is_partial() and
+            g.placements[m].reduce_op == "sum" for _, g, pls in live)]
+        pairs = [(o, g.redistribute(ctx.mesh, [
+            g.placements[m] if m in kept else p for m, p in enumerate(
+                _cotangent_placements(pls))]).to_local())
+                 for o, g, pls in live]
         want = [x for x in ins if x.requires_grad]
         token = _SPLIT.set(ctx.split)
         try:
@@ -498,11 +602,12 @@ class _OnLocalShards(torch.autograd.Function):
             _SPLIT.reset(token)
         out = []
         for x, pls in zip(ins, ctx.grad_pls):
+            pls = [Partial() if m in kept else p for m, p in enumerate(pls)]
             g = next(got) if x.requires_grad else None
             # contiguous, as DTensor's local views in the backward need
             out.append(None if g is None else DTensor.from_local(
                 g.contiguous(), ctx.mesh, pls, run_check=False))
-        return (None, None, None, None, *out)
+        return (None, None, None, None, None, *out)
 
 
 def _cotangent_placements(pls: Sequence) -> tuple:
@@ -523,8 +628,8 @@ def _grad_placements(pls: Sequence, split_dims: Sequence[int]) -> tuple:
                  for m, p in enumerate(pls))
 
 
-def on_local_shards(fn, inputs: Sequence[tuple], out_placements: Sequence
-                    ) -> tuple:
+def on_local_shards(fn, inputs: Sequence[tuple], out_placements: Sequence,
+                    partial_grads: bool = False) -> tuple:
     """``fn`` run on each rank's local shards: ``inputs`` are (DTensor,
     placements) pairs, each DTensor redistributed to its placements first
     (its grad back to its own in the backward); ``fn`` takes the local
@@ -532,7 +637,14 @@ def on_local_shards(fn, inputs: Sequence[tuple], out_placements: Sequence
     wrapped as a DTensor of the matching entry of ``out_placements``.
     Returns a tuple of DTensors.  This is how a kernel, which takes plain
     tensors, runs under a mesh: the same body takes the CUDA kernels on the
-    card and the plain versions elsewhere (``kernels.ops``)."""
+    card and the plain versions elsewhere (``kernels.ops``).
+
+    With ``partial_grads`` a replicated output's grad that comes as a
+    ``Partial`` sum over a mesh dim that splits no input (on every output
+    that takes one) is not reduced: the body's backward, linear in its
+    cotangents, runs on each rank's part, and each input's grad is handed
+    on as a ``Partial`` sum there, for a reduction that the caller places
+    (``mamba2._ssd_sharded``: the chunks' C . B products)."""
     xs = []
     for x, pls in inputs:
         pls = tuple(pls)
@@ -542,7 +654,7 @@ def on_local_shards(fn, inputs: Sequence[tuple], out_placements: Sequence
     split_dims = tuple(m for m in range(mesh.ndim)
                        if any(is_shard(x.placements[m]) for x in xs))
     return _OnLocalShards.apply(fn, mesh, tuple(map(tuple, out_placements)),
-                                split_dims, *xs)
+                                split_dims, partial_grads, *xs)
 
 
 # ---------------------------------------------------------------------------
@@ -572,10 +684,13 @@ def _with_placement(t: torch.Tensor, mesh_dim: int, pl) -> torch.Tensor:
 
 
 def whole_over(t: torch.Tensor, mesh_dim: int) -> torch.Tensor:
-    """DTensor ``t`` replicated over ``mesh_dim`` (gathered where it is
-    split there), its other placements kept."""
+    """DTensor ``t`` replicated over ``mesh_dim``, its other placements
+    kept: gathered where it is split there, its grad then reduced to t's
+    shard in one closed form (``_Gathered``)."""
     from torch.distributed.tensor import Replicate
 
+    if is_shard(t.placements[mesh_dim]):
+        return _Gathered.apply(t, mesh_dim)
     return _with_placement(t, mesh_dim, Replicate())
 
 
@@ -587,28 +702,145 @@ def shard_last_over(t: torch.Tensor, mesh_dim: int) -> torch.Tensor:
     return _with_placement(t, mesh_dim, Shard(t.ndim - 1))
 
 
-def blocked_columns(w: torch.Tensor, blocks: Sequence[tuple[int, int]],
-                    mesh_dim: int) -> torch.Tensor:
-    """The columns (last dim) of DTensor ``w`` in the blocks (offset,
-    width) in turn, reordered so that the shard of each rank r over
-    ``mesh_dim`` holds r's contiguous piece of every block, block after
-    block, as Megatron lays out a fused QKV: a product by it splits into
-    the blocks' shards with no collective (``split_blocked``).  ``w`` is
-    gathered over ``mesh_dim`` first: a weight, small beside what the
-    product makes.  Every width must divide by the mesh dim's size."""
-    T = w.device_mesh.size(mesh_dim)
-    w = whole_over(w, mesh_dim)
-    wb = torch.cat([w[..., o:o + n].unflatten(-1, (T, n // T))
-                    for o, n in blocks], dim=-1).flatten(-2)
-    return shard_last_over(wb, mesh_dim)
+class _WeightBlocks(torch.autograd.Function):
+    """The column blocks (offset, width) ``spans`` of a weight DTensor
+    ``w`` whose last dim is split evenly over ``mesh_dim`` or whole there.
+    Forward: ``w`` gathered over ``mesh_dim`` (a weight, small beside what
+    its product makes), each block of ``split`` cut to this rank's
+    contiguous piece of it, split over ``mesh_dim`` (``Shard`` of the last
+    dim), each other block whole there; with ``joined`` the split blocks
+    come first as one DTensor, block after block, as Megatron lays out a
+    fused QKV (a product by it splits into the blocks' shards with no
+    collective: ``split_blocked``), then the others.
+
+    Backward, on local shards, in one closed form: every block's grad
+    (a whole block's cut to the columns of w's own shard) joined into one
+    local tensor, which takes w's placements on the other mesh dims by one
+    collective a dim (``_onto``: one reduce-scatter over ``data`` for an
+    FSDP weight); then over ``mesh_dim`` the split blocks' columns go back
+    to w's own column order by one all-to-all (``_exchange``), or are
+    all-gathered where w is whole there.  The grad is never gathered
+    whole over ``mesh_dim`` where w is split there."""
+
+    @staticmethod
+    def forward(ctx, w, spans, split, mesh_dim, joined):
+        from torch.distributed.tensor import DTensor, Replicate, Shard
+
+        mesh, pls = w.device_mesh, tuple(w.placements)
+        T, r = mesh.size(mesh_dim), mesh.get_coordinate()[mesh_dim]
+        whole = list(pls)
+        whole[mesh_dim] = Replicate()
+        cut = list(whole)
+        cut[mesh_dim] = Shard(w.ndim - 1)
+        local = w.redistribute(mesh, whole).to_local()
+
+        def out(t, pls, n):
+            shape = (*w.shape[:-1], n)
+            return DTensor.from_local(
+                t.contiguous(), mesh, pls, run_check=False,
+                shape=torch.Size(shape), stride=_global_stride(shape))
+
+        pieces = [local[..., o + r * n // T:o + (r + 1) * n // T]
+                  for (o, n), s in zip(spans, split) if s]
+        outs, entries = [], []   # entries: ("cut", width) or ("whole", span)
+        if joined and pieces:
+            n = sum(n for (_, n), s in zip(spans, split) if s)
+            outs.append(out(torch.cat(pieces, dim=-1), cut, n))
+            entries.append(("cut", n))
+        it = iter(pieces)
+        for (o, n), s in zip(spans, split):
+            if not s:
+                outs.append(out(local[..., o:o + n], whole, n))
+                entries.append(("whole", (o, n)))
+            elif not joined:
+                outs.append(out(next(it), cut, n))
+                entries.append(("cut", n))
+        ctx.plan = (mesh, pls, tuple((o, n) for (o, n), s in zip(spans, split)
+                                     if s), mesh_dim, w.shape, entries)
+        return tuple(outs)   # an unused block's grad comes as zeros
+
+    @staticmethod
+    def backward(ctx, *grads):
+        from torch.distributed import _functional_collectives as funcol
+        from torch.distributed.tensor import DTensor, Replicate, Shard
+
+        mesh, pls, cut, m, shape, entries = ctx.plan
+        T, r, last, d = mesh.size(m), mesh.get_coordinate()[m], \
+            len(shape) - 1, shape[-1]
+        # the grads' placements on the mesh dims but m: the first's (a
+        # product's by rows split over data: a Partial sum there)
+        ref = list(grads[0].placements)
+        lo, hi = (r * d // T, (r + 1) * d // T) if is_shard(pls[m]) \
+            else (0, d)
+        # the split blocks' local grads in order, then the whole blocks'
+        # columns in [lo, hi)
+        cuts, wholes, whole_cols = [], [], []
+        for g, (kind, what) in zip(grads, entries):
+            on_m = Shard(last) if kind == "cut" else Replicate()
+            want = [on_m if k == m else p for k, p in enumerate(ref)]
+            if list(g.placements) != want:
+                g = g.redistribute(mesh, want)
+            if kind == "cut":
+                cuts.append(g.to_local())
+                continue
+            o, n = what
+            a, b = max(o, lo), min(o + n, hi)
+            if a < b:
+                wholes.append(g.to_local()[..., a - o:b - o])
+                whole_cols += range(a, b)
+        buf = torch.cat(cuts + wholes, dim=-1).contiguous()
+        # one reduction over the other mesh dims, every block at once
+        on = [Replicate() if k == m else p for k, p in enumerate(ref)]
+        full = list(buf.shape)
+        for k, p in enumerate(on):
+            if is_shard(p):
+                full[p.dim] *= mesh.size(k)
+        buf = _onto(DTensor.from_local(
+            buf, mesh, on, run_check=False, shape=torch.Size(full),
+            stride=_global_stride(full)),
+            [Replicate() if k == m else p for k, p in enumerate(pls)])
+        n_cut = sum(n // T for _, n in cut)
+        got, at = buf[..., :n_cut], []
+        if cut:
+            dst, mine = _layouts(cut, d, T)
+            if is_shard(pls[m]):
+                got = _exchange(got, _exchange_plan(mine, dst, r), mesh, m)
+                at = list(dst[r])
+            else:
+                got = funcol.wait_tensor(funcol.all_gather_tensor(
+                    got.contiguous(), last, (mesh, m)))
+                at = [c for k in range(T) for c in mine[k]]
+        # every column of the shard, where a block holds it
+        out = buf.new_zeros(*buf.shape[:-1], hi - lo)
+        out.index_copy_(last, torch.tensor(
+            [c - lo for c in at + whole_cols], dtype=torch.long,
+            device=out.device), torch.cat([got, buf[..., n_cut:]], dim=-1))
+        return (DTensor.from_local(out, mesh, pls, run_check=False,
+                                   shape=shape,
+                                   stride=_global_stride(shape)),
+                None, None, None, None)
+
+
+def weight_blocks(w: torch.Tensor, spans: Sequence[tuple[int, int]],
+                  split: Sequence[bool], mesh_dim: int,
+                  joined: bool = False) -> tuple:
+    """The column blocks (offset, width) ``spans`` of weight DTensor ``w``
+    (``_WeightBlocks``): a block of ``split`` split over ``mesh_dim``, each
+    rank its contiguous piece (every such width must divide by the mesh
+    dim's size), any other whole there; with ``joined`` the split blocks as
+    one DTensor, then the others.  Gathered over ``mesh_dim`` as a bare
+    redistribution would; its grad reduced to w's placements in one closed
+    form, never gathered whole over ``mesh_dim``."""
+    return _WeightBlocks.apply(w, tuple(map(tuple, spans)), tuple(split),
+                               mesh_dim, joined)
 
 
 class _SplitBlocked(torch.autograd.Function):
     """The blocks of a DTensor whose last dim is split over ``mesh_dim``
-    in ``blocked_columns``' order: each a DTensor of its own width split
-    the same way, cut from the local shard (contiguous copies; nothing is
-    saved).  Backward: the blocks' grads, laid out as their outputs, are
-    joined on each rank."""
+    in ``weight_blocks``' joined order: each a DTensor of its own width
+    split the same way, cut from the local shard (contiguous copies;
+    nothing is saved).  Backward: the blocks' grads, laid out as their
+    outputs, are joined on each rank."""
 
     @staticmethod
     def forward(ctx, x, widths, mesh_dim):
@@ -646,10 +878,10 @@ class _SplitBlocked(torch.autograd.Function):
 def split_blocked(x: torch.Tensor, widths: Sequence[int], mesh_dim: int
                   ) -> tuple:
     """The blocks of ``widths`` of DTensor ``x``, whose last dim holds them
-    in ``blocked_columns``' order split over ``mesh_dim``: each block a
+    in ``weight_blocks``' joined order split over ``mesh_dim``: each block a
     DTensor split there too, with no collective.  ``x`` is first taken to
     that layout (nothing moves where it is in it, as after a product by
-    ``blocked_columns``' weight)."""
+    ``weight_blocks``' joined weight)."""
     return _SplitBlocked.apply(shard_last_over(x, mesh_dim), tuple(widths),
                                mesh_dim)
 
@@ -679,19 +911,25 @@ def _exchange_plan(src: tuple, dst: tuple, rank: int) -> tuple:
     return tuple(send), tuple(send_n), tuple(recv_n), tuple(order)
 
 
-def _layouts(widths: Sequence[int], T: int) -> tuple[tuple, tuple]:
-    """(natural, blocked): a rank each, the global columns of the
-    concatenated blocks that its shard holds, split in T equal pieces
-    whole, or block by block (``blocked_columns``' order)."""
-    total = sum(widths)
-    offs = [sum(widths[:i]) for i in range(len(widths))]
-    natural = tuple(tuple(range(r * total // T, (r + 1) * total // T))
-                    for r in range(T))
-    blocked = tuple(tuple(c for o, n in zip(offs, widths)
+@functools.cache
+def _layouts(spans: tuple, d: int, T: int) -> tuple[tuple, tuple]:
+    """(natural, blocked): a rank each, the global columns of the blocks
+    ``spans`` (offset, width) that its shard holds, in order: of the
+    ``d`` columns split in T equal pieces whole, or of each block's T
+    pieces, block after block (``weight_blocks``' joined order)."""
+    cols = {c for o, n in spans for c in range(o, o + n)}
+    natural = tuple(tuple(c for c in range(r * d // T, (r + 1) * d // T)
+                          if c in cols) for r in range(T))
+    blocked = tuple(tuple(c for o, n in spans
                           for c in range(o + r * n // T,
                                          o + (r + 1) * n // T))
                     for r in range(T))
     return natural, blocked
+
+
+def _spans(widths: Sequence[int]) -> tuple:
+    """The (offset, width) of blocks of ``widths`` laid end to end."""
+    return tuple((sum(widths[:i]), n) for i, n in enumerate(widths))
 
 
 def _exchange(local: torch.Tensor, plan: tuple, mesh, mesh_dim: int
@@ -719,12 +957,12 @@ def to_blocks(x: torch.Tensor, widths: Sequence[int], mesh_dim: int
     gather; each block replicated there where ``x`` is, or where a width
     does not divide by T (``x`` is then gathered)."""
     T = x.device_mesh.size(mesh_dim)
-    offs = [sum(widths[:i]) for i in range(len(widths))]
+    spans = _spans(widths)
     pls = tuple(x.placements)
     if not is_shard(pls[mesh_dim]) or any(n % T for n in widths):
         x = whole_over(x, mesh_dim)
-        return tuple(x[..., o:o + n] for o, n in zip(offs, widths))
-    natural, blocked = _layouts(widths, T)
+        return tuple(x[..., o:o + n] for o, n in spans)
+    natural, blocked = _layouts(spans, sum(widths), T)
     r = x.device_mesh.get_coordinate()[mesh_dim]
     plan = _exchange_plan(natural, blocked, r)
     mesh = x.device_mesh
@@ -732,7 +970,7 @@ def to_blocks(x: torch.Tensor, widths: Sequence[int], mesh_dim: int
     def body(local):
         out = _exchange(local, plan, mesh, mesh_dim)
         return tuple(out.narrow(-1, o // T, n // T).contiguous()
-                     for o, n in zip(offs, widths))
+                     for o, n in spans)
 
     return on_local_shards(body, [(x, pls)], [pls] * len(widths))
 
@@ -750,7 +988,7 @@ def from_blocks(blocks: Sequence[torch.Tensor], mesh_dim: int
         return torch.cat([whole_over(b, mesh_dim) for b in blocks], dim=-1)
     mesh, T = first.device_mesh, first.device_mesh.size(mesh_dim)
     widths = [b.shape[-1] for b in blocks]
-    natural, blocked = _layouts(widths, T)
+    natural, blocked = _layouts(_spans(widths), sum(widths), T)
     plan = _exchange_plan(blocked, natural, mesh.get_coordinate()[mesh_dim])
 
     def body(*locals_):

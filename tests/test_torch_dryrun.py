@@ -743,16 +743,17 @@ def _mamba2_smoke_train_gathers(B: int, S: int, data: int, model: int
             + B * S * 4                           # token ids, int32
             # in_proj: over model into the blocked order, then its FSDP
             # gather over data in the product, each pass; the backward
-            # gathers it over data again for the input's grad, and takes
-            # its grad (a partial sum over data, every row) back over model
+            # gathers it over data again for the input's grad; its grad
+            # is reduced and exchanged back to its columns' order, never
+            # gathered (fault M, sharding.weight_blocks)
             + passes * L * (M // data) * D * bf16
             + passes * L * M * (D // model) * bf16
             + L * M * (D // model) * bf16
-            + L * M * D * bf16
             # B and C, each pass
             + passes * L * 2 * Bd * S * N * bf16
-            # conv weight and bias over model each pass, their grads back
-            + (passes + 1) * L * (K + 1) * C * bf16
+            # conv weight and bias over model each pass (their grads, as
+            # in_proj's, are not gathered)
+            + passes * L * (K + 1) * C * bf16
             # out_proj's and the head's FSDP gathers, forward and backward
             # (out_proj is each layer's last product: not recomputed)
             + 2 * L * (DI // model) * M * bf16
@@ -774,7 +775,8 @@ def test_a_mamba2_train_step_gathers_its_closed_form(mesh2x2):
     the shards, so a slice of the product in its stored column order would
     gather the whole product, once a block, and the conv's output once a
     block again (2728448 bytes where this form gave 669184, before the
-    64 of dt_bias's grad).  The world's FLOPs are the unsharded step's."""
+    64 of dt_bias's grad; 590272 since fault M, whose weight grads are
+    gathered no more).  The world's FLOPs are the unsharded step's."""
     cfg = tconfigs.get_smoke_config("mamba2-780m")
     shape = SMALL["train"]
     got = dryrun.run_cell(cfg, shape, mesh2x2)
